@@ -1,0 +1,214 @@
+"""FEM problem generators for the port's tests and its chip smoke run.
+
+Copied from ngsamg_tpu/utils/fem.py: ``Problem``, the 3D Kuhn-tet P1
+Poisson assembly and its helpers (the headline problem of the benchmark).
+The 2D, elasticity and unstructured generators wait for the slices that
+need them. numpy/scipy only.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import scipy.sparse as sp
+
+
+@dataclass
+class Problem:
+    """An assembled test problem (strict-algebraic-mode inputs)."""
+
+    A: sp.csr_matrix  # system matrix, Dirichlet-eliminated (SPD)
+    b: np.ndarray  # right-hand side
+    coords: np.ndarray  # (nv, dim) vertex coordinates of the FREE vertices
+    dim: int  # spatial dimension
+    block_size: int  # DOFs per vertex (1 scalar, dim elasticity)
+
+    @property
+    def n(self) -> int:
+        return self.A.shape[0]
+
+
+# Kuhn split of the unit cube into 6 tets (all share main diagonal 0-7)
+_KUHN_TETS = np.array(
+    [
+        [0, 1, 3, 7],
+        [0, 1, 5, 7],
+        [0, 2, 3, 7],
+        [0, 2, 6, 7],
+        [0, 4, 5, 7],
+        [0, 4, 6, 7],
+    ]
+)
+
+
+def _grid_3d(nx: int, ny: int, nz: int, lx=1.0, ly=1.0, lz=1.0):
+    xs = np.linspace(0.0, lx, nx + 1)
+    ys = np.linspace(0.0, ly, ny + 1)
+    zs = np.linspace(0.0, lz, nz + 1)
+    X, Y, Z = np.meshgrid(xs, ys, zs, indexing="ij")
+    verts = np.stack([X.ravel(), Y.ravel(), Z.ravel()], axis=1)
+
+    def vid(i, j, k):
+        return (i * (ny + 1) + j) * (nz + 1) + k
+
+    i, j, k = np.meshgrid(
+        np.arange(nx), np.arange(ny), np.arange(nz), indexing="ij"
+    )
+    i, j, k = i.ravel(), j.ravel(), k.ravel()
+    corners = np.stack(
+        [
+            vid(i, j, k),
+            vid(i + 1, j, k),
+            vid(i, j + 1, k),
+            vid(i + 1, j + 1, k),
+            vid(i, j, k + 1),
+            vid(i + 1, j, k + 1),
+            vid(i, j + 1, k + 1),
+            vid(i + 1, j + 1, k + 1),
+        ],
+        axis=1,
+    )  # (ncell, 8)
+    tets = corners[:, _KUHN_TETS].reshape(-1, 4)
+    return verts, tets
+
+
+def _p1_stiffness(verts, elems, coeff):
+    """Element-wise P1 stiffness: K_e = coeff_e * vol_e * G G^T.
+
+    G rows are the constant gradients of the barycentric basis functions.
+    """
+    dim = verts.shape[1]
+    ne, nl = elems.shape  # nl = dim+1
+    X = verts[elems]  # (ne, nl, dim)
+    D = X[:, 1:, :] - X[:, :1, :]  # (ne, dim, dim) edge matrix
+    detD = np.linalg.det(D)
+    vol = np.abs(detD) / (2.0 if dim == 2 else 6.0)
+    Dinv = np.linalg.inv(D)  # (ne, dim, dim)
+    # gradients: g_i (i=1..dim) = rows of Dinv^T; g_0 = -sum g_i
+    G = np.empty((ne, nl, dim))
+    G[:, 1:, :] = np.transpose(Dinv, (0, 2, 1))
+    G[:, 0, :] = -G[:, 1:, :].sum(axis=1)
+    Ke = np.einsum("eid,ejd->eij", G, G) * (coeff * vol)[:, None, None]
+    return Ke, vol
+
+
+def _assemble(nv, elems, Ke, block: int = 1):
+    """Scatter element matrices into a global scipy CSR (scalar DOFs)."""
+    nl = elems.shape[1]
+    rows = np.repeat(elems, nl, axis=1).ravel()
+    cols = np.tile(elems, (1, nl)).ravel()
+    A = sp.coo_matrix((Ke.ravel(), (rows, cols)), shape=(nv, nv)).tocsr()
+    A.sum_duplicates()
+    return A
+
+
+def _eliminate_dirichlet(A, b, coords, fixed_mask, block_size=1):
+    """Remove fixed-vertex DOFs symmetrically (keep only free rows/cols)."""
+    free_v = ~fixed_mask
+    if block_size == 1:
+        free = free_v
+    else:
+        free = np.repeat(free_v, block_size)
+    A = A[free][:, free].tocsr()
+    return A, b[free], coords[free_v]
+
+
+def poisson_3d(n: int = 16, jump: bool = False, f=1.0) -> Problem:
+    """P1 Poisson on the unit cube (Kuhn tets), Dirichlet boundary.
+
+    Constant-coefficient problems take the O(n) stencil-replication fast
+    path (`_poisson_3d_stencil`) — the matrix is identical to element
+    assembly because the uniform Kuhn-tet P1 stiffness is translation
+    invariant; only the assembly cost changes.
+    """
+    if not jump and n >= 8:
+        return _poisson_3d_stencil(n, f)
+    return _poisson_3d_assembled(n, jump, f)
+
+
+_STENCIL_CACHE: dict = {}
+
+
+def _kuhn_stencil():
+    """Interior stencil (offsets in (i,j,k), values per unit h) + load."""
+    if "v" in _STENCIL_CACHE:
+        return _STENCIL_CACHE["v"]
+    n0 = 8
+    p = _poisson_3d_assembled(n0, False, 1.0)
+    m = n0 - 1  # interior lattice per dim
+    c = (m // 2) * m * m + (m // 2) * m + (m // 2)  # center vertex
+    A = p.A.tocsr()
+    lo, hi = A.indptr[c], A.indptr[c + 1]
+    cols, vals = A.indices[lo:hi], A.data[lo:hi]
+    offs = []
+    for col, v in zip(cols, vals):
+        d = int(col) - c
+        di, r = divmod(d + 2 * m * m + 2 * m + 2, m * m)
+        dj, dk = divmod(r, m)
+        # normalize out the probe's h0 = 1/n0 (3D P1 stiffness ~ h)
+        offs.append(((di - 2, dj - 2, dk - 2), float(v) * n0))
+    # load per interior vertex scales with h^3 (here h = 1/n0)
+    bc = float(p.b[c]) * (n0**3)
+    _STENCIL_CACHE["v"] = (offs, bc)
+    return _STENCIL_CACHE["v"]
+
+
+def _poisson_3d_stencil(n: int, f: float) -> Problem:
+    offs, bunit = _kuhn_stencil()
+    m = n - 1  # interior vertices per dim
+    nv = m**3
+    h = 1.0 / n
+    I, J, K = np.meshgrid(np.arange(m), np.arange(m), np.arange(m),
+                          indexing="ij")
+    I, J, K = I.ravel(), J.ravel(), K.ravel()
+    diags, offsets = [], []
+    for (di, dj, dk), v in offs:
+        off = (di * m + dj) * m + dk
+        valid = (
+            (I + di >= 0) & (I + di < m)
+            & (J + dj >= 0) & (J + dj < m)
+            & (K + dk >= 0) & (K + dk < m)
+        )
+        col = np.where(valid, v * h, 0.0)  # stiffness scales with h in 3D
+        # sp.dia_matrix convention: data[d, i] used for column i (= row i-off)
+        d = np.zeros(nv)
+        rows = np.arange(nv)
+        cols = rows + off
+        ok = valid & (cols >= 0) & (cols < nv)
+        d[cols[ok]] = col[ok]
+        diags.append(d)
+        offsets.append(off)
+    # kept in DIA: the AMG stencil fast path decodes it without a COO/CSR
+    # detour (transfer/stencil.from_dia), and scipy DIA matvec serves the
+    # host-side residual checks fine
+    A = sp.dia_matrix((np.asarray(diags), np.asarray(offsets)),
+                      shape=(nv, nv))
+    b = np.full(nv, f * bunit * h**3)
+    xs = (np.arange(m) + 1) * h
+    X, Y, Z = np.meshgrid(xs, xs, xs, indexing="ij")
+    coords = np.stack([X.ravel(), Y.ravel(), Z.ravel()], axis=1)
+    return Problem(A=A, b=b, coords=coords, dim=3, block_size=1)
+
+
+def _poisson_3d_assembled(n: int, jump: bool, f) -> Problem:
+    verts, tets = _grid_3d(n, n, n)
+    centers = verts[tets].mean(axis=1)
+    if jump:
+        m = (
+            (centers[:, 0] > 0.3)
+            & (centers[:, 0] < 0.7)
+            & (centers[:, 1] > 0.3)
+            & (centers[:, 1] < 0.7)
+        )
+        coeff = np.where(m, 1e4, 1.0)
+    else:
+        coeff = np.ones(len(tets))
+    Ke, vol = _p1_stiffness(verts, tets, coeff)
+    A = _assemble(len(verts), tets, Ke)
+    b = np.zeros(len(verts))
+    np.add.at(b, tets.ravel(), np.repeat(f * vol / 4.0, 4))
+    x, y, z = verts.T
+    fixed = (x == 0) | (x == 1) | (y == 0) | (y == 1) | (z == 0) | (z == 1)
+    A, b, coords = _eliminate_dirichlet(A, b, verts, fixed)
+    return Problem(A=A, b=b, coords=coords, dim=3, block_size=1)

@@ -1,0 +1,118 @@
+"""Device-time breakdown and busy share of one warm headline solve.
+
+    python3 -m ngsamg_tpu_torch.utils.trace_solve
+
+Needs one CUDA device. Sets up ``fem.poisson_3d(216)`` with the Chebyshev
+smoother on ``cuda``, runs two warm-up solves and five unprofiled warm
+solves (host wall clock, ending in ``torch.cuda.synchronize()``), then one
+solve under ``torch.profiler``. It prints the device time by kernel name
+and one JSON line with:
+
+- ``busy_ms``: the union of the device events' intervals in the profiled
+  solve (overlapping events count once);
+- ``busy_share``: ``busy_ms`` over the median unprofiled warm solve. The
+  profiler slows the host's dispatch but not the kernels, so this is the
+  share of a real warm solve in which the device is busy;
+- ``busy_share_profiled``: ``busy_ms`` over the profiled solve's own wall
+  clock, which the profiler inflates (a lower bound).
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+
+def _wall(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _union_us(intervals) -> float:
+    busy, cur_s, cur_e = 0.0, None, None
+    for a, b in sorted(intervals):
+        if cur_e is None or a > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy
+
+
+def main() -> int:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from .. import AMGOptions, AMGPreconditioner
+    from ..config import SmootherOptions, SmootherType
+    from . import fem
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("trace_solve needs a CUDA device")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(f"[trace] {smi}", flush=True)
+    p = fem.poisson_3d(216)
+    opts = AMGOptions(smoother=SmootherOptions(type=SmootherType.CHEBYSHEV))
+    pc = AMGPreconditioner(
+        p.A, coords=p.coords, options=opts, device="cuda"
+    ).setup()
+
+    def solve():
+        return pc.solve(p.b, tol=1e-8, return_device=True)
+
+    for _ in range(2):
+        _wall(solve)
+    walls = [_wall(solve) for _ in range(5)]
+    warm = float(np.median(walls))
+    with profile(
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    ) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _x, info = solve()
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us = _union_us(
+        (e.time_range.start, e.time_range.end) for e in evs
+    )
+    by_name: dict[str, list] = {}
+    for e in evs:
+        t = by_name.setdefault(e.name, [0.0, 0])
+        t[0] += e.time_range.elapsed_us()
+        t[1] += 1
+    total_us = sum(t for t, _ in by_name.values())
+    for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]:
+        print(f"[trace] {t / 1e3:9.3f} ms {c:6d} calls "
+              f"{100 * t / total_us:5.1f}%  {name[:90]}")
+    print(json.dumps({
+        "device": smi,
+        "iterations": int(info.iterations),
+        "warm_solve_ms": [w * 1e3 for w in walls],
+        "warm_solve_median_ms": warm * 1e3,
+        "profiled_solve_ms": prof_wall * 1e3,
+        "device_events": len(evs),
+        "device_time_sum_ms": total_us / 1e3,
+        "busy_ms": busy_us / 1e3,
+        "busy_share": busy_us / 1e6 / warm,
+        "busy_share_profiled": busy_us / 1e6 / prof_wall,
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -10,7 +10,13 @@ from setuptools import Extension, setup
 setup(
     name="ngsamg_tpu",
     version="0.1.0",
-    packages=["ngsamg_tpu"],
+    packages=["ngsamg_tpu"] + [
+        "ngsamg_tpu_torch" + sub
+        for sub in ("", ".apps", ".coarsen", ".factory", ".mesh", ".ops",
+                    ".precond", ".smoothers", ".solve", ".sparse",
+                    ".transfer", ".utils")
+    ],
+    package_data={"ngsamg_tpu_torch": ["csrc/*.cu"]},
     ext_modules=[
         Extension(
             "ngsamg_tpu.native._ngsamg_native",

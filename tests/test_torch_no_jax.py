@@ -1,0 +1,72 @@
+"""ngsamg_tpu_torch must run where JAX does not exist.
+
+In a fresh interpreter (this test process has already imported
+ngsamg_tpu and JAX via tests/conftest.py), import the package, run one
+small solve on the CPU, and check that neither `jax` nor `ngsamg_tpu` was
+ever imported.
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = textwrap.dedent(
+    """
+    import sys
+    import numpy as np
+    import torch
+    torch.set_num_threads(2)
+    import ngsamg_tpu_torch
+    from ngsamg_tpu_torch.utils import fem
+
+    p = fem.poisson_3d(34)  # 35,937 DoF: the uniform-stencil branches
+    opts = ngsamg_tpu_torch.AMGOptions(
+        smoother=ngsamg_tpu_torch.SmootherOptions(
+            type=ngsamg_tpu_torch.SmootherType.CHEBYSHEV
+        )
+    )
+    pc = ngsamg_tpu_torch.AMGPreconditioner(
+        p.A, coords=p.coords, options=opts, device="cpu"
+    ).setup()
+    x, info = pc.solve(p.b, tol=1e-8)
+    rel = np.linalg.norm(p.b - p.A @ x) / np.linalg.norm(p.b)
+    assert info.converged and rel <= 1e-8, (info, rel)
+    bad = sorted(
+        m for m in sys.modules
+        if m in ("jax", "jaxlib", "ngsamg_tpu")
+        or m.startswith(("jax.", "jaxlib.", "ngsamg_tpu."))
+    )
+    assert not bad, bad
+    print("OK", info.iterations)
+    """
+)
+
+
+def test_port_imports_no_jax():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run(
+        [sys.executable, "-c", SCRIPT],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.strip().startswith("OK")
+
+
+def test_port_sources_never_name_jax():
+    """No module of the port imports the JAX package or JAX itself."""
+    pkg = os.path.join(ROOT, "ngsamg_tpu_torch")
+    for dirpath, _dirs, files in os.walk(pkg):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            with open(os.path.join(dirpath, f)) as fh:
+                for line in fh:
+                    s = line.strip()
+                    if s.startswith(("import ", "from ")):
+                        assert "jax" not in s, (f, s)
+                        assert "ngsamg_tpu." not in s and not s.startswith(
+                            ("import ngsamg_tpu ", "from ngsamg_tpu ")
+                        ), (f, s)

@@ -1,0 +1,254 @@
+"""Port parity for the host setup and the device staging of a hierarchy.
+
+`fem.poisson_3d(40)` with the Chebyshev smoother goes through both
+packages' `AMGPreconditioner(...).setup()`. At this size the stencil
+domain yields a uniform finest level (`StencilDia`), a clamp-compressed
+level and a CSR tail, as the headline does. `_DIA_SYM_MIN_ROWS` is
+lowered to 1,000 in both packages so that the symmetric half-storage
+staging (K3's format) is covered here too.
+
+Stencil-domain data is compared bitwise: both packages run the same
+numpy code. CSR-tail matrices, lambda_max estimates and the coarse
+inverse are compared in f64 to rtol 1e-10, because the JAX package may
+use its optional native `rap_csr`/`rho_power` where the port uses
+scipy/numpy. Their f32-staged copies may then differ by one f32 ulp.
+"""
+
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+
+import ngsamg_tpu
+import ngsamg_tpu.precond.amg as jamg
+import ngsamg_tpu.smoothers.build as jbuild
+import ngsamg_tpu.sparse.formats as jformats
+import ngsamg_tpu_torch
+import ngsamg_tpu_torch.precond.amg as tamg
+import ngsamg_tpu_torch.smoothers.build as tbuild
+import ngsamg_tpu_torch.sparse.formats as tformats
+from ngsamg_tpu_torch.factory.levels import setup_levels
+from ngsamg_tpu_torch.utils import fem as tfem
+
+torch.set_num_threads(2)
+
+F32_ULP = 2.0 ** -23
+
+
+def _cheb(pkg):
+    return pkg.AMGOptions(
+        smoother=pkg.config.SmootherOptions(
+            type=pkg.config.SmootherType.CHEBYSHEV
+        )
+    )
+
+
+@pytest.fixture(scope="module")
+def pair():
+    p = tfem.poisson_3d(40)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jformats, "_DIA_SYM_MIN_ROWS", 1000)
+        mp.setattr(tformats, "_DIA_SYM_MIN_ROWS", 1000)
+        pj = ngsamg_tpu.AMGPreconditioner(
+            p.A, coords=p.coords, options=_cheb(ngsamg_tpu)
+        ).setup()
+        pt = ngsamg_tpu_torch.AMGPreconditioner(
+            p.A, coords=p.coords, options=_cheb(ngsamg_tpu_torch),
+            device="cpu",
+        ).setup()
+    return p, pj, pt
+
+
+def test_fem_matches_jax(pair):
+    from ngsamg_tpu.utils import fem as jfem
+
+    p, _, _ = pair
+    q = jfem.poisson_3d(40)
+    assert isinstance(p.A, sp.dia_matrix)
+    np.testing.assert_array_equal(p.A.offsets, q.A.offsets)
+    np.testing.assert_array_equal(p.A.data, q.A.data)
+    np.testing.assert_array_equal(p.b, q.b)
+    np.testing.assert_array_equal(p.coords, q.coords)
+
+
+def test_level_log_matches(pair):
+    _, pj, pt = pair
+    assert pt.log_.nvs == pj.log_.nvs
+    assert pt.log_.nnzs == pj.log_.nnzs
+    assert pt.num_levels == pj.num_levels == 4
+    assert pt.operator_complexity == pj.operator_complexity
+
+
+def test_stencil_levels_bitwise(pair):
+    from ngsamg_tpu.transfer import stencil as jst
+
+    _, pj, pt = pair
+    n_stencil = 0
+    for lj, lt in zip(pj.setup_levels_, pt.setup_levels_):
+        assert lt.lattice_transfer == lj.lattice_transfer
+        assert type(lt.stencil).__name__ == type(lj.stencil).__name__
+        if lj.stencil is None:
+            continue
+        n_stencil += 1
+        sj, stc = lj.stencil, lt.stencil
+        if isinstance(sj, jst.ClampedOp):
+            assert stc.dims == sj.dims and stc.bands == sj.bands
+            for mj, mt in zip(sj.maps, stc.maps):
+                np.testing.assert_array_equal(mt, mj)
+            sj, stc = sj.patch, stc.patch
+        np.testing.assert_array_equal(stc.offs, sj.offs)
+        np.testing.assert_array_equal(stc.data, sj.data)
+    assert n_stencil == 2
+
+
+def test_csr_tail_levels(pair):
+    _, pj, pt = pair
+    n_csr = 0
+    for lj, lt in zip(pj.setup_levels_[1:], pt.setup_levels_[1:]):
+        assert (lj.A is None) == (lt.A is None)
+        if lj.A is None:
+            continue
+        n_csr += 1
+        Aj, At = lj.A.tocsr(), lt.A.tocsr()
+        assert At.shape == Aj.shape and At.nnz == Aj.nnz
+        diff = abs(At - Aj).max()
+        assert diff <= 1e-10 * abs(Aj).max()
+    assert n_csr == 3
+
+
+def test_staged_formats(pair):
+    _, pj, pt = pair
+    kinds = []
+    for i, (dj, dt) in enumerate(zip(pj.op.levels, pt.op.levels)):
+        Aj, At = dj.A, dt.A
+        kinds.append(type(At).__name__)
+        assert type(At).__name__ == type(Aj).__name__
+        assert At.nrows == Aj.nrows
+        tail = pj.setup_levels_[i].stencil is None
+        if isinstance(At, tformats.StencilDia):
+            assert At.offs == Aj.offs and At.dims == Aj.dims
+            np.testing.assert_array_equal(At.vals.numpy(), np.asarray(Aj.vals))
+            continue
+        if isinstance(At, tformats.DiaMatrix):
+            assert At.offsets == Aj.offsets
+            assert At.sym_half == Aj.sym_half
+            a, b = At.data.numpy()[:, : At.nrows], np.asarray(Aj.data)[
+                :, : Aj.nrows
+            ]
+        else:
+            n = At.nrows
+            a, b = At.data.numpy()[:n, :n], np.asarray(Aj.data)[:n, :n]
+        if tail:
+            np.testing.assert_allclose(a, b, rtol=F32_ULP, atol=0)
+        else:
+            np.testing.assert_array_equal(a, b)
+    assert kinds == ["StencilDia", "DiaMatrix", "DiaMatrix", "DenseMatrix"]
+    # the clamp-compressed level is stored symmetric half at this threshold
+    assert pt.op.levels[1].A.sym_half
+
+
+def test_smoothers_and_transfers(pair):
+    _, pj, pt = pair
+    for i, (dj, dt) in enumerate(zip(pj.op.levels, pt.op.levels)):
+        smj, smt = dj.smoother, dt.smoother
+        assert (smj is None) == (smt is None)
+        if smj is None:
+            continue
+        assert type(smt).__name__ == type(smj).__name__ == "ChebyshevSmoother"
+        assert smt.order == smj.order == 3 and smt.steps == smj.steps
+        assert smt.lam_max.dtype == np.float32
+        for a, b in ((smt.lam_max, smj.lam_max), (smt.lam_min, smj.lam_min)):
+            np.testing.assert_allclose(a, np.asarray(b), rtol=F32_ULP)
+        np.testing.assert_allclose(
+            smt.Dinv.numpy(), np.asarray(smj.Dinv), rtol=F32_ULP, atol=0
+        )
+        for Tj, Tt in ((dj.P, dt.P), (dj.R, dt.R)):
+            assert type(Tt).__name__ == type(Tj).__name__
+            for f in ("dims_f", "dims_c", "omega", "nf", "nc"):
+                assert getattr(Tt, f) == getattr(Tj, f)
+            assert Tt.A is dt.A  # shared with the level, not a copy
+            nf = Tt.nf if Tt.Dinv.shape[0] > 1 else 1
+            np.testing.assert_allclose(
+                Tt.Dinv.numpy()[:nf], np.asarray(Tj.Dinv)[:nf],
+                rtol=F32_ULP, atol=0,
+            )
+    # the uniform finest level broadcasts one Dinv scalar
+    assert tuple(pt.op.levels[0].smoother.Dinv.shape) == (1, 1, 1)
+
+
+def test_lam_max_estimate_f64(pair):
+    _, pj, pt = pair
+    for lj, lt in zip(pj.setup_levels_, pt.setup_levels_):
+        if lj.stencil is not None or lj is pj.setup_levels_[-1]:
+            continue
+        Dj = jbuild._pinv_blocks(lj.A.diagonal().reshape(-1, 1, 1))
+        Dt = tbuild._pinv_blocks(lt.A.diagonal().reshape(-1, 1, 1))
+        np.testing.assert_allclose(
+            tbuild._lam_max_estimate(lt.A, 1, Dt),
+            jbuild._lam_max_estimate(lj.A, 1, Dj),
+            rtol=1e-10,
+        )
+
+
+def test_coarse_inverse(pair):
+    _, pj, pt = pair
+    inv_j = jamg._spd_inverse(pj.setup_levels_[-1].A.toarray())
+    inv_t = tamg._spd_inverse(pt.setup_levels_[-1].A.toarray())
+    np.testing.assert_allclose(
+        inv_t, inv_j, rtol=1e-10, atol=1e-10 * np.abs(inv_j).max()
+    )
+    cj, ct = np.asarray(pj.op.coarse_inv), pt.op.coarse_inv.numpy()
+    assert ct.shape == cj.shape and ct.dtype == cj.dtype == np.float32
+    np.testing.assert_allclose(ct, cj, rtol=2 * F32_ULP, atol=1e-7 * np.abs(cj).max())
+
+
+def test_f64_finest_stencil(pair):
+    _, pj, pt = pair
+    A64j, A64t = pj._A64_dev, pt._A64_dev
+    assert A64t.vals.dtype == torch.float64
+    assert A64t.offs == A64j.offs and A64t.dims == A64j.dims
+    np.testing.assert_array_equal(A64t.vals.numpy(), np.asarray(A64j.vals))
+
+
+def test_unported_paths_raise():
+    """Problems the structured fast path declines raise; nothing else runs."""
+    p = tfem.poisson_3d(12)
+    opts = _cheb(ngsamg_tpu_torch)
+    with pytest.raises(NotImplementedError, match="generic level loop"):
+        setup_levels(p.A, ngsamg_tpu_torch.precond.amg.H1Energy(), opts, None)
+    gs = ngsamg_tpu_torch.AMGOptions()  # default smoother: GS
+    with pytest.raises(NotImplementedError):
+        ngsamg_tpu_torch.AMGPreconditioner(
+            p.A, coords=p.coords, options=gs, device="cpu"
+        ).setup()
+    with pytest.raises(NotImplementedError):
+        ngsamg_tpu_torch.AMGPreconditioner(
+            p.A, coords=p.coords, device="cpu", options=opts.replace(
+                cycle=ngsamg_tpu_torch.CycleType.W
+            )
+        )
+
+
+@pytest.mark.parametrize(
+    "field, value, item",
+    [("shards", 4, "item 8"), ("dist_setup", 4, "item 8"),
+     ("do_test", True, "item 7")],
+)
+def test_unported_options_raise(field, value, item):
+    """Sharding, distributed setup and the self-test are not ported: asking
+    for them raises instead of running a plain single-device setup."""
+    p = tfem.poisson_3d(12)
+    opts = _cheb(ngsamg_tpu_torch).replace(**{field: value})
+    with pytest.raises(NotImplementedError, match=f"{field}: .*{item}"):
+        ngsamg_tpu_torch.AMGPreconditioner(
+            p.A, coords=p.coords, options=opts, device="cpu"
+        )
+
+
+def test_device_is_required():
+    """No implicit CPU default: the caller names the device."""
+    p = tfem.poisson_3d(12)
+    with pytest.raises(TypeError, match="device"):
+        ngsamg_tpu_torch.AMGPreconditioner(
+            p.A, coords=p.coords, options=_cheb(ngsamg_tpu_torch)
+        )
