@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of ngsamg_tpu_torch on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py    # the headline: poisson_3d(216), 9,938,375 DoF
+    python3 chip_smoke.py    # poisson_3d(216), 9,938,375 DoF, and
+                             # unstructured_poisson(55, 3, refine=1), 1,411,632
 
 Phases, each of which raises (nonzero exit) on failure:
 
@@ -21,6 +22,20 @@ Phases, each of which raises (nonzero exit) on failure:
    differs), with the median time per call of both over >= 20 calls; a
    warm second solve; and a small solve on the card against the same
    solve on the CPU.
+5. unstructured path — resets the counters, assembles
+   ``fem.unstructured_poisson(55, dim=3, refine=1)`` (perturbed Delaunay,
+   one red refinement), sets it up on the card (generic level loop,
+   tile-ELL levels and transfers, cluster correction) and solves it to
+   1e-8 (host defect correction), reads the counters; checks the level
+   count, operator complexity, iterations, true relative residual and
+   that every level and transfer is tile-ELL or dense; a warm second
+   solve.
+6. tile-ELL — the median time per call (>= 20 calls, CUDA events) of the
+   plain torch tile-ELL matvec of every tile-ELL level and transfer of that
+   hierarchy (there is no hand-written tile-ELL kernel yet).
+7. unstructured reference — ``unstructured_poisson(20, dim=3)`` (a DIA
+   finest level under tile-ELL transfers and cluster correction) on the
+   card against the CPU; K2 must launch.
 
 The last lines are the nvidia-smi line, one JSON object describing the
 kernels, and ``{"ok": true, "device": {...}}``.
@@ -38,6 +53,11 @@ import numpy as np
 F32_TOL = 1e-6
 F64_TOL = 1e-13
 HEADLINE_LEVELS = [9938375, 1259712, 157464, 19683, 2744, 343]
+UNSTRUCT_DOFS = 1411632
+UNSTRUCT_LEVELS = 7
+UNSTRUCT_OC = 2.09  # the JAX package's operator complexity, to 2 places
+UNSTRUCT_MAX_IT = 25
+UNSTRUCT_FORMATS = {"TileELLStack", "TileELL", "DenseMatrix"}
 KERNELS = {
     "stencil_matvec_f32": (
         "ngsamg_tpu_torch/csrc/stencil_matvec.cu",
@@ -371,6 +391,154 @@ def phase_reference(p, pc):
     return warm
 
 
+def _cheb_opts():
+    from ngsamg_tpu_torch import AMGOptions
+    from ngsamg_tpu_torch.config import SmootherOptions, SmootherType
+
+    return AMGOptions(smoother=SmootherOptions(type=SmootherType.CHEBYSHEV))
+
+
+def phase_unstructured():
+    """The unstructured path at 1,411,632 DoF on the card."""
+    import torch
+
+    from ngsamg_tpu_torch import AMGPreconditioner
+    from ngsamg_tpu_torch.utils import fem
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    p = fem.unstructured_poisson(55, dim=3, refine=1)
+    t1 = time.perf_counter()
+    pc = AMGPreconditioner(
+        p.A, coords=p.coords, options=_cheb_opts(), device="cuda"
+    ).setup()
+    t2 = time.perf_counter()
+    x, info = pc.solve(p.b, tol=1e-8, return_device=True)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = _counts()
+    x = np.asarray(x)  # a host array: the finest level has no f64 stencil
+    if x.shape != (p.n,) or not np.isfinite(x).all():
+        raise AssertionError(f"solution: shape {x.shape}, not all finite")
+    relres = float(np.linalg.norm(p.b - p.A @ x) / np.linalg.norm(p.b))
+    t4 = time.perf_counter()
+    _x2, info2 = pc.solve(p.b, tol=1e-8)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t4
+    cc = pc.op.cluster_corr
+    level_fmts = [type(lev.A).__name__ for lev in pc.op.levels]
+    transfer_fmts = [
+        [type(lev.P).__name__, type(lev.R).__name__]
+        for lev in pc.op.levels[:-1]
+    ]
+    out = {
+        "dofs": int(p.n),
+        "assembly_s": t1 - t0,
+        "setup_s": t2 - t1,
+        "setup_host_s": pc.setup_time_host,
+        "setup_staging_s": pc.setup_time_device,
+        "solve_s": t3 - t2,
+        "warm_solve_s": warm,
+        "iterations": int(info.iterations),
+        "outer_iterations": int(info.outer_iterations),
+        "warm_iterations": int(info2.iterations),
+        "relres_true": relres,
+        "relres_solver": float(info.relres),
+        "num_levels": pc.num_levels,
+        "operator_complexity": pc.operator_complexity,
+        "level_sizes": [int(v) for v in pc.log_.nvs],
+        "level_formats": level_fmts,
+        "transfer_formats": transfer_fmts,
+        "clusters": None if cc is None else list(cc.idx.shape),
+        "launches": launches,
+    }
+    print("[unstructured] " + json.dumps(out), flush=True)
+    if int(p.n) != UNSTRUCT_DOFS:
+        raise AssertionError(f"{p.n} DoF != {UNSTRUCT_DOFS}")
+    if pc.num_levels != UNSTRUCT_LEVELS:
+        raise AssertionError(f"num_levels {pc.num_levels} != {UNSTRUCT_LEVELS}")
+    if round(pc.operator_complexity, 2) != UNSTRUCT_OC:
+        raise AssertionError(f"operator complexity {pc.operator_complexity}")
+    if int(info.iterations) > UNSTRUCT_MAX_IT:
+        raise AssertionError(f"{info.iterations} iterations > {UNSTRUCT_MAX_IT}")
+    if not info.converged or relres > 1e-8:
+        raise AssertionError(
+            f"not converged: solver relres {info.relres}, true {relres}"
+        )
+    bad = {f for f in level_fmts + sum(transfer_fmts, [])
+           if f not in UNSTRUCT_FORMATS}
+    if bad:
+        raise AssertionError(f"formats outside {UNSTRUCT_FORMATS}: {bad}")
+    if cc is None:
+        raise AssertionError("no cluster correction staged")
+    for k in sorted(_path_kernels(pc)):
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} never launched on this path")
+    return p, pc, out
+
+
+def phase_tile_ell(pc):
+    """Plain torch tile-ELL matvec per tile-ELL level and transfer."""
+    import torch
+
+    from ngsamg_tpu_torch.sparse import formats
+
+    rows = []
+    for lvl, lev in enumerate(pc.op.levels):
+        for what, T in (("A", lev.A), ("P", lev.P), ("R", lev.R)):
+            if not isinstance(T, (formats.TileELL, formats.TileELLStack)):
+                continue
+            blocks = T.blocks if isinstance(T, formats.TileELLStack) else (T,)
+            slots = sum(int(b.cols.numel()) for b in blocks)
+            nbytes = sum(b.data.numel() * b.data.element_size()
+                         + b.cols.numel() * b.cols.element_size()
+                         for b in blocks)
+            x = _rand_x(T.ncols_pad, T.ncols_pad, torch.float32, 200 + lvl)
+            ms = _time_ms(lambda: formats.matvec(T, x))
+            row = {"level": lvl, "op": what, "format": type(T).__name__,
+                   "rows": T.nrows, "cols_pad": T.ncols_pad,
+                   "buckets": len(blocks), "slots": slots,
+                   "chunk": blocks[0].chunk_c, "bytes": nbytes, "ms": ms}
+            print("[tile_ell] " + json.dumps(row), flush=True)
+            rows.append(row)
+    return rows
+
+
+def phase_unstructured_reference():
+    """unstructured_poisson(20, dim=3) on the card against the CPU."""
+    from ngsamg_tpu_torch import AMGPreconditioner
+    from ngsamg_tpu_torch.sparse import formats
+    from ngsamg_tpu_torch.utils import fem
+
+    q = fem.unstructured_poisson(20, dim=3)
+    sols = {}
+    for dev in ("cuda", "cpu"):
+        _reset_counts()
+        pcs = AMGPreconditioner(q.A, coords=q.coords, options=_cheb_opts(),
+                                device=dev).setup()
+        xs, inf = pcs.solve(q.b, tol=1e-8)
+        sols[dev] = (pcs, xs, inf, _counts())
+    (pg, xg, ig, lg), (_pcc, xc, ic, _lc) = sols["cuda"], sols["cpu"]
+    diff = float(np.linalg.norm(xg - xc) / np.linalg.norm(xc))
+    relg = float(np.linalg.norm(q.b - q.A @ xg) / np.linalg.norm(q.b))
+    fmts = [type(lev.A).__name__ for lev in pg.op.levels]
+    print(f"[unstructured-reference] unstructured_poisson(20, 3): "
+          f"{q.n} DoF, formats {fmts}, clusters "
+          f"{None if pg.op.cluster_corr is None else list(pg.op.cluster_corr.idx.shape)}; "
+          f"card {ig.iterations} it relres {relg:.3e}; cpu {ic.iterations} "
+          f"it relres {ic.relres:.3e}; |x_card - x_cpu|/|x_cpu| {diff:.3e}; "
+          f"card launches {lg}", flush=True)
+    if not isinstance(pg.op.levels[0].A, formats.DiaMatrix):
+        raise AssertionError(f"finest level {fmts[0]}, expected DiaMatrix")
+    if abs(ig.iterations - ic.iterations) > 1 or not ig.converged \
+            or relg > 1e-8:
+        raise AssertionError("unstructured solve on the card disagrees")
+    if diff > 1e-6:
+        raise AssertionError(f"unstructured solve differs from the CPU by {diff}")
+    if lg["dia_matvec_f32"] <= 0:
+        raise AssertionError("K2 never launched on the small unstructured solve")
+
+
 def main() -> int:
     import torch
 
@@ -381,6 +549,11 @@ def main() -> int:
     p, pc, main_out = phase_main_path()
     rows = phase_kernels(p, pc, main_out["launches"])
     phase_reference(p, pc)
+    del p, pc
+    _up, upc, _uout = phase_unstructured()
+    phase_tile_ell(upc)
+    del _up, upc
+    phase_unstructured_reference()
     print(_nvidia_smi())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

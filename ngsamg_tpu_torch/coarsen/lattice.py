@@ -1,8 +1,9 @@
-"""Lattice detection for the structured (stencil-domain) setup.
+"""Lattice detection and lattice-structured aggregation.
 
 Copied from ngsamg_tpu/coarsen/lattice.py: ``detect_lattice`` and
-``detect_lattice_rowmajor`` with their helper. The aggregation entry point
-of the generic level loop waits for that loop. numpy only.
+``detect_lattice_rowmajor`` with their helper (the structured setup), and
+``lattice_aggregate``, which the generic level loop's AUTO coarsening tries
+before pairwise matching. numpy only.
 """
 
 from __future__ import annotations
@@ -82,7 +83,7 @@ def detect_lattice_rowmajor(coords: np.ndarray | None):
         return None
     # chunked verification over the leading axis with a reusable scratch
     # buffer: full-size temporaries (5 x 80 MB per axis at 10M) are all
-    # fresh-page writes, ~15x slower than warm pages on this host
+    # fresh-page writes, up to ~15x slower than warm pages
     tail = int(np.prod([float(m) for m in dims[1:]])) if d > 1 else 1
     B0 = max(1, int(2_000_000 // max(tail, 1)))
     buf = np.empty(min(dims[0], B0) * tail, dtype=np.float64)
@@ -139,3 +140,24 @@ def detect_lattice(coords: np.ndarray | None):
     elif len(np.unique(key)) != nv:
         return None
     return idx, dims
+
+
+def lattice_aggregate(
+    coords: np.ndarray, factor: int = 2
+) -> tuple[np.ndarray, int] | None:
+    """Aggregate `factor`^d lattice blocks. Returns (v2agg, n_agg) or None."""
+    det = detect_lattice(coords)
+    if det is None:
+        return None
+    idx, dims = det
+    cdims = (dims + factor - 1) // factor
+    cidx = idx // factor
+    key = np.zeros(len(idx), dtype=np.int64)
+    for k in range(idx.shape[1]):
+        key = key * cdims[k] + cidx[:, k]
+    # sort-free compaction (prod(cdims) <= prod(dims) <= 8 nv by detection)
+    prod = int(np.prod(cdims))
+    present = np.zeros(prod, dtype=bool)
+    present[key] = True
+    remap = np.cumsum(present, dtype=np.int64) - 1
+    return remap[key], int(present.sum())

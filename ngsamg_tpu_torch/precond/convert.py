@@ -4,15 +4,21 @@
 ``AMGOperator`` — with its leaves already read out as numpy arrays, e.g.
 ``jax.tree_util.tree_map(np.asarray, pc.op)`` — into this package's
 :class:`~ngsamg_tpu_torch.solve.cycle.AMGOperator`, so both packages can run
-one cycle on identical data. The JAX classes are recognised by name; this
-module imports neither JAX nor ngsamg_tpu.
+one cycle on identical data: stencil, DIA, dense and tile-ELL levels,
+lattice and tile-ELL transfers, the cluster correction and an f32 or f64
+coarse inverse. A ``SupernodeELL`` (what the JAX package stages for
+tile-ELL when its native packer is not built) is rebuilt as a matrix from
+its blocks and packed with this package's tile-ELL packer. The JAX classes
+are recognised by name; this module imports neither JAX nor ngsamg_tpu.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
+from ..smoothers.cluster_corr import ClusterCorrection
 from ..smoothers.core import ChebyshevSmoother
 from ..solve.cycle import AMGOperator, DeviceLevel
 from ..sparse import formats
@@ -21,6 +27,11 @@ from ..transfer.lattice_transfer import LatticeProlongation, LatticeRestriction
 
 def _t(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def _index(a, device) -> torch.Tensor:
+    """An index array (int32 in the JAX layout) as this package's int64."""
+    return torch.from_numpy(np.asarray(a, dtype=np.int64)).to(device)
 
 
 def _format(A, device):
@@ -48,7 +59,58 @@ def _format(A, device):
             nrows_pad=int(A.nrows_pad),
             bs=int(A.bs),
         )
+    if kind == "TileELL":
+        return _tile_ell(A, device)
+    if kind == "TileELLStack":
+        return formats.TileELLStack(
+            blocks=tuple(_tile_ell(b, device) for b in A.blocks),
+            nrows=int(A.nrows),
+            nrows_pad=int(A.nrows_pad),
+            ncols_pad=int(A.ncols_pad),
+            tile_m=int(A.tile_m),
+        )
+    if kind == "SupernodeELL":
+        return _supernode_as_tile_ell(A, device)
     raise TypeError(f"level format {kind} has no port")
+
+
+def _tile_ell(A, device) -> formats.TileELL:
+    return formats.TileELL(
+        data=_t(A.data, device),
+        cols=_index(A.cols, device),
+        nrows=int(A.nrows),
+        nrows_pad=int(A.nrows_pad),
+        ncols_pad=int(A.ncols_pad),
+        tile_m=int(A.tile_m),
+        chunk_c=int(A.chunk_c),
+    )
+
+
+def _supernode_as_tile_ell(S, device) -> formats.TileELL:
+    """The matrix a SupernodeELL holds, repacked as a TileELL of the same
+    row and column padding."""
+    B = S.inner
+    if int(B.col_chunk) != 1:
+        raise TypeError("column-chunked supernode blocks have no port")
+    data = np.asarray(B.data)  # (block rows, K, tile_r, tile_c)
+    cols = np.asarray(B.cols, dtype=np.int64)  # (block rows, K)
+    nb, K, tr, tc = data.shape
+    rows = np.arange(nb)[:, None, None, None] * tr + np.arange(tr)[:, None]
+    cc = cols[:, :, None, None] * tc + np.arange(tc)
+    nz = data != 0
+    ncols = int(B.ncols) * tc
+    C = sp.coo_matrix(
+        (
+            data[nz],
+            (np.broadcast_to(rows, data.shape)[nz],
+             np.broadcast_to(cc, data.shape)[nz]),
+        ),
+        shape=(nb * tr, ncols),
+    ).tocsr()[: int(S.nrows)]
+    return formats.tile_ell_from_scipy(
+        C, data.dtype, tile_m=8, nr_pad=int(S.nrows_pad), nc_pad=ncols,
+        device=device,
+    )
 
 
 def _smoother(sm, device):
@@ -70,6 +132,8 @@ def _transfer(T, A, device):
     if T is None:
         return None
     kind = type(T).__name__
+    if kind in ("TileELL", "TileELLStack", "SupernodeELL"):
+        return _format(T, device)
     cls = {
         "LatticeProlongation": LatticeProlongation,
         "LatticeRestriction": LatticeRestriction,
@@ -91,8 +155,6 @@ def _transfer(T, A, device):
 
 def from_jax_operator(op_np, device="cpu") -> AMGOperator:
     """This package's AMGOperator holding the same data as ``op_np``."""
-    if getattr(op_np, "cluster_corr", None) is not None:
-        raise TypeError("cluster correction has no port")
     levels = []
     for lev in op_np.levels:
         A = _format(lev.A, device)
@@ -105,8 +167,12 @@ def from_jax_operator(op_np, device="cpu") -> AMGOperator:
             )
         )
     ci = op_np.coarse_inv
+    cc = op_np.cluster_corr
     return AMGOperator(
         levels=tuple(levels),
         coarse_inv=None if ci is None else _t(ci, device),
+        cluster_corr=None if cc is None else ClusterCorrection(
+            idx=_index(cc.idx, device), inv=_t(cc.inv, device)
+        ),
         cycle=str(op_np.cycle),
     )

@@ -2,9 +2,11 @@
 
 Port of ngsamg_tpu/solve/cycle.py: pre-smooth (zero start) -> restrict the
 residual -> coarse solve -> prolongate-add -> backward post-smooth. The
-coarsest level applies a dense inverse with ``torch.matmul``. The coarse
-inverse is staged in the level dtype. The W and BS cycles and the cluster
-correction are not ported yet.
+coarsest level applies a dense inverse with ``torch.matmul``, staged in the
+level dtype, or in f64 inside an f32 cycle (scaled unstructured
+hierarchies). A cluster correction, when the hierarchy carries one, wraps
+the cycle multiplicatively and symmetrically. The W and BS cycles are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -13,15 +15,16 @@ from dataclasses import dataclass
 
 import torch
 
+from ..smoothers.cluster_corr import ClusterCorrection, cluster_apply
 from ..smoothers.core import Smoother, smooth, smooth_back
-from ..sparse.formats import matvec
+from ..sparse.formats import exact_f32, matvec
 
 
 @dataclass(frozen=True)
 class DeviceLevel:
     """One AMG level on the device."""
 
-    A: object  # StencilDia | DiaMatrix | DenseMatrix
+    A: object  # StencilDia | DiaMatrix | TileELLStack | DenseMatrix
     smoother: Smoother | None
     P: object | None  # prolongation: next-coarser -> this level
     R: object | None  # restriction (P^T)
@@ -33,6 +36,7 @@ class AMGOperator:
 
     levels: tuple  # tuple[DeviceLevel, ...]
     coarse_inv: torch.Tensor | None  # ((nc_pad*bs), (nc_pad*bs)) dense
+    cluster_corr: ClusterCorrection | None = None
     cycle: str = "V"
 
 
@@ -44,7 +48,12 @@ def coarse_solve(op: AMGOperator, b: torch.Tensor) -> torch.Tensor:
         x = smooth(lev.smoother, lev.A, None, b)
         return smooth_back(lev.smoother, lev.A, x, b)
     n, bs = b.shape
-    return torch.matmul(op.coarse_inv, b.reshape(-1)).reshape(n, bs)
+    ci = op.coarse_inv
+    # an f64 inverse inside an f32 cycle: applying the explicit inverse
+    # (norm ~1/lambda_min) in f32 would inject eps32*kappa-sized
+    # indefinite noise into the coarse solve
+    x = exact_f32(torch.matmul, ci, b.reshape(-1).to(ci.dtype))
+    return x.to(b.dtype).reshape(n, bs)
 
 
 def _cycle(op: AMGOperator, b: torch.Tensor, l: int) -> torch.Tensor:
@@ -61,10 +70,20 @@ def _cycle(op: AMGOperator, b: torch.Tensor, l: int) -> torch.Tensor:
 
 
 def amg_apply(op: AMGOperator, b: torch.Tensor) -> torch.Tensor:
-    """One multigrid V-cycle with zero initial guess (`AMGMatrix::Mult`)."""
+    """One multigrid V-cycle with zero initial guess (`AMGMatrix::Mult`).
+
+    With a cluster correction attached (near-singular sliver clusters on
+    the finest level, see smoothers/cluster_corr.py) the cycle is wrapped
+    multiplicatively and symmetrically: C, cycle, C.
+    """
     if op.cycle != "V":
         raise NotImplementedError(
             f"{op.cycle}-cycle: ngsamg_tpu_torch runs V-cycles only "
             "(W/BS are ROADMAP queue 1 item 4)"
         )
-    return _cycle(op, b, 0)
+    if op.cluster_corr is None:
+        return _cycle(op, b, 0)
+    A0 = op.levels[0].A
+    z = cluster_apply(op.cluster_corr, b)
+    z = z + _cycle(op, b - matvec(A0, z), 0)
+    return z + cluster_apply(op.cluster_corr, b - matvec(A0, z))

@@ -1,19 +1,27 @@
-"""Device sparse formats of the structured main path + the `matvec` dispatch.
+"""Device sparse formats of the scalar hierarchies + the `matvec` dispatch.
 
-Port of ngsamg_tpu/sparse/formats.py, cut to the formats a lattice
-hierarchy stages (see ``format_from_stencil`` and ``choose_format``):
+Port of ngsamg_tpu/sparse/formats.py, cut to the formats scalar (H1)
+hierarchies stage (see ``format_from_stencil`` and ``choose_format``):
 
 * :class:`StencilDia` — a uniform clipped stencil: m scalar values and m
   vector offsets, no per-row data. The finest level of a constant-
   coefficient lattice problem. Matvec: K1 (ops/stencil_cuda.py).
 * :class:`DiaMatrix` — diagonal storage, full or symmetric half
   (``sym_half``: only offsets >= 0 stored, the minus direction read by
-  symmetry). Middle levels. Matvec: K2/K3 (ops/dia_cuda.py).
+  symmetry). Stencil-like levels. Matvec: K2/K3 (ops/dia_cuda.py).
+* :class:`TileELL` / :class:`TileELLStack` — tile-ELL: 8-row tiles sharing
+  one distinct-column slot list, optionally bucketed by slot count and
+  gathering 8-wide column chunks per slot. Unstructured levels and the
+  explicit transfers. The JAX package computes this matvec in XLA (no
+  Pallas kernel), and so does the port, in plain torch: one gather and one
+  batched product.
 * :class:`DenseMatrix` — small coarse levels, applied with ``torch.matmul``.
 
 Vectors are (nrows_pad, bs) tensors, as in the JAX package. The matvec of
-a CUDA tensor always runs the hand-written kernel (at every size); a CPU
-tensor takes the kernel's plain PyTorch version.
+a CUDA tensor always runs the hand-written kernel where there is one (at
+every size); a CPU tensor takes the kernel's plain PyTorch version. The
+batched products (tile-ELL, dense) run in full f32 whatever the caller's
+TF32 setting (:func:`exact_f32`).
 """
 
 from __future__ import annotations
@@ -57,6 +65,39 @@ class DenseMatrix:
 
 
 @dataclass(frozen=True)
+class TileELL:
+    """Tile-ELL: M-row tiles sharing one DISTINCT-column slot list.
+
+    data[t, k, c, m] = A[t*M + m, cols[t, k]*C + c] (zero where absent;
+    no ``c`` axis when C == 1). The matvec gathers C consecutive x scalars
+    per (tile, slot) — T*K*C values instead of one per nonzero — and runs a
+    dense (K*C, M) product per tile. ``cols`` is int64, the index dtype of
+    torch's gathers on both CPU and CUDA.
+    """
+
+    data: torch.Tensor  # (T, K, M), or (T, K, C, M) chunked
+    cols: torch.Tensor  # (T, K) int64: scalar index (C == 1) or chunk index
+    nrows: int  # logical output rows
+    nrows_pad: int  # == T * M
+    ncols_pad: int  # padded input vector length (multiple of chunk_c)
+    tile_m: int
+    chunk_c: int = 1  # column-chunk width gathered per slot
+
+
+@dataclass(frozen=True)
+class TileELLStack:
+    """Bucketed TileELL: contiguous tile ranges with per-bucket slot
+    counts (rows are pre-permuted so tiles sort by descending column
+    union, ``plan_reorder``); the matvec concatenates the buckets' outputs."""
+
+    blocks: tuple  # tuple[TileELL, ...] over contiguous row ranges
+    nrows: int
+    nrows_pad: int  # == sum(b.nrows_pad)
+    ncols_pad: int
+    tile_m: int
+
+
+@dataclass(frozen=True)
 class StencilDia:
     """Uniform clipped stencil: scalar values + vector offsets, ZERO data.
 
@@ -71,15 +112,46 @@ class StencilDia:
     nrows_pad: int
 
 
+def exact_f32(fn, *args):
+    """Run a matrix product in full f32, even where the caller enabled
+    TF32 (``torch.set_float32_matmul_precision``): the cycle must stay a
+    true f32 operator for parity with the JAX package."""
+    prev = torch.get_float32_matmul_precision()
+    if prev == "highest":
+        return fn(*args)
+    torch.set_float32_matmul_precision("highest")
+    try:
+        return fn(*args)
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+def _tile_ell_matvec(A: TileELL, x: torch.Tensor) -> torch.Tensor:
+    """Gather one column chunk of x per slot, then one (1 x K*C) @
+    (K*C x M) product per tile (ngsamg_tpu/sparse/formats.py
+    `_tile_ell_matvec`)."""
+    T, K = A.cols.shape
+    kc = K * A.chunk_c
+    xg = x[:, 0].reshape(-1, A.chunk_c)[A.cols]  # (T, K, C)
+    y = exact_f32(
+        torch.bmm, xg.reshape(T, 1, kc), A.data.reshape(T, kc, A.tile_m)
+    )
+    return y.reshape(-1, 1)
+
+
 def matvec(A, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x for the port's device formats; x: (nrows_pad, bs)."""
     if isinstance(A, DiaMatrix):
         return dia_matvec(A, x)
     if isinstance(A, StencilDia):
         return stencil_matvec(A, x)
+    if isinstance(A, TileELLStack):
+        return torch.cat([_tile_ell_matvec(b, x) for b in A.blocks])
+    if isinstance(A, TileELL):
+        return _tile_ell_matvec(A, x)
     if isinstance(A, DenseMatrix):
         n, bs = x.shape
-        return torch.matmul(A.data, x.reshape(-1)).reshape(n, bs)
+        return exact_f32(torch.matmul, A.data, x.reshape(-1)).reshape(n, bs)
     from ..transfer.lattice_transfer import (
         LatticeProlongation,
         LatticeRestriction,
@@ -277,6 +349,243 @@ def dense_from_scipy(
     )
 
 
+# tile-ELL column-chunk width and bucket merge bound (ngsamg_tpu/sparse/
+# formats.py TILE_CHUNK, _STACK_MIN_TILES): 8 scalars per gathered slot
+TILE_CHUNK = 8
+_STACK_MIN_TILES = 512  # merge smaller bucket runs (bounds op count)
+
+
+def _tile_chunk_counts(C: sp.csr_matrix, tile_m: int, chunk: int, T: int):
+    """Distinct column-chunk count per tile (tiles = tile_m-row groups)."""
+    n = C.shape[0]
+    t_rows = min(T * tile_m, n)
+    nnz_head = int(C.indptr[t_rows])
+    rows = np.repeat(
+        np.arange(t_rows, dtype=np.int64), np.diff(C.indptr[: t_rows + 1])
+    )
+    cc = C.indices[:nnz_head].astype(np.int64) // chunk
+    stride = C.shape[1] // chunk + 2
+    keys = (rows // tile_m) * stride + cc
+    uk = np.unique(keys)
+    return np.bincount((uk // stride).astype(np.int64), minlength=T)
+
+
+def _tile_slots(C: sp.csr_matrix, tile_m: int, chunk: int, T: int):
+    """Slot assignment of every stored entry of the first T tiles.
+
+    Each tile's distinct column chunks take slots 0, 1, ... in ascending
+    chunk order. Returns the entries sorted by (tile, chunk) as
+    (tile, chunk, slot, column offset in the chunk, row in the tile,
+    value), and the slot count of each tile."""
+    nr = C.shape[0]
+    t_rows = min(T * tile_m, nr)
+    nnz_head = int(C.indptr[t_rows])
+    rows = np.repeat(
+        np.arange(t_rows, dtype=np.int64),
+        np.diff(C.indptr[: t_rows + 1]),
+    )
+    cols = C.indices[:nnz_head].astype(np.int64)
+    tid = rows // tile_m
+    cc = cols // chunk
+    order = np.lexsort((cc, tid))
+    tid_s, cc_s = tid[order], cc[order]
+    newpair = np.ones(len(order), dtype=bool)
+    if len(order) > 1:
+        newpair[1:] = (tid_s[1:] != tid_s[:-1]) | (cc_s[1:] != cc_s[:-1])
+    gid = np.cumsum(newpair) - 1
+    pair_tid = tid_s[newpair]
+    tile_first = np.searchsorted(pair_tid, np.arange(T, dtype=np.int64))
+    slot_pair = np.arange(len(pair_tid), dtype=np.int64) - tile_first[
+        pair_tid
+    ]
+    return (
+        tid_s, cc_s, slot_pair[gid], (cols % chunk)[order],
+        (rows % tile_m)[order], C.data[:nnz_head][order],
+        np.bincount(pair_tid, minlength=T),
+    )
+
+
+def _fill_tiles(slots, t0: int, t1: int, K: int, tile_m: int, chunk: int,
+                dtype):
+    """Dense (data, cols) arrays of tiles [t0, t1) with K slots each;
+    padded slots hold column 0 and zero values."""
+    tid_s, cc_s, slot, coff, moff, val_s, _cnt = slots
+    m = (tid_s >= t0) & (tid_s < t1)
+    lt = tid_s[m] - t0
+    if chunk > 1:
+        data = np.zeros((t1 - t0, K, chunk, tile_m), dtype=dtype)
+        data[lt, slot[m], coff[m], moff[m]] = val_s[m]
+    else:
+        data = np.zeros((t1 - t0, K, tile_m), dtype=dtype)
+        data[lt, slot[m], moff[m]] = val_s[m]
+    cols = np.zeros((t1 - t0, K), dtype=np.int64)
+    cols[lt, slot[m]] = cc_s[m]
+    return data, cols
+
+
+def _tile_ell(data, cols, nrows, ncols_pad, tile_m, chunk, device):
+    return TileELL(
+        data=_tensor(data, device),
+        cols=_tensor(cols, device),
+        nrows=nrows,
+        nrows_pad=data.shape[0] * tile_m,
+        ncols_pad=ncols_pad,
+        tile_m=tile_m,
+        chunk_c=chunk,
+    )
+
+
+def tile_ell_from_scipy(
+    A: sp.spmatrix,
+    dtype,
+    tile_m: int = 8,
+    row_align: int = 8,
+    nr_pad: int | None = None,
+    nc_pad: int | None = None,
+    device="cpu",
+) -> TileELL:
+    """Pack a scalar matrix into a plain :class:`TileELL` (chunk 1, one
+    slot count K = the largest distinct-column count of any tile).
+
+    A numpy copy of the JAX package's native packer (ngsamg_tpu/native/
+    kernels.cpp ``tile_ell_pack``): tile t stores its rows' values at the
+    tile's distinct columns in ascending order. ``nr_pad``/``nc_pad`` pin
+    the interface sizes for rectangular transfers.
+    """
+    C = A.tocsr()
+    nr, nc = C.shape
+    align_r = max(tile_m, row_align)
+    if nr_pad is None:
+        nr_pad = -(-nr // align_r) * align_r
+    if nr_pad % tile_m:
+        nr_pad = -(-nr_pad // tile_m) * tile_m
+    if nc_pad is None:
+        nc_pad = -(-nc // row_align) * row_align
+    T = nr_pad // tile_m
+    slots = _tile_slots(C, tile_m, 1, T)
+    K = max(int(slots[-1].max(initial=1)), 1)
+    data, cols = _fill_tiles(slots, 0, T, K, tile_m, 1, np.dtype(dtype))
+    return _tile_ell(data, cols, nr, nc_pad, tile_m, 1, device)
+
+
+def tile_ell_stack_from_scipy(
+    A: sp.spmatrix,
+    dtype,
+    tile_m: int = 8,
+    chunk: int = TILE_CHUNK,
+    device="cpu",
+) -> TileELLStack:
+    """Pack into bucketed, column-chunked tile-ELL.
+
+    Callers should pre-sort tiles by descending column-chunk union
+    (``plan_reorder(tile_sort_chunk=...)``) so bucket runs are contiguous;
+    the packer is correct for any order but then buckets at K_max."""
+    C = A.tocsr()
+    nr, nc = C.shape
+    align_r = max(tile_m, 8)
+    nr_pad = -(-nr // align_r) * align_r
+    if nr_pad % tile_m:
+        nr_pad = -(-nr_pad // tile_m) * tile_m
+    nc_pad = -(-nc // 8) * 8
+    if nc_pad % chunk:
+        nc_pad = -(-nc_pad // chunk) * chunk
+    T = nr_pad // tile_m
+    cnt = _tile_chunk_counts(C, tile_m, chunk, T)
+    kmax = int(cnt.max(initial=1))
+    # grid of allowed per-bucket widths (geometric, ratio 1.5)
+    grid = [max(kmax, 1)]
+    while grid[-1] > 4:
+        grid.append(max(int(grid[-1] / 1.5), 4))
+    grid = np.array(sorted(set(grid)), dtype=np.int64)
+    gK = grid[np.searchsorted(grid, np.maximum(cnt, 1), side="left")]
+    # contiguous runs of equal gridded K; merge short runs into the
+    # previous (wider-K) run so the block count stays O(len(grid))
+    bounds = [0]
+    Ks = [int(gK[0])]
+    for t in range(1, T):
+        if gK[t] != Ks[-1]:
+            if t - bounds[-1] < _STACK_MIN_TILES and len(bounds) >= 1:
+                Ks[-1] = max(Ks[-1], int(gK[t]))  # absorb into current
+                continue
+            bounds.append(t)
+            Ks.append(int(gK[t]))
+    bounds.append(T)
+    # if a later tile absorbed a LARGER K into a run, per-tile counts may
+    # exceed the run's K — recompute each bucket's K as its tiles' max
+    Ks = [
+        int(max(cnt[bounds[b]: bounds[b + 1]].max(initial=1), 1))
+        for b in range(len(bounds) - 1)
+    ]
+    # global slot assignment (rank of each (tile, chunk) pair within its
+    # tile), then one scatter per bucket
+    slots = _tile_slots(C, tile_m, chunk, T)
+    blocks = []
+    for b in range(len(bounds) - 1):
+        t0, t1 = bounds[b], bounds[b + 1]
+        data, cols = _fill_tiles(
+            slots, t0, t1, Ks[b], tile_m, chunk, np.dtype(dtype)
+        )
+        rows = min(max(nr - t0 * tile_m, 0), (t1 - t0) * tile_m)
+        blocks.append(_tile_ell(data, cols, rows, nc_pad, tile_m, chunk, device))
+    return TileELLStack(
+        blocks=tuple(blocks),
+        nrows=nr,
+        nrows_pad=nr_pad,
+        ncols_pad=nc_pad,
+        tile_m=tile_m,
+    )
+
+
+def plan_reorder(
+    A: sp.spmatrix,
+    bs: int,
+    tile_sort_chunk: int | None = None,
+    tile_m: int = 8,
+):
+    """Bandwidth-reducing (RCM) row order for levels headed to tile-ELL.
+
+    Tiles only stay narrow if consecutive rows share neighbors; aggregate-
+    ordered coarse levels do not, so they get reverse Cuthill-McKee first.
+    Returns a row permutation, or None for levels that will use DIA or
+    dense storage in natural order.
+
+    ``tile_sort_chunk`` additionally sorts FULL tile_m-row tiles by
+    descending column-chunk union so the bucketed tile-ELL packer gets
+    contiguous equal-width runs; the partial tail tile stays pinned last
+    (real rows must remain a prefix of every bucket's row range).
+    """
+    n = A.shape[0] // bs
+    if bs != 1 or n <= DENSE_MAX_ROWS:
+        return None
+    if count_diagonals(A, limit=DIA_MAX_DIAGS) <= DIA_MAX_DIAGS:
+        return None  # stencil level: DIA in natural order
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+    rcm = np.asarray(
+        reverse_cuthill_mckee(A.tocsr(), symmetric_mode=True),
+        dtype=np.int64,
+    )
+    if tile_sort_chunk is None:
+        return rcm
+    Tfull = n // tile_m
+    if Tfull < 2:
+        return rcm
+    Ar = A.tocsr()[rcm][:, rcm].tocsr()
+    cnt = _tile_chunk_counts(Ar, tile_m, tile_sort_chunk, Tfull)
+    order = np.argsort(-cnt, kind="stable")
+    head = rcm[: Tfull * tile_m].reshape(Tfull, tile_m)[order].ravel()
+    return np.concatenate([head, rcm[Tfull * tile_m:]])
+
+
+def _te_bytes(te: TileELLStack) -> int:
+    """Stored bytes of a tile-ELL stack, counting column indices as int32
+    (the JAX package's layout) so the DIA/tile-ELL choice matches it."""
+    return sum(
+        b.data.numel() * b.data.element_size() + 4 * b.cols.numel()
+        for b in te.blocks
+    )
+
+
 def choose_format(
     A: sp.spmatrix,
     bs: int,
@@ -285,23 +594,37 @@ def choose_format(
     *,
     device="cpu",
 ):
-    """Format for a level without a stencil: DIA (few diagonals) or dense
-    (small). The tile-ELL and block-ELL formats of the JAX package are not
-    ported: levels that need them raise. In the mid-density regime (more
-    than ``DENSE_MAX_ROWS`` rows, 33..``DIA_MAX_DIAGS`` diagonals) the JAX
-    package weighs DIA against tile-ELL bytes and takes DIA when its
-    tile-ELL packer is unavailable; without tile-ELL the port takes DIA."""
+    """Pick the format for one scalar level's matrix.
+
+    Priority, as in the JAX package: DIA for true stencil levels (<= 32
+    diagonals); above ``DENSE_MAX_ROWS`` rows, DIA against the bucketed
+    tile-ELL by stored bytes (DIA, which gathers nothing, wins up to twice
+    the tile-ELL bytes) when the level has at most ``DIA_MAX_DIAGS``
+    diagonals, else tile-ELL; small levels DIA (few diagonals) or dense.
+    Block (bs > 1) levels need block-ELL, which is not ported.
+    """
     n = A.shape[0] // bs
     # DIA wins over dense whenever the level is a stencil and not tiny
     if bs == 1 and n > 512:
         nd = count_diagonals(A, limit=DIA_MAX_DIAGS)
+        if nd <= 32:
+            # true stencil level: DIA is gather-free at ~1x fill
+            return dia_from_scipy(A, dtype, row_align, device=device)
+        if n > DENSE_MAX_ROWS:
+            te = tile_ell_stack_from_scipy(A, dtype, device=device)
+            if nd <= DIA_MAX_DIAGS:
+                n_pad = -(-n // row_align) * row_align
+                dia_bytes = nd * n_pad * np.dtype(dtype).itemsize
+                if dia_bytes <= 2 * _te_bytes(te):
+                    return dia_from_scipy(A, dtype, row_align, device=device)
+            return te
         if nd <= DIA_MAX_DIAGS:
             return dia_from_scipy(A, dtype, row_align, device=device)
     if n <= DENSE_MAX_ROWS and (n * bs) ** 2 * 4 <= 512e6:
         return dense_from_scipy(A, bs, dtype, row_align, device=device)
     raise NotImplementedError(
-        f"level of {n} rows (bs={bs}) needs tile-ELL or block-ELL, which "
-        "ngsamg_tpu_torch does not have yet (ROADMAP queue 1 item 2)"
+        f"level of {n} rows (bs={bs}) needs block-ELL, which "
+        "ngsamg_tpu_torch does not have yet (ROADMAP queue 1 item 3)"
     )
 
 

@@ -1,9 +1,11 @@
 """FEM problem generators for the port's tests and its chip smoke run.
 
 Copied from ngsamg_tpu/utils/fem.py: ``Problem``, the 3D Kuhn-tet P1
-Poisson assembly and its helpers (the headline problem of the benchmark).
-The 2D, elasticity and unstructured generators wait for the slices that
-need them. numpy/scipy only.
+Poisson assembly and its helpers (the headline problem of the benchmark),
+and the unstructured P1 Poisson generator (perturbed Delaunay meshes with
+optional uniform red refinement, ``unstructured_poisson``). The structured
+2D and the elasticity generators wait for the slices that need them.
+numpy/scipy only.
 """
 
 from __future__ import annotations
@@ -212,3 +214,165 @@ def _poisson_3d_assembled(n: int, jump: bool, f) -> Problem:
     fixed = (x == 0) | (x == 1) | (y == 0) | (y == 1) | (z == 0) | (z == 1)
     A, b, coords = _eliminate_dirichlet(A, b, verts, fixed)
     return Problem(A=A, b=b, coords=coords, dim=3, block_size=1)
+
+
+def _in_inclusions_2d(p):
+    """High-coefficient inclusion pattern (scaled to the unit square)."""
+    x, y = p[:, 0], p[:, 1]
+    boxes = [
+        (0.20, 0.70, 0.30, 0.80),
+        (0.70, 0.70, 0.80, 0.80),
+        (0.42, 0.42, 0.58, 0.58),
+        (0.10, 0.20, 0.90, 0.30),
+        (0.60, 0.45, 0.70, 0.55),
+    ]
+    m = np.zeros(len(p), dtype=bool)
+    for x0, y0, x1, y1 in boxes:
+        m |= (x >= x0) & (x <= x1) & (y >= y0) & (y <= y1)
+    return m
+
+
+# ---------------------------------------------------------------------------
+# unstructured (perturbed Delaunay) meshes
+# ---------------------------------------------------------------------------
+
+
+def _unstructured_mesh(n: int, dim: int, seed: int = 0, amp: float = 0.35):
+    """Perturbed-grid Delaunay mesh of the unit square/cube.
+
+    The reference validates on genuinely irregular Netgen meshes
+    (the reference's tests/h1/simple/test_2d_lo.py, maxh=0.05); this is the
+    standalone equivalent: interior grid points jittered by ``amp * h``
+    i.i.d., then Delaunay-triangulated. Boundary points stay put so the
+    domain (and the Dirichlet boundary) is exact.
+    """
+    from scipy.spatial import Delaunay
+
+    h = 1.0 / n
+    axes = [np.linspace(0.0, 1.0, n + 1)] * dim
+    grids = np.meshgrid(*axes, indexing="ij")
+    verts = np.stack([g.ravel() for g in grids], axis=1)
+    interior = np.all((verts > 0) & (verts < 1), axis=1)
+    rng = np.random.default_rng(seed)
+    verts = verts + np.where(
+        interior[:, None],
+        rng.uniform(-amp * h, amp * h, size=verts.shape),
+        0.0,
+    )
+    tri = Delaunay(verts)
+    elems = tri.simplices
+    # drop degenerate (near-zero-volume) simplices produced by co-planar
+    # boundary points; P1 assembly would blow up on them
+    X = verts[elems]
+    D = X[:, 1:, :] - X[:, :1, :]
+    detD = np.abs(np.linalg.det(D))
+    elems = elems[detD > 1e-12 * h**dim]
+    return verts, elems
+
+
+def refine_simplices(verts: np.ndarray, elems: np.ndarray):
+    """One uniform red refinement of a simplicial mesh (vectorized).
+
+    2D: each triangle -> 4 (corner + medial); 3D: Bey's rule — each tet
+    -> 4 corner tets + 4 octahedron tets split along the x02-x13 diagonal
+    (J. Bey, 'Tetrahedral grid refinement', Computing 55, 1995). This is
+    how production FEM stacks reach large unstructured meshes (coarse
+    mesh from a mesher, then uniform refinements — e.g. Netgen's
+    `Refine()` used with the reference); the refined mesh keeps the
+    parent's irregular connectivity and geometry.
+    """
+    nl = elems.shape[1]
+    nv = len(verts)
+    pairs = np.array(
+        [(a, b) for a in range(nl) for b in range(a + 1, nl)]
+    )
+    ea = elems[:, pairs[:, 0]]  # (ne, npairs)
+    eb = elems[:, pairs[:, 1]]
+    lo = np.minimum(ea, eb).astype(np.int64)
+    hi = np.maximum(ea, eb).astype(np.int64)
+    key = lo * nv + hi
+    uniq, inv = np.unique(key, return_inverse=True)
+    mid = nv + inv.reshape(elems.shape[0], -1)  # per-elem midpoint ids
+    mverts = 0.5 * (verts[uniq // nv] + verts[uniq % nv])
+    verts2 = np.concatenate([verts, mverts])
+    e = elems
+    if nl == 3:  # triangle: pairs = (01, 02, 12)
+        m01, m02, m12 = mid[:, 0], mid[:, 1], mid[:, 2]
+        children = [
+            (e[:, 0], m01, m02),
+            (e[:, 1], m01, m12),
+            (e[:, 2], m02, m12),
+            (m01, m02, m12),
+        ]
+    else:  # tet: pairs = (01, 02, 03, 12, 13, 23)
+        m01, m02, m03 = mid[:, 0], mid[:, 1], mid[:, 2]
+        m12, m13, m23 = mid[:, 3], mid[:, 4], mid[:, 5]
+        children = [
+            (e[:, 0], m01, m02, m03),
+            (m01, e[:, 1], m12, m13),
+            (m02, m12, e[:, 2], m23),
+            (m03, m13, m23, e[:, 3]),
+            (m01, m02, m03, m13),
+            (m01, m02, m12, m13),
+            (m02, m03, m13, m23),
+            (m02, m12, m13, m23),
+        ]
+    elems2 = np.concatenate(
+        [np.stack(c, axis=1) for c in children]
+    ).astype(elems.dtype)
+    return verts2, elems2
+
+
+def _assemble_chunked(nv, elems, verts, coeff, f, chunk=500_000):
+    """Chunked P1 assembly: bounded temporaries, warm scratch reuse.
+
+    At 8M+ elements the monolithic `_p1_stiffness` + `_assemble` route
+    materializes multi-GB COO temporaries whose first-touch page faults
+    can run ~15x slower than warm writes; chunking keeps every
+    temporary in a few hundred MB and accumulates per-chunk CSRs (scipy's
+    compiled merge).
+    """
+    nl = elems.shape[1]
+    A = None
+    b = np.zeros(nv)
+    for lo in range(0, len(elems), chunk):
+        el = elems[lo: lo + chunk]
+        Ke, vol = _p1_stiffness(verts, el, coeff[lo: lo + chunk])
+        rows = np.repeat(el, nl, axis=1).ravel()
+        cols = np.tile(el, (1, nl)).ravel()
+        Ac = sp.coo_matrix(
+            (Ke.ravel(), (rows, cols)), shape=(nv, nv)
+        ).tocsr()
+        Ac.sum_duplicates()
+        A = Ac if A is None else A + Ac
+        np.add.at(b, el.ravel(), np.repeat(f * vol / nl, nl))
+    return A, b
+
+
+def unstructured_poisson(n: int, dim: int = 2, jump: bool = False,
+                         f: float = 1.0, seed: int = 0,
+                         refine: int = 0) -> Problem:
+    """P1 Poisson on a perturbed Delaunay mesh, Dirichlet boundary.
+
+    ``refine`` uniform red refinements follow the Delaunay step: the
+    production route to large unstructured problems (3D Delaunay at the
+    1M-point scale costs ~10 min of Qhull; one refinement of a 180k-point
+    mesh reaches 1.3M DoF in seconds with the same irregular topology).
+    """
+    verts, elems = _unstructured_mesh(n, dim, seed=seed)
+    for _ in range(max(refine, 0)):
+        verts, elems = refine_simplices(verts, elems)
+    if jump and dim == 2:
+        centers = verts[elems].mean(axis=1)
+        coeff = np.where(_in_inclusions_2d(centers), 1e4, 1.0)
+    elif jump:
+        centers = verts[elems].mean(axis=1)
+        m = np.all((centers > 0.3) & (centers < 0.7), axis=1)
+        coeff = np.where(m, 1e4, 1.0)
+    else:
+        coeff = np.ones(len(elems))
+    A, b = _assemble_chunked(len(verts), elems, verts, coeff, f)
+    fixed = np.any((verts == 0) | (verts == 1), axis=1)
+    A, b, coords = _eliminate_dirichlet(A, b, verts, fixed)
+    return Problem(A=A, b=b, coords=coords, dim=dim, block_size=1)
+

@@ -1,12 +1,14 @@
-"""Device-time breakdown and busy share of one warm headline solve.
+"""Device-time breakdown and busy share of one warm solve.
 
-    python3 -m ngsamg_tpu_torch.utils.trace_solve
+    python3 -m ngsamg_tpu_torch.utils.trace_solve [headline|unstructured]
 
-Needs one CUDA device. Sets up ``fem.poisson_3d(216)`` with the Chebyshev
-smoother on ``cuda``, runs two warm-up solves and five unprofiled warm
-solves (host wall clock, ending in ``torch.cuda.synchronize()``), then one
-solve under ``torch.profiler``. It prints the device time by kernel name
-and one JSON line with:
+Needs one CUDA device. Sets up, with the Chebyshev smoother on ``cuda``,
+``fem.poisson_3d(216)`` (``headline``, the default: 9,938,375 DoF) or
+``fem.unstructured_poisson(55, dim=3, refine=1)`` (``unstructured``:
+1,411,632 DoF on tile-ELL levels), runs two warm-up solves and five
+unprofiled warm solves (host wall clock, ending in
+``torch.cuda.synchronize()``), then one solve under ``torch.profiler``. It
+prints the device time by kernel name and one JSON line with:
 
 - ``busy_ms``: the union of the device events' intervals in the profiled
   solve (overlapping events count once);
@@ -19,6 +21,7 @@ and one JSON line with:
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import time
@@ -49,7 +52,13 @@ def _union_us(intervals) -> float:
     return busy
 
 
-def main() -> int:
+PROBLEMS = {
+    "headline": lambda fem: fem.poisson_3d(216),
+    "unstructured": lambda fem: fem.unstructured_poisson(55, dim=3, refine=1),
+}
+
+
+def main(argv=None) -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -57,6 +66,10 @@ def main() -> int:
     from ..config import SmootherOptions, SmootherType
     from . import fem
 
+    ap = argparse.ArgumentParser(prog="trace_solve")
+    ap.add_argument("problem", nargs="?", default="headline",
+                    choices=sorted(PROBLEMS))
+    problem = ap.parse_args(argv).problem
     if not torch.cuda.is_available():
         raise RuntimeError("trace_solve needs a CUDA device")
     smi = subprocess.run(
@@ -64,7 +77,7 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(f"[trace] {smi}", flush=True)
-    p = fem.poisson_3d(216)
+    p = PROBLEMS[problem](fem)
     opts = AMGOptions(smoother=SmootherOptions(type=SmootherType.CHEBYSHEV))
     pc = AMGPreconditioner(
         p.A, coords=p.coords, options=opts, device="cuda"
@@ -101,6 +114,8 @@ def main() -> int:
               f"{100 * t / total_us:5.1f}%  {name[:90]}")
     print(json.dumps({
         "device": smi,
+        "problem": problem,
+        "dofs": int(p.n),
         "iterations": int(info.iterations),
         "warm_solve_ms": [w * 1e3 for w in walls],
         "warm_solve_median_ms": warm * 1e3,

@@ -1,9 +1,11 @@
 """ngsamg_tpu_torch must run where JAX does not exist.
 
 In a fresh interpreter (this test process has already imported
-ngsamg_tpu and JAX via tests/conftest.py), import the package, run one
-small solve on the CPU, and check that neither `jax` nor `ngsamg_tpu` was
-ever imported.
+ngsamg_tpu and JAX via tests/conftest.py), import the package, run two
+small solves on the CPU — a lattice problem (structured setup) and an
+unstructured one (generic level loop, tile-ELL, cluster correction, host
+refinement) — and check that neither `jax` nor `ngsamg_tpu` (its native
+extension included) was ever imported.
 """
 
 import os
@@ -34,13 +36,21 @@ SCRIPT = textwrap.dedent(
     x, info = pc.solve(p.b, tol=1e-8)
     rel = np.linalg.norm(p.b - p.A @ x) / np.linalg.norm(p.b)
     assert info.converged and rel <= 1e-8, (info, rel)
+    q = fem.unstructured_poisson(16, dim=3, refine=1)  # 32,720 DoF
+    pcu = ngsamg_tpu_torch.AMGPreconditioner(
+        q.A, coords=q.coords, options=opts, device="cpu"
+    ).setup()
+    assert pcu.op.cluster_corr is not None
+    xu, infou = pcu.solve(q.b, tol=1e-8)
+    relu = np.linalg.norm(q.b - q.A @ xu) / np.linalg.norm(q.b)
+    assert infou.converged and relu <= 1e-8, (infou, relu)
     bad = sorted(
         m for m in sys.modules
         if m in ("jax", "jaxlib", "ngsamg_tpu")
         or m.startswith(("jax.", "jaxlib.", "ngsamg_tpu."))
     )
     assert not bad, bad
-    print("OK", info.iterations)
+    print("OK", info.iterations, infou.iterations)
     """
 )
 
