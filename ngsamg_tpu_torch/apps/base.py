@@ -26,10 +26,6 @@ class Energy(abc.ABC):
     #: DOFs per vertex in the AMG space (1..3 H1, 3/6 elasticity)
     dpv: int
 
-    #: whether coarsening should use the robust (generalized-EVP) SOC by
-    #: default (config CoarsenOptions.robust=None defers to this)
-    default_robust: bool = False
-
     @abc.abstractmethod
     def build_finest_mesh(
         self, A: sp.spmatrix, coords: np.ndarray | None

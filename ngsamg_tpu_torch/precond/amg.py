@@ -20,6 +20,7 @@ raises.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
 
@@ -83,6 +84,20 @@ def _refine_scale(r64, inv_rn: float, dt: torch.dtype):
 
 def _refine_accumulate(x64, dx32, rn: float):
     return x64 + dx32.to(torch.float64) * rn
+
+
+@contextlib.contextmanager
+def _full_f32():
+    """Full-f32 matrix products for one solve or apply, whatever the
+    caller's TF32 setting: the tile-ELL, cluster and dense products of the
+    cycle go through cuBLAS, and the cycle must stay a true f32 operator
+    for parity with the JAX package."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
 
 
 def _spd_inverse(Ad: np.ndarray) -> np.ndarray:
@@ -237,9 +252,7 @@ class AMGPreconditioner:
         perms = [
             None
             if lev.stencil is not None
-            else formats.plan_reorder(
-                lev.A, lev.row_bs, tile_sort_chunk=formats.TILE_CHUNK
-            )
+            else formats.plan_reorder(lev.A, lev.row_bs)
             for lev in levels
         ]
         self._perm0 = perms[0]
@@ -315,11 +328,11 @@ class AMGPreconditioner:
                         svecs[i + 1],
                     )
                     P_fmt = formats.tile_ell_from_scipy(
-                        P, npdt, tile_m=8, nr_pad=nf_pad, nc_pad=nc_pad,
+                        P, npdt, nr_pad=nf_pad, nc_pad=nc_pad,
                         device=dev,
                     )
                     R_fmt = formats.tile_ell_from_scipy(
-                        P.T.tocsr(), npdt, tile_m=8, nr_pad=nc_pad,
+                        P.T.tocsr(), npdt, nr_pad=nc_pad,
                         nc_pad=nf_pad, device=dev,
                     )
             dev_levels.append(
@@ -487,7 +500,8 @@ class AMGPreconditioner:
         """x = M^-1 r — one AMG cycle (the reference `Mult`)."""
         self._require_setup()
         r = np.asarray(r, dtype=np.float64)
-        return self._from_dev(amg_apply(self.op, self._to_dev(r)))
+        with _full_f32():
+            return self._from_dev(amg_apply(self.op, self._to_dev(r)))
 
     def solve(
         self,
@@ -521,14 +535,15 @@ class AMGPreconditioner:
         floor = 0.0 if self.dtype == torch.float64 else 2e-6
         inner_tol = max(tol, floor)
         max_outer = 8 if floor > 0 else 4
-        if device_path:
-            return self._solve_device_refined(
-                b, bnorm, tol, inner_tol, max_outer, maxiter,
-                return_device=return_device,
+        with _full_f32():
+            if device_path:
+                return self._solve_device_refined(
+                    b, bnorm, tol, inner_tol, max_outer, maxiter,
+                    return_device=return_device,
+                )
+            return self._solve_host_refined(
+                b, bnorm, tol, inner_tol, max_outer, maxiter
             )
-        return self._solve_host_refined(
-            b, bnorm, tol, inner_tol, max_outer, maxiter
-        )
 
     def _solve_host_refined(self, b, bnorm, tol, inner_tol, max_outer,
                             maxiter):

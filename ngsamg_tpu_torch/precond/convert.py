@@ -108,8 +108,7 @@ def _supernode_as_tile_ell(S, device) -> formats.TileELL:
         shape=(nb * tr, ncols),
     ).tocsr()[: int(S.nrows)]
     return formats.tile_ell_from_scipy(
-        C, data.dtype, tile_m=8, nr_pad=int(S.nrows_pad), nc_pad=ncols,
-        device=device,
+        C, data.dtype, nr_pad=int(S.nrows_pad), nc_pad=ncols, device=device,
     )
 
 

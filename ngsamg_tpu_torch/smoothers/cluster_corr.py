@@ -28,8 +28,6 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from ..sparse.formats import exact_f32
-
 
 @dataclass(frozen=True)
 class ClusterCorrection:
@@ -149,7 +147,7 @@ def cluster_apply(cc: ClusterCorrection, r: torch.Tensor) -> torch.Tensor:
     the scatter's result does not depend on the order of its additions.
     """
     g = r[cc.idx, 0]  # (ncl, K)
-    y = exact_f32(torch.bmm, cc.inv, g[:, :, None])  # (ncl, K, 1)
+    y = torch.bmm(cc.inv, g[:, :, None])  # (ncl, K, 1)
     out = torch.zeros_like(r)
     out.index_add_(0, cc.idx.reshape(-1), y.reshape(-1, 1))
     return out

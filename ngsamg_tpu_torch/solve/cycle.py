@@ -17,7 +17,7 @@ import torch
 
 from ..smoothers.cluster_corr import ClusterCorrection, cluster_apply
 from ..smoothers.core import Smoother, smooth, smooth_back
-from ..sparse.formats import exact_f32, matvec
+from ..sparse.formats import matvec
 
 
 @dataclass(frozen=True)
@@ -52,7 +52,7 @@ def coarse_solve(op: AMGOperator, b: torch.Tensor) -> torch.Tensor:
     # an f64 inverse inside an f32 cycle: applying the explicit inverse
     # (norm ~1/lambda_min) in f32 would inject eps32*kappa-sized
     # indefinite noise into the coarse solve
-    x = exact_f32(torch.matmul, ci, b.reshape(-1).to(ci.dtype))
+    x = torch.matmul(ci, b.reshape(-1).to(ci.dtype))
     return x.to(b.dtype).reshape(n, bs)
 
 

@@ -20,8 +20,9 @@ hierarchies stage (see ``format_from_stencil`` and ``choose_format``):
 Vectors are (nrows_pad, bs) tensors, as in the JAX package. The matvec of
 a CUDA tensor always runs the hand-written kernel where there is one (at
 every size); a CPU tensor takes the kernel's plain PyTorch version. The
-batched products (tile-ELL, dense) run in full f32 whatever the caller's
-TF32 setting (:func:`exact_f32`).
+batched products (tile-ELL, dense) follow torch's float32 matmul precision,
+which is full f32 by default; ``AMGPreconditioner.solve``/``apply`` force
+it for their scope (precond/amg.py ``_full_f32``).
 """
 
 from __future__ import annotations
@@ -112,20 +113,6 @@ class StencilDia:
     nrows_pad: int
 
 
-def exact_f32(fn, *args):
-    """Run a matrix product in full f32, even where the caller enabled
-    TF32 (``torch.set_float32_matmul_precision``): the cycle must stay a
-    true f32 operator for parity with the JAX package."""
-    prev = torch.get_float32_matmul_precision()
-    if prev == "highest":
-        return fn(*args)
-    torch.set_float32_matmul_precision("highest")
-    try:
-        return fn(*args)
-    finally:
-        torch.set_float32_matmul_precision(prev)
-
-
 def _tile_ell_matvec(A: TileELL, x: torch.Tensor) -> torch.Tensor:
     """Gather one column chunk of x per slot, then one (1 x K*C) @
     (K*C x M) product per tile (ngsamg_tpu/sparse/formats.py
@@ -133,9 +120,7 @@ def _tile_ell_matvec(A: TileELL, x: torch.Tensor) -> torch.Tensor:
     T, K = A.cols.shape
     kc = K * A.chunk_c
     xg = x[:, 0].reshape(-1, A.chunk_c)[A.cols]  # (T, K, C)
-    y = exact_f32(
-        torch.bmm, xg.reshape(T, 1, kc), A.data.reshape(T, kc, A.tile_m)
-    )
+    y = torch.bmm(xg.reshape(T, 1, kc), A.data.reshape(T, kc, A.tile_m))
     return y.reshape(-1, 1)
 
 
@@ -151,7 +136,7 @@ def matvec(A, x: torch.Tensor) -> torch.Tensor:
         return _tile_ell_matvec(A, x)
     if isinstance(A, DenseMatrix):
         n, bs = x.shape
-        return exact_f32(torch.matmul, A.data, x.reshape(-1)).reshape(n, bs)
+        return torch.matmul(A.data, x.reshape(-1)).reshape(n, bs)
     from ..transfer.lattice_transfer import (
         LatticeProlongation,
         LatticeRestriction,
@@ -349,28 +334,30 @@ def dense_from_scipy(
     )
 
 
-# tile-ELL column-chunk width and bucket merge bound (ngsamg_tpu/sparse/
-# formats.py TILE_CHUNK, _STACK_MIN_TILES): 8 scalars per gathered slot
+# tile-ELL tile height, column-chunk width and bucket merge bound
+# (ngsamg_tpu/sparse/formats.py TILE_CHUNK, _STACK_MIN_TILES): 8-row tiles,
+# 8 scalars per gathered slot of a stacked level
+TILE_M = 8
 TILE_CHUNK = 8
 _STACK_MIN_TILES = 512  # merge smaller bucket runs (bounds op count)
 
 
-def _tile_chunk_counts(C: sp.csr_matrix, tile_m: int, chunk: int, T: int):
-    """Distinct column-chunk count per tile (tiles = tile_m-row groups)."""
+def _tile_chunk_counts(C: sp.csr_matrix, chunk: int, T: int):
+    """Distinct column-chunk count per tile (tiles = TILE_M-row groups)."""
     n = C.shape[0]
-    t_rows = min(T * tile_m, n)
+    t_rows = min(T * TILE_M, n)
     nnz_head = int(C.indptr[t_rows])
     rows = np.repeat(
         np.arange(t_rows, dtype=np.int64), np.diff(C.indptr[: t_rows + 1])
     )
     cc = C.indices[:nnz_head].astype(np.int64) // chunk
     stride = C.shape[1] // chunk + 2
-    keys = (rows // tile_m) * stride + cc
+    keys = (rows // TILE_M) * stride + cc
     uk = np.unique(keys)
     return np.bincount((uk // stride).astype(np.int64), minlength=T)
 
 
-def _tile_slots(C: sp.csr_matrix, tile_m: int, chunk: int, T: int):
+def _tile_slots(C: sp.csr_matrix, chunk: int, T: int):
     """Slot assignment of every stored entry of the first T tiles.
 
     Each tile's distinct column chunks take slots 0, 1, ... in ascending
@@ -378,14 +365,14 @@ def _tile_slots(C: sp.csr_matrix, tile_m: int, chunk: int, T: int):
     (tile, chunk, slot, column offset in the chunk, row in the tile,
     value), and the slot count of each tile."""
     nr = C.shape[0]
-    t_rows = min(T * tile_m, nr)
+    t_rows = min(T * TILE_M, nr)
     nnz_head = int(C.indptr[t_rows])
     rows = np.repeat(
         np.arange(t_rows, dtype=np.int64),
         np.diff(C.indptr[: t_rows + 1]),
     )
     cols = C.indices[:nnz_head].astype(np.int64)
-    tid = rows // tile_m
+    tid = rows // TILE_M
     cc = cols // chunk
     order = np.lexsort((cc, tid))
     tid_s, cc_s = tid[order], cc[order]
@@ -400,46 +387,47 @@ def _tile_slots(C: sp.csr_matrix, tile_m: int, chunk: int, T: int):
     ]
     return (
         tid_s, cc_s, slot_pair[gid], (cols % chunk)[order],
-        (rows % tile_m)[order], C.data[:nnz_head][order],
+        (rows % TILE_M)[order], C.data[:nnz_head][order],
         np.bincount(pair_tid, minlength=T),
     )
 
 
-def _fill_tiles(slots, t0: int, t1: int, K: int, tile_m: int, chunk: int,
-                dtype):
+def _fill_tiles(slots, t0: int, t1: int, K: int, chunk: int, dtype):
     """Dense (data, cols) arrays of tiles [t0, t1) with K slots each;
     padded slots hold column 0 and zero values."""
     tid_s, cc_s, slot, coff, moff, val_s, _cnt = slots
     m = (tid_s >= t0) & (tid_s < t1)
     lt = tid_s[m] - t0
     if chunk > 1:
-        data = np.zeros((t1 - t0, K, chunk, tile_m), dtype=dtype)
+        data = np.zeros((t1 - t0, K, chunk, TILE_M), dtype=dtype)
         data[lt, slot[m], coff[m], moff[m]] = val_s[m]
     else:
-        data = np.zeros((t1 - t0, K, tile_m), dtype=dtype)
+        data = np.zeros((t1 - t0, K, TILE_M), dtype=dtype)
         data[lt, slot[m], moff[m]] = val_s[m]
     cols = np.zeros((t1 - t0, K), dtype=np.int64)
     cols[lt, slot[m]] = cc_s[m]
     return data, cols
 
 
-def _tile_ell(data, cols, nrows, ncols_pad, tile_m, chunk, device):
+def _tile_ell(data, cols, nrows, ncols_pad, chunk, device):
     return TileELL(
         data=_tensor(data, device),
         cols=_tensor(cols, device),
         nrows=nrows,
-        nrows_pad=data.shape[0] * tile_m,
+        nrows_pad=data.shape[0] * TILE_M,
         ncols_pad=ncols_pad,
-        tile_m=tile_m,
+        tile_m=TILE_M,
         chunk_c=chunk,
     )
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
 
 
 def tile_ell_from_scipy(
     A: sp.spmatrix,
     dtype,
-    tile_m: int = 8,
-    row_align: int = 8,
     nr_pad: int | None = None,
     nc_pad: int | None = None,
     device="cpu",
@@ -454,43 +442,30 @@ def tile_ell_from_scipy(
     """
     C = A.tocsr()
     nr, nc = C.shape
-    align_r = max(tile_m, row_align)
-    if nr_pad is None:
-        nr_pad = -(-nr // align_r) * align_r
-    if nr_pad % tile_m:
-        nr_pad = -(-nr_pad // tile_m) * tile_m
+    nr_pad = _round_up(nr if nr_pad is None else nr_pad, TILE_M)
     if nc_pad is None:
-        nc_pad = -(-nc // row_align) * row_align
-    T = nr_pad // tile_m
-    slots = _tile_slots(C, tile_m, 1, T)
+        nc_pad = _round_up(nc, TILE_M)
+    T = nr_pad // TILE_M
+    slots = _tile_slots(C, 1, T)
     K = max(int(slots[-1].max(initial=1)), 1)
-    data, cols = _fill_tiles(slots, 0, T, K, tile_m, 1, np.dtype(dtype))
-    return _tile_ell(data, cols, nr, nc_pad, tile_m, 1, device)
+    data, cols = _fill_tiles(slots, 0, T, K, 1, np.dtype(dtype))
+    return _tile_ell(data, cols, nr, nc_pad, 1, device)
 
 
 def tile_ell_stack_from_scipy(
-    A: sp.spmatrix,
-    dtype,
-    tile_m: int = 8,
-    chunk: int = TILE_CHUNK,
-    device="cpu",
+    A: sp.spmatrix, dtype, device="cpu"
 ) -> TileELLStack:
-    """Pack into bucketed, column-chunked tile-ELL.
+    """Pack into bucketed tile-ELL gathering TILE_CHUNK-wide column chunks.
 
     Callers should pre-sort tiles by descending column-chunk union
-    (``plan_reorder(tile_sort_chunk=...)``) so bucket runs are contiguous;
-    the packer is correct for any order but then buckets at K_max."""
+    (``plan_reorder``) so bucket runs are contiguous; the packer is correct
+    for any order but then buckets at K_max."""
     C = A.tocsr()
     nr, nc = C.shape
-    align_r = max(tile_m, 8)
-    nr_pad = -(-nr // align_r) * align_r
-    if nr_pad % tile_m:
-        nr_pad = -(-nr_pad // tile_m) * tile_m
-    nc_pad = -(-nc // 8) * 8
-    if nc_pad % chunk:
-        nc_pad = -(-nc_pad // chunk) * chunk
-    T = nr_pad // tile_m
-    cnt = _tile_chunk_counts(C, tile_m, chunk, T)
+    nr_pad = _round_up(nr, TILE_M)
+    nc_pad = _round_up(nc, TILE_CHUNK)
+    T = nr_pad // TILE_M
+    cnt = _tile_chunk_counts(C, TILE_CHUNK, T)
     kmax = int(cnt.max(initial=1))
     # grid of allowed per-bucket widths (geometric, ratio 1.5)
     grid = [max(kmax, 1)]
@@ -518,41 +493,37 @@ def tile_ell_stack_from_scipy(
     ]
     # global slot assignment (rank of each (tile, chunk) pair within its
     # tile), then one scatter per bucket
-    slots = _tile_slots(C, tile_m, chunk, T)
+    slots = _tile_slots(C, TILE_CHUNK, T)
     blocks = []
     for b in range(len(bounds) - 1):
         t0, t1 = bounds[b], bounds[b + 1]
         data, cols = _fill_tiles(
-            slots, t0, t1, Ks[b], tile_m, chunk, np.dtype(dtype)
+            slots, t0, t1, Ks[b], TILE_CHUNK, np.dtype(dtype)
         )
-        rows = min(max(nr - t0 * tile_m, 0), (t1 - t0) * tile_m)
-        blocks.append(_tile_ell(data, cols, rows, nc_pad, tile_m, chunk, device))
+        rows = min(max(nr - t0 * TILE_M, 0), (t1 - t0) * TILE_M)
+        blocks.append(
+            _tile_ell(data, cols, rows, nc_pad, TILE_CHUNK, device)
+        )
     return TileELLStack(
         blocks=tuple(blocks),
         nrows=nr,
         nrows_pad=nr_pad,
         ncols_pad=nc_pad,
-        tile_m=tile_m,
+        tile_m=TILE_M,
     )
 
 
-def plan_reorder(
-    A: sp.spmatrix,
-    bs: int,
-    tile_sort_chunk: int | None = None,
-    tile_m: int = 8,
-):
-    """Bandwidth-reducing (RCM) row order for levels headed to tile-ELL.
+def plan_reorder(A: sp.spmatrix, bs: int):
+    """Row order for levels headed to tile-ELL: bandwidth-reducing reverse
+    Cuthill-McKee, then FULL TILE_M-row tiles sorted by descending
+    TILE_CHUNK column-chunk union, so the bucketed tile-ELL packer gets
+    contiguous equal-width runs.
 
     Tiles only stay narrow if consecutive rows share neighbors; aggregate-
-    ordered coarse levels do not, so they get reverse Cuthill-McKee first.
-    Returns a row permutation, or None for levels that will use DIA or
-    dense storage in natural order.
-
-    ``tile_sort_chunk`` additionally sorts FULL tile_m-row tiles by
-    descending column-chunk union so the bucketed tile-ELL packer gets
-    contiguous equal-width runs; the partial tail tile stays pinned last
-    (real rows must remain a prefix of every bucket's row range).
+    ordered coarse levels do not. Returns a row permutation, or None for
+    levels that will use DIA or dense storage in natural order. The partial
+    tail tile stays pinned last (real rows must remain a prefix of every
+    bucket's row range).
     """
     n = A.shape[0] // bs
     if bs != 1 or n <= DENSE_MAX_ROWS:
@@ -565,16 +536,14 @@ def plan_reorder(
         reverse_cuthill_mckee(A.tocsr(), symmetric_mode=True),
         dtype=np.int64,
     )
-    if tile_sort_chunk is None:
-        return rcm
-    Tfull = n // tile_m
+    Tfull = n // TILE_M
     if Tfull < 2:
         return rcm
     Ar = A.tocsr()[rcm][:, rcm].tocsr()
-    cnt = _tile_chunk_counts(Ar, tile_m, tile_sort_chunk, Tfull)
+    cnt = _tile_chunk_counts(Ar, TILE_CHUNK, Tfull)
     order = np.argsort(-cnt, kind="stable")
-    head = rcm[: Tfull * tile_m].reshape(Tfull, tile_m)[order].ravel()
-    return np.concatenate([head, rcm[Tfull * tile_m:]])
+    head = rcm[: Tfull * TILE_M].reshape(Tfull, TILE_M)[order].ravel()
+    return np.concatenate([head, rcm[Tfull * TILE_M:]])
 
 
 def _te_bytes(te: TileELLStack) -> int:

@@ -217,7 +217,7 @@ def test_tile_ell_packers(pair, what):
     (plain tile-ELL)."""
     _, _, pj, pt = pair
     lev = pt.setup_levels_[0]
-    perm = tformats.plan_reorder(lev.A, 1, tile_sort_chunk=tformats.TILE_CHUNK)
+    perm = tformats.plan_reorder(lev.A, 1)
     np.testing.assert_array_equal(
         perm,
         jformats.plan_reorder(

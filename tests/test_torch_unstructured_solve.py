@@ -122,6 +122,29 @@ def test_apply_is_symmetric_positive(solved):
     assert u @ Mu > 0
 
 
+def test_apply_products_in_full_f32(solved, monkeypatch):
+    """`apply` runs every matrix product of the cycle (tile-ELL, cluster,
+    dense, coarse inverse) at full f32 precision whatever the caller set,
+    and gives the caller's setting back."""
+    _, p, out = solved
+    pc = out["torch"][0]
+    seen = []
+    for name in ("bmm", "matmul"):
+        def spy(*args, _fn=getattr(torch, name)):
+            seen.append(torch.get_float32_matmul_precision())
+            return _fn(*args)
+
+        monkeypatch.setattr(torch, name, spy)
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        pc.apply(p.b)
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    assert seen and set(seen) == {"highest"}
+
+
 def _jax_setup(p, native_packer: bool):
     with pytest.MonkeyPatch.context() as mp:
         if not native_packer:
