@@ -9,8 +9,13 @@ Phases, each of which raises (nonzero exit) on failure:
 1. device — a CUDA device must exist; prints its name and the
    ``nvidia-smi`` name/power limit; turns TF32 off.
 2. build — builds the CUDA kernels from ``ngsamg_tpu_torch/csrc`` with nvcc
-   (timed), then holds each kernel against its plain PyTorch version on the
-   small odd shapes of the CPU tests.
+   (timed), then holds each kernel against its plain PyTorch version on
+   small odd shapes: the tiled K1 on planes that are not a multiple of its
+   tile and on a lattice smaller than one tile (7, 15 and 27 taps), the
+   general K1 on reach 2 and on a 2-d lattice (and the tiled launch must
+   refuse a plan that does not match its geometry), K2 on both of its paths
+   (an x window in shared memory, and the read-only cache where the
+   window would not fit), K3; f32 and f64.
 3. main path — resets the kernel launch counters, assembles
    ``fem.poisson_3d(216)``, runs ``AMGPreconditioner(..., device="cuda")
    .setup()`` and ``solve(b, tol=1e-8, return_device=True)``, reads the
@@ -18,10 +23,19 @@ Phases, each of which raises (nonzero exit) on failure:
    relative residual (host, f64, scipy) and that every kernel ran.
 4. kernels at the main path's shapes — each kernel against its plain
    version on the staged levels of that hierarchy (max |err| / max |y|
-   <= 1e-6 in f32, <= 1e-13 in f64: same sum order, FMA contraction
-   differs), with the median time per call of both over >= 20 calls; a
-   warm second solve; and a small solve on the card against the same
-   solve on the CPU.
+   <= 1e-6 in f32, <= 1e-13 in f64: K1 keeps the sum order and only FMA
+   contraction differs; K2 sums its diagonal groups apart, which stays
+   far inside the f32 tolerance). Per level: the device time per launch
+   (CUDA events around the replay of a CUDA graph of 50 launches, over
+   50), the single-call time (``call_ms``, which includes the wrapper's
+   host time), the bytes (of the DIA data only the in-range entries) and
+   the bound (bytes at 3.35 TB/s), the time of
+   one PyTorch call for the same function (``library_ms``: conv3d for K1,
+   cuSPARSE via ``torch.sparse.mm`` for K2/K3; the port never calls
+   them), the plain version's time, and, beside the tiled K1, the general
+   K1 on the same level. Then five warm solves (their median; the first
+   one's launches per kernel are counted), and a small solve on the card
+   against the same solve on the CPU.
 5. unstructured path — resets the counters, assembles
    ``fem.unstructured_poisson(55, dim=3, refine=1)`` (perturbed Delaunay,
    one red refinement), sets it up on the card (generic level loop,
@@ -35,7 +49,9 @@ Phases, each of which raises (nonzero exit) on failure:
    hierarchy (there is no hand-written tile-ELL kernel yet).
 7. unstructured reference — ``unstructured_poisson(20, dim=3)`` (a DIA
    finest level under tile-ELL transfers and cluster correction) on the
-   card against the CPU; K2 must launch.
+   card against the CPU; K2 must launch. The card solve is then traced
+   step by step twice, with K2 and with K2 swapped for its plain version,
+   and the two residual histories are printed (a report, not a check).
 
 The last lines are the nvidia-smi line, one JSON object describing the
 kernels, and ``{"ok": true, "device": {...}}``.
@@ -43,27 +59,39 @@ kernels, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
 F32_TOL = 1e-6
 F64_TOL = 1e-13
+GRAPH_LAUNCHES = 50
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+PEAK_FLOP_S = {"f32": 67e12, "f64": 34e12}  # H100 SXM, no tensor cores
 HEADLINE_LEVELS = [9938375, 1259712, 157464, 19683, 2744, 343]
 UNSTRUCT_DOFS = 1411632
 UNSTRUCT_LEVELS = 7
 UNSTRUCT_OC = 2.09  # the JAX package's operator complexity, to 2 places
 UNSTRUCT_MAX_IT = 25
 UNSTRUCT_FORMATS = {"TileELLStack", "TileELL", "DenseMatrix"}
+# the headline's level-0 stencil (P1 on Kuhn tetrahedra), in its order
+HEADLINE_STENCIL = [
+    (-1, -1, -1), (-1, -1, 0), (-1, 0, -1), (-1, 0, 0), (0, -1, -1),
+    (0, -1, 0), (0, 0, -1), (0, 0, 0), (0, 0, 1), (0, 1, 0), (0, 1, 1),
+    (1, 0, 0), (1, 0, 1), (1, 1, 0), (1, 1, 1),
+]
+# the main path's kernels: (source, the TPU kernel it replaces)
 KERNELS = {
-    "stencil_matvec_f32": (
+    "stencil_tiled3d_f32": (
         "ngsamg_tpu_torch/csrc/stencil_matvec.cu",
         "ngsamg_tpu/ops/stencil_pallas.py:38",
     ),
-    "stencil_matvec_f64": (
+    "stencil_tiled3d_f64": (
         "ngsamg_tpu_torch/csrc/stencil_matvec.cu",
         "ngsamg_tpu/ops/stencil_pallas.py:38",
     ),
@@ -102,7 +130,8 @@ def _reset_counts():
 
 
 def _time_ms(fn, reps: int = 25) -> float:
-    """Median device time per call (CUDA events), after a warm-up."""
+    """Median time of one call between two CUDA events, after a warm-up.
+    For a small kernel this is mostly the wrapper's host time (``call_ms``)."""
     import torch
 
     for _ in range(3):
@@ -118,6 +147,95 @@ def _time_ms(fn, reps: int = 25) -> float:
         e.synchronize()
         times.append(s.elapsed_time(e))
     return float(np.median(times))
+
+
+def _graph_ms(fn, n: int = GRAPH_LAUNCHES, reps: int = 5) -> float:
+    """Device time per launch: CUDA events around the replay of a CUDA
+    graph that holds ``n`` calls of ``fn``, over ``n`` (median of ``reps``
+    replays). ``fn`` is warmed up first, so every staged cache is filled
+    before the capture."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        graph.replay()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / n)
+    del graph
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def _bound_ms(nbytes: int, flops: int, dtype) -> tuple:
+    """The least time the card could take: bytes over the HBM rate or
+    operations over the peak rate of the dtype, whichever is larger."""
+    import torch
+
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    peak = PEAK_FLOP_S["f32" if dtype == torch.float32 else "f64"]
+    t_ops = flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _conv3d_call(A, x):
+    """One PyTorch call computing K1's function for a 3-d stencil of reach
+    1: conv3d of the lattice with a 3x3x3 weight holding the taps at
+    off + 1 (cuDNN, TF32 off), zero padding 1 being the clip."""
+    import torch
+    import torch.nn.functional as F
+
+    if len(A.dims) != 3 or any(abs(int(v)) > 1 for o in A.offs for v in o):
+        return None
+    w = torch.zeros((3, 3, 3), dtype=x.dtype, device=x.device)
+    for t, o in enumerate(A.offs):
+        w[o[0] + 1, o[1] + 1, o[2] + 1] += A.vals[t]
+    w = w.view(1, 1, 3, 3, 3)
+    xv = x[: A.nrows].view(1, 1, *A.dims)
+    return lambda: F.conv3d(xv, w, padding=1)
+
+
+def _csr_call(A, x):
+    """One PyTorch call computing K2's/K3's function: ``torch.sparse.mm``
+    (cuSPARSE) of the level as a CSR tensor built from its staged DIA data
+    (explicit zeros dropped; the half storage expanded to both sides)."""
+    import torch
+
+    n = A.nrows_pad
+    i = torch.arange(n, device=x.device)
+    rows, cols, vals = [], [], []
+    for d, off in enumerate(A.offsets):
+        j = i + off
+        m = (j >= 0) & (j < n) & (A.data[d] != 0)
+        rows.append(i[m])
+        cols.append(j[m])
+        vals.append(A.data[d][m])
+        if A.sym_half and off > 0:
+            rows.append(j[m])
+            cols.append(i[m])
+            vals.append(A.data[d][m])
+    coo = torch.sparse_coo_tensor(
+        torch.stack([torch.cat(rows), torch.cat(cols)]), torch.cat(vals),
+        (n, n),
+    ).coalesce()
+    csr = coo.to_sparse_csr()
+    return lambda: torch.sparse.mm(csr, x)
 
 
 def _rand_x(nrows, nrows_pad, dtype, seed):
@@ -175,13 +293,22 @@ def phase_build():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"[build] {line.strip()}")
     tile = 8192
-    for dims, offs in [
+    cube = [(a, b, c) for a in (-1, 0, 1) for b in (-1, 0, 1)
+            for c in (-1, 0, 1)]
+    shuffled = [cube[i] for i in np.random.default_rng(7).permutation(27)]
+    for dims, offs, variant in [
+        # the tiled variant: 7 taps; planes not a multiple of the tile
         ((7, 9, 11), [(0, 0, 0), (1, 0, 0), (-1, 0, 0), (0, 1, 0),
-                      (0, -1, 0), (0, 0, 1), (0, 0, -1)]),
+                      (0, -1, 0), (0, 0, 1), (0, 0, -1)], "tiled3d"),
+        # the headline's 15 taps on planes of 19 x 45 cells
+        ((13, 19, 45), HEADLINE_STENCIL, "tiled3d"),
+        # 27 taps in shuffled order on a lattice smaller than one tile
+        ((2, 3, 5), shuffled, "tiled3d"),
+        # the general variant: reach 2, and a 2-d lattice
         ((5, 4, 38), [(0, 0, 0), (1, 0, 0), (-1, 0, 0), (0, 0, 2),
-                      (1, 1, -1), (-1, -1, 1)]),
+                      (1, 1, -1), (-1, -1, 1)], "general"),
         ((33, 131), [(0, 0), (2, 0), (-2, 0), (0, 3), (0, -3), (1, 1),
-                     (-1, -1)]),
+                     (-1, -1)], "general"),
     ]:
         n = int(np.prod(dims))
         for dt, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
@@ -191,30 +318,70 @@ def phase_build():
                 offs=tuple(offs), dims=dims, nrows=n,
                 nrows_pad=-(-n // 8) * 8,
             )
+            if A.launch.plan.variant != variant:
+                raise AssertionError(
+                    f"K1 {dims}: variant {A.launch.plan.variant}, "
+                    f"expected {variant}"
+                )
+            key = _stencil_key(A, dt)
+            before = stencil_cuda.LAUNCHES[key]
             x = _rand_x(n, A.nrows_pad, dt, 3)
             _check_kernel(A, x, stencil_cuda.stencil_matvec,
                           stencil_cuda._stencil_matvec_plain, tol,
-                          f"K1 {dims} {dt}")
-    for offsets, n, sym in [
-        ((-200, -128, -3, 0, 3, 128, 200), tile - 77, False),
-        ((-128, -1, 0, 1, 128), tile, False),
-        ((-300, 0, 300), 2 * tile - 5, False),
-        ((0, 1, 127, 128, 500), tile - 13, True),
-        ((0, 128, tile + 37), 3 * tile - 9, True),
+                          f"K1 {variant} {dims} {dt}")
+            if stencil_cuda.LAUNCHES[key] != before + 1:
+                raise AssertionError(f"K1 {dims}: {key} did not launch")
+    # the tiled launch refuses a plan that does not match its geometry
+    A = formats.StencilDia(
+        vals=torch.ones(15, device="cuda"), offs=tuple(HEADLINE_STENCIL),
+        dims=(13, 19, 45), nrows=13 * 19 * 45, nrows_pad=13 * 19 * 45,
+    )
+    x = _rand_x(A.nrows, A.nrows_pad, torch.float32, 3)
+    plan = A.launch.plan
+    for bad in (dict(tile=(8, 32)), dict(smem_bytes=plan.smem_bytes - 4),
+                dict(blocks=plan.blocks + 1)):
+        wrong = types.SimpleNamespace(
+            dims=A.dims, nrows=A.nrows, nrows_pad=A.nrows_pad,
+            launch=dataclasses.replace(
+                A.launch, plan=dataclasses.replace(plan, **bad)),
+        )
+        try:
+            stencil_cuda._launch_tiled(wrong, x)
+        except RuntimeError as e:  # cudaErrorInvalidValue from the launch
+            if "launch failed with error 1" in str(e):
+                continue
+            raise
+        raise AssertionError(f"K1 ran with a mismatched plan {bad}")
+    for offsets, n, sym, path in [
+        ((-200, -128, -3, 0, 3, 128, 200), tile - 77, False, "smem"),
+        ((-128, -1, 0, 1, 128), tile, False, "smem"),
+        ((-300, 0, 300), 2 * tile - 5, False, "smem"),
+        # a span whose x window exceeds the shared-memory budget
+        ((-40000, -1, 0, 1, 40000), 5 * tile - 3, False, "ldg"),
+        # more diagonals than one warp takes, rows not a multiple of 32
+        (tuple(range(-60, 61, 3)), 1001, False, "smem"),
+        ((0, 1, 127, 128, 500), tile - 13, True, None),
+        ((0, 128, tile + 37), 3 * tile - 9, True, None),
     ]:
-        n_pad = -(-n // tile) * tile
+        n_pad = -(-n // tile) * tile if n >= tile else -(-n // 8) * 8
         rng = np.random.default_rng(0)
-        data = np.zeros((len(offsets), n_pad), dtype=np.float32)
+        data = np.zeros((len(offsets), n_pad))
         for d, off in enumerate(offsets):
             lo, hi = max(0, -off), min(n, n - off)
             data[d, lo:hi] = rng.standard_normal(hi - lo)
-        A = formats.DiaMatrix(
-            data=torch.from_numpy(data).cuda(), offsets=offsets, nrows=n,
-            nrows_pad=n_pad, sym_half=sym,
-        )
-        x = _rand_x(n, n_pad, torch.float32, 1)
-        _check_kernel(A, x, dia_cuda.dia_matvec, dia_cuda._dia_matvec_plain,
-                      F32_TOL, f"K{3 if sym else 2} {offsets}")
+        dts = ((torch.float32, F32_TOL), (torch.float64, F64_TOL))
+        for dt, tol in dts if not sym else dts[:1]:
+            A = formats.DiaMatrix(
+                data=torch.as_tensor(data, dtype=dt, device="cuda"),
+                offsets=offsets, nrows=n, nrows_pad=n_pad, sym_half=sym,
+            )
+            got = None if sym else A.launch.plan.path
+            if got != path:
+                raise AssertionError(f"K2 {offsets}: path {got}, not {path}")
+            x = _rand_x(n, n_pad, dt, 1)
+            _check_kernel(A, x, dia_cuda.dia_matvec,
+                          dia_cuda._dia_matvec_plain, tol,
+                          f"K{3 if sym else 2} {path} {offsets} {dt}")
     print("[build] small-shape kernel checks passed", flush=True)
 
 
@@ -285,24 +452,75 @@ def phase_main_path():
     return p, pc, out
 
 
+def _stencil_key(A, dtype) -> str:
+    """The launch counter of the K1 variant that A's plan picks."""
+    import torch
+
+    kind = ("stencil_tiled3d" if A.launch.plan.variant == "tiled3d"
+            else "stencil_matvec")
+    return f"{kind}_{'f32' if dtype == torch.float32 else 'f64'}"
+
+
 def _path_kernels(pc) -> set:
     """The kernels the staged hierarchy's matvecs dispatch to."""
+    import torch
+
     from ngsamg_tpu_torch.sparse import formats
 
     names = set()
     for lev in pc.op.levels:
         if isinstance(lev.A, formats.StencilDia):
-            names.add("stencil_matvec_f32")
+            names.add(_stencil_key(lev.A, torch.float32))
         elif isinstance(lev.A, formats.DiaMatrix):
             names.add("dia_sym_matvec_f32" if lev.A.sym_half
                       else "dia_matvec_f32")
     if pc._A64_dev is not None:
-        names.add("stencil_matvec_f64")
+        names.add(_stencil_key(pc._A64_dev, torch.float64))
     return names
 
 
+def _level_cost(A, dtype) -> tuple:
+    """(bytes, flops) one matvec must move and do: each input read once
+    (x, the values or the DIA data, the offsets), y written once; two
+    operations per stored nonzero that this level's data holds. Of the DIA
+    data only the entries whose row and column both lie in [0, nrows)
+    count: a matvec never reads the storage's out-of-range slots."""
+    import torch
+
+    es = 4 if dtype == torch.float32 else 8
+    vec = 2 * A.nrows_pad * es
+    if hasattr(A, "dims"):
+        nnz = sum(
+            int(np.prod([max(0, n - abs(int(o[k])))
+                         for k, n in enumerate(A.dims)]))
+            for o in A.offs
+        )
+        return vec + len(A.offs) * es, 2 * nnz
+    nz = int((A.data != 0).sum())
+    if A.sym_half:
+        nz = 2 * nz - int((A.data[A.offsets.index(0)] != 0).sum()) \
+            if 0 in A.offsets else 2 * nz
+    used = sum(max(0, A.nrows - abs(int(o))) for o in A.offsets)
+    return vec + used * es + 8 * len(A.offsets), 2 * nz
+
+
+def _variant(A) -> str:
+    """Which kernel design a level's launch takes."""
+    from ngsamg_tpu_torch.ops import dia_cuda
+
+    plan = A.launch.plan
+    if plan is None:
+        return "row"  # K3: one thread per row
+    if isinstance(plan, dia_cuda.DiaPlan):
+        return f"split-{plan.path}"
+    return plan.variant
+
+
 def phase_kernels(p, pc, launches):
-    """Each kernel vs its plain version on the staged main-path levels."""
+    """Each kernel vs its plain version on the staged main-path levels,
+    with its device time per launch (CUDA-graph replay), its single-call
+    time, its bound, and the time of one PyTorch call for the same
+    function (conv3d or cuSPARSE, a yardstick the port never calls)."""
     import torch
 
     from ngsamg_tpu_torch.ops import dia_cuda, stencil_cuda
@@ -312,9 +530,10 @@ def phase_kernels(p, pc, launches):
     for lvl, lev in enumerate(pc.op.levels):
         A = lev.A
         if isinstance(A, formats.StencilDia):
-            cases.append(("stencil_matvec_f32", lvl, A, torch.float32))
-            cases.append(("stencil_matvec_f64", lvl, pc._A64_dev,
-                          torch.float64))
+            cases.append((_stencil_key(A, torch.float32), lvl, A,
+                          torch.float32))
+            cases.append((_stencil_key(pc._A64_dev, torch.float64), lvl,
+                          pc._A64_dev, torch.float64))
         elif isinstance(A, formats.DiaMatrix):
             name = "dia_sym_matvec_f32" if A.sym_half else "dia_matvec_f32"
             cases.append((name, lvl, A, torch.float32))
@@ -323,53 +542,92 @@ def phase_kernels(p, pc, launches):
         if name.startswith("stencil"):
             kern, plain = stencil_cuda.stencil_matvec, \
                 stencil_cuda._stencil_matvec_plain
+            library = _conv3d_call
         else:
             kern, plain = dia_cuda.dia_matvec, dia_cuda._dia_matvec_plain
+            library = _csr_call
         tol = F32_TOL if dt == torch.float32 else F64_TOL
         x = _rand_x(A.nrows, A.nrows_pad, dt, 100 + lvl)
         err, rel = _check_kernel(A, x, kern, plain, tol, f"{name} level {lvl}")
-        ms = _time_ms(lambda: kern(A, x))
-        plain_ms = _time_ms(lambda: plain(A, x))
-        ndiag = len(getattr(A, "offsets", ()) or getattr(A, "offs", ()))
-        print(f"[kernels] {name} level {lvl}: rows {A.nrows} terms {ndiag} "
-              f"sym_half {getattr(A, 'sym_half', False)} max|err| {err:.3e} "
-              f"rel {rel:.3e} kernel {ms:.4f} ms plain {plain_ms:.4f} ms",
-              flush=True)
-        best = per_kernel.get(name)
-        entry = {"level": lvl, "rows": A.nrows, "max_abs_err": err,
-                 "ms": ms, "plain_ms": plain_ms}
-        if best is None:
-            per_kernel[name] = {"levels": [entry]}
-        else:
-            best["levels"].append(entry)
+        nbytes, flops = _level_cost(A, dt)
+        bound_ms, bound_by = _bound_ms(nbytes, flops, dt)
+        entry = {
+            "level": lvl, "rows": A.nrows,
+            "terms": len(getattr(A, "offsets", None) or A.offs),
+            "bytes": nbytes, "flops": flops, "max_abs_err": err,
+            "rel_err": rel,
+            "device_ms": _graph_ms(lambda: kern(A, x)),
+            "call_ms": _time_ms(lambda: kern(A, x)),
+            "plain_ms": _graph_ms(lambda: plain(A, x), n=5),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        lib = library(A, x)
+        entry["library_ms"] = None if lib is None else _graph_ms(lib)
+        entry["share_of_bound"] = bound_ms / entry["device_ms"]
+        del lib
+        entry["variant"] = _variant(A)
+        if entry["variant"] == "tiled3d":
+            # the general kernel on the same level: the before number
+            meta = stencil_cuda._device_meta(A.offs, A.dims, x.device)
+
+            def general():
+                return stencil_cuda._launch_general(A, x, meta)
+
+            entry["general_max_abs_err"], _ = _check_kernel(
+                A, x, lambda A_, x_: general(), plain, tol,
+                f"{name} general kernel, level {lvl}")
+            entry["general_ms"] = _graph_ms(general)
+        print(f"[kernels] {name} " + json.dumps(entry), flush=True)
+        per_kernel.setdefault(name, []).append(entry)
     rows = []
     for name, (src, replaces) in KERNELS.items():
-        levels = per_kernel[name]["levels"]
+        levels = per_kernel[name]
         big = max(levels, key=lambda e: e["rows"])
         rows.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": int(launches[name]),
             "max_abs_err": max(e["max_abs_err"] for e in levels),
-            "ms": big["ms"], "plain_ms": big["plain_ms"],
+            "ms": big["device_ms"], "device_ms": big["device_ms"],
+            "call_ms": big["call_ms"], "plain_ms": big["plain_ms"],
+            "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
+            "library_ms": big["library_ms"],
+            "variant": big["variant"],
+            "levels": [
+                {k: e[k] for k in ("level", "rows", "variant", "device_ms",
+                                   "call_ms", "bound_ms", "share_of_bound",
+                                   "library_ms", "plain_ms", "general_ms")
+                 if k in e}
+                for e in levels
+            ],
         })
     return rows
 
 
 def phase_reference(p, pc):
-    """Warm second solve; a small solve on the card vs the CPU."""
+    """Five warm solves (the first one's launches counted); a small solve
+    on the card vs the CPU."""
     import torch
 
     from ngsamg_tpu_torch import AMGOptions, AMGPreconditioner
     from ngsamg_tpu_torch.config import SmootherOptions, SmootherType
     from ngsamg_tpu_torch.utils import fem
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    x, info = pc.solve(p.b, tol=1e-8, return_device=True)
-    torch.cuda.synchronize()
-    warm = time.perf_counter() - t0
-    print(f"[reference] warm solve {warm:.4f} s, {info.iterations} "
-          f"iterations, relres {info.relres:.3e}", flush=True)
+    walls = []
+    for k in range(5):
+        if k == 0:
+            _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, info = pc.solve(p.b, tol=1e-8, return_device=True)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if k == 0:
+            warm_launches = _counts()
+    warm = float(np.median(walls))
+    print(f"[reference] warm solves {json.dumps(walls)} s, median "
+          f"{warm:.4f} s, {info.iterations} iterations, relres "
+          f"{info.relres:.3e}, launches of one {json.dumps(warm_launches)}",
+          flush=True)
 
     q = fem.poisson_3d(40)
     opts = AMGOptions(smoother=SmootherOptions(type=SmootherType.CHEBYSHEV))
@@ -388,7 +646,7 @@ def phase_reference(p, pc):
         raise AssertionError("small solve on the card disagrees with the CPU")
     if diff > 1e-6:
         raise AssertionError(f"small solve differs from the CPU by {diff}")
-    return warm
+    return warm, warm_launches
 
 
 def _cheb_opts():
@@ -504,6 +762,60 @@ def phase_tile_ell(pc):
     return rows
 
 
+def _traced_solve(pc, b):
+    """``pc.solve(b, tol=1e-8)``, recording for each PCG pass its target
+    and its own relative residual after every step (from the residual
+    norm each step returns)."""
+    from ngsamg_tpu_torch.solve import pcg as pcg_mod
+
+    step = pcg_mod._pcg_step
+    passes = []  # [the pass's tol_abs2 tensor, ||rhs||, relres per step]
+
+    def traced(op, A, state, tol_abs2):
+        if not passes or passes[-1][0] is not tol_abs2:
+            passes.append([tol_abs2, float(state[4]) ** 0.5, []])
+        state = step(op, A, state, tol_abs2)
+        passes[-1][2].append(float(state[4]) ** 0.5 / passes[-1][1])
+        return state
+
+    pcg_mod._pcg_step = traced
+    try:
+        x, info = pc.solve(b, tol=1e-8)
+    finally:
+        pcg_mod._pcg_step = step
+    return x, info, [{"target": float(t) ** 0.5 / b0, "relres": r}
+                     for t, b0, r in passes]
+
+
+def _k2_order_diagnostic(q, pc):
+    """The card solve traced twice: as it runs, and with K2 swapped for its
+    plain version (the plain summation order on the same card). Tells the
+    kernel's summation order apart from the rest of the card's rounding;
+    reports only."""
+    from ngsamg_tpu_torch.ops import dia_cuda
+
+    kernel = dia_cuda.dia_matvec
+
+    def plain_k2(A, x):
+        if A.sym_half:
+            return kernel(A, x)
+        return dia_cuda._dia_matvec_plain(A, x)
+
+    out = {}
+    for label in ("kernel", "plain"):
+        dia_cuda.dia_matvec = kernel if label == "kernel" else plain_k2
+        try:
+            _x, info, passes = _traced_solve(pc, q.b)
+        finally:
+            dia_cuda.dia_matvec = kernel
+        out[label] = {"iterations": int(info.iterations),
+                      "outer_history": [float(h) for h in info.history],
+                      "pcg_passes": passes}
+    print("[unstructured-reference] K2 vs its plain version in the card "
+          "solve: " + json.dumps(out), flush=True)
+    return out
+
+
 def phase_unstructured_reference():
     """unstructured_poisson(20, dim=3) on the card against the CPU, and
     each DIA level's kernel against its plain version at that shape.
@@ -549,6 +861,7 @@ def phase_unstructured_reference():
               f"diagonals {len(A.offsets)} max|err| {err:.3e} rel {rel:.3e}",
               flush=True)
         errs[name] = max(errs.get(name, 0.0), err)
+    _k2_order_diagnostic(q, pg)
     if abs(ig.iterations - ic.iterations) > 1 or not ig.converged \
             or relg > 1e-8:
         raise AssertionError("unstructured solve on the card disagrees")
@@ -568,7 +881,9 @@ def main() -> int:
     phase_build()
     p, pc, main_out = phase_main_path()
     rows = phase_kernels(p, pc, main_out["launches"])
-    phase_reference(p, pc)
+    _warm, warm_launches = phase_reference(p, pc)
+    for row in rows:
+        row["launches_warm_solve"] = int(warm_launches[row["name"]])
     del p, pc
     _up, upc, _uout = phase_unstructured()
     phase_tile_ell(upc)

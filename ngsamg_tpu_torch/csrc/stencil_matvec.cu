@@ -7,26 +7,45 @@
 //   y[g] = sum_t vals[t] * x[g + off_lin_t] * [g + off_t inside dims]
 //   y[g] = 0 for g in [nrows, nrows_pad)
 //
-// Bound: memory traffic. Per row the kernel reads x once from DRAM and
-// writes y once; the m values and offsets are a few hundred bytes that
-// stay in cache. So the DRAM traffic is ~2 vectors per call, against the
-// ~m/2-plus padded copies of the plain PyTorch version. The m neighbour
-// reads of a row come from the caches: along the last axis they share a
-// cache line, along the leading axes they sit whole lattice rows or
-// planes back. At a 215^3 lattice the planes are 185 KB apart, so those
-// reads are served by L2, not L1, and L2 rather than DRAM limits this
-// simple form. Tiling x in shared memory is the known next step. The TPU
-// kernel's three-tile x window and lane roll existed only to stage x in
-// VMEM and are not carried over.
+// Bound: memory traffic. A call must read x once and write y once; the m
+// values and offsets are a few hundred bytes. Two kernels compute it; the
+// wrapper (ops/stencil_cuda.py) picks one from the shape alone.
 //
-// Design: one thread per output row in a grid-stride loop, 64-bit row
-// indices; lattice coordinates decoded from the flat row index (in 32-bit
-// divisions while every index fits, in 64-bit ones beyond, so a larger
-// lattice cannot overflow); each term masked by the per-axis bounds check
-// instead of relying on a zero-filled x tail. Offsets are read from a
+// `stencil3d_kernel`, the tiled variant, for d == 3 and reach <= 1 per axis
+// (the headline's 15-point stencil on a 215^3 lattice). A block of 256
+// threads owns a kTY x kTX = 16 x 32 tile of the two fast axes (two output
+// cells per thread, 8 rows apart) and marches along the slow axis over a
+// chunk of planes. The x planes of the tile, with a one-cell halo, stream
+// through a ring of kSlots = 8 planes in shared memory by cp.async: three
+// in use and five in flight, so that a block keeps ~12 KB (f32) of loads
+// outstanding while it sums a plane. Halo cells outside the lattice are
+// zero-filled by the copy, which is the clip. The ring's first two slots
+// are mirrored after its end, so the three planes z - 1 .. z + 1 are
+// always contiguous and each tap has one fixed shared-memory offset. The
+// taps are kernel parameters (the weights and those offsets, in A.offs
+// order, zero-weight padded to NT = 7, 15 or 27; the launch turns each
+// tap's (dz, dy, dx) into its offset), and the tap loop is unrolled, so a
+// tap costs one address add, two shared loads and two FMAs for the
+// thread's two cells: no per-row division, no per-tap global load, no
+// bounds check, one barrier per plane. The padded taps add exact zeros,
+// so the sum order is that of the general kernel. What remains is the
+// shared-memory pipe: 15 loads per output, about as long as the DRAM
+// stream itself, and the two only partly overlap (PERF.md).
+//
+// `stencil_matvec_kernel`, the general variant, for every other shape
+// (d != 3, reach > 1): one thread per output row in a grid-stride loop,
+// 64-bit row indices; lattice coordinates decoded from the flat row index
+// (in 32-bit divisions while every index fits, in 64-bit ones beyond, so a
+// larger lattice cannot overflow); each term masked by the per-axis bounds
+// check instead of relying on a zero-filled x tail. Offsets are read from a
 // small device array: there is no cap on their number. The lattice
-// dimension d <= 4 is a template parameter, and rows away from the
-// lattice faces skip the per-term bounds checks (see the kernel).
+// dimension d <= 4 is a template parameter, and rows away from the lattice
+// faces skip the per-term bounds checks. Its neighbour reads span three
+// lattice planes and are served by L2, not L1; on the headline it reaches
+// about 16% of the DRAM bound, which is why the tiled variant exists.
+//
+// The TPU kernel's three-tile x window and lane roll existed only to stage
+// x in VMEM and are not carried over.
 //
 // C interface (loaded with ctypes): each entry point launches on the given
 // stream and returns cudaGetLastError() as an int.
@@ -156,6 +175,207 @@ int launch(const T* vals, const long long* meta, int m, int d, long long d0,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// tiled variant: d == 3, reach <= 1 per axis
+// ---------------------------------------------------------------------------
+
+constexpr int kTX = 32;                   // fast-axis cells of a tile (a warp)
+constexpr int kTY = 16;                   // middle-axis cells of a tile
+constexpr int kRows = 2;                  // output cells of a thread, kTY / kRows apart
+constexpr int kHalo = 1;                  // the stencil's reach per axis
+constexpr int kHX = kTX + 2 * kHalo;      // with the halo
+constexpr int kHY = kTY + 2 * kHalo;
+constexpr int kPlane = kHX * kHY;         // shared cells per ring plane
+constexpr int kThreads3d = kTX * kTY / kRows;
+constexpr int kLoads = (kPlane + kThreads3d - 1) / kThreads3d;
+constexpr int kSlots = 8;                 // ring planes: 3 in use, 5 in flight
+constexpr int kMirror = 2;                // slots 0, 1 repeated after the ring
+constexpr int kMaxTaps = 27;
+
+// w: the weights in A.offs order, zero-padded. off: each tap's offset in
+// the three-plane window [z - 1, z + 1] of the ring, relative to the
+// thread's cell: (dz + 1) * kPlane + (dy + 1) * kHX + (dx + 1) (launch3d
+// computes it).
+template <typename T>
+struct Taps {
+  T w[kMaxTaps];
+  int off[kMaxTaps];
+};
+
+// cp.async of one value (4 or 8 bytes) into shared memory; src_bytes 0
+// writes a zero without reading.
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int src_bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
+               "l"(src), "n"(N), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <typename T>
+struct Ring {
+  T* s;                    // (kSlots + kMirror) * kPlane shared cells
+  const T* __restrict__ x;
+  long long plane;         // n1 * n2
+  int n0;
+  int soff[kLoads];        // this thread's cells in a ring plane (-1: none)
+  int goff[kLoads];        // their in-plane lattice index (-1: outside)
+
+  // start copying this thread's cells of lattice plane z into a slot, and
+  // into its mirror for slots 0 and 1 (zeros outside the lattice), as one
+  // commit group
+  __device__ __forceinline__ void fetch(int z, int slot) const {
+    const bool zin = z >= 0 && z < n0;
+#pragma unroll
+    for (int k = 0; k < kLoads; ++k) {
+      if (soff[k] < 0) continue;
+      const bool ok = zin && goff[k] >= 0;
+      const T* src = ok ? x + (long long)z * plane + goff[k] : x;
+      const int bytes = ok ? (int)sizeof(T) : 0;
+      cp_async<sizeof(T)>(s + slot * kPlane + soff[k], src, bytes);
+      if (slot < kMirror)
+        cp_async<sizeof(T)>(s + (slot + kSlots) * kPlane + soff[k], src,
+                            bytes);
+    }
+    cp_async_commit();
+  }
+};
+
+template <typename T, int NT>
+__global__ void __launch_bounds__(kThreads3d, 4)
+    stencil3d_kernel(const Taps<T> taps, int n0, int n1, int n2,
+                     int tiles_x, int tiles_y, int chunk, long long nrows,
+                     long long nrows_pad, const T* __restrict__ x,
+                     T* __restrict__ y) {
+  extern __shared__ __align__(16) unsigned char smem3d[];
+  T* s = reinterpret_cast<T*>(smem3d);
+  const int tid = threadIdx.x;
+  const int tx = tid % kTX, ty = tid / kTX;  // cells ty + r * kTY / kRows
+  const int tiles = tiles_x * tiles_y;
+  const int tile = blockIdx.x % tiles;
+  const int x0 = (tile % tiles_x) * kTX, y0 = (tile / tiles_x) * kTY;
+  const int z0 = (blockIdx.x / tiles) * chunk;
+  const int z1 = min(z0 + chunk, n0);
+  if (blockIdx.x == 0)
+    for (long long g = nrows + tid; g < nrows_pad; g += kThreads3d)
+      y[g] = T(0);
+
+  Ring<T> ring;
+  ring.s = s;
+  ring.x = x;
+  ring.plane = (long long)n1 * n2;
+  ring.n0 = n0;
+#pragma unroll
+  for (int k = 0; k < kLoads; ++k) {
+    const int e = tid + k * kThreads3d;
+    const int r = e / kHX, c = e % kHX;
+    const int gy = y0 - 1 + r, gx = x0 - 1 + c;
+    const bool cell = e < kPlane;
+    ring.soff[k] = cell ? e : -1;
+    ring.goff[k] = (cell && gy >= 0 && gy < n1 && gx >= 0 && gx < n2)
+                       ? gy * n2 + gx
+                       : -1;
+  }
+  // plane p sits in slot (p - z0 + 1) % kSlots (slots 0 and 1 also in
+  // their mirrors), so the planes z - 1, z, z + 1 are the three contiguous
+  // slots from (z - z0) % kSlots on. The chunk reads the planes z0 - 1 ..
+  // z1. Prologue: the first kSlots - 1 of them.
+#pragma unroll
+  for (int i = 0; i < kSlots - 1; ++i) {
+    const int p = z0 - 1 + i;
+    if (p <= z1) ring.fetch(p, i);
+    else cp_async_commit();
+  }
+  constexpr int kRowStep = kTY / kRows;
+  bool out[kRows];
+  long long gout[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int gy = y0 + ty + r * kRowStep;
+    out[r] = gy < n1 && x0 + tx < n2;
+    gout[r] = (long long)gy * n2 + x0 + tx;
+  }
+  const T* cell = s + ty * kHX + tx;
+  for (int z = z0; z < z1; ++z) {
+    // planes up to z + 1 have landed (this thread's copies; the barrier
+    // makes every thread's visible and frees the slot of plane z - 2)
+    cp_async_wait<kSlots - 4>();
+    __syncthreads();
+    const int p = z + kSlots - 2;
+    if (p <= z1) ring.fetch(p, (p - z0 + 1) % kSlots);
+    else cp_async_commit();
+    const T* win = cell + ((z - z0) % kSlots) * kPlane;
+    T acc[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) acc[r] = T(0);
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      const T* v = win + taps.off[t];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+        acc[r] += taps.w[t] * v[r * kRowStep * kHX];
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+      if (out[r]) y[(long long)z * ring.plane + gout[r]] = acc[r];
+  }
+  cp_async_wait<0>();
+}
+
+// w_host: kMaxTaps weights; taps_host: kMaxTaps (dz, dy, dx) shifts, in
+// A.offs order, padded with zero-weight taps. The rest is the wrapper's
+// plan (ops/stencil_cuda.py `stencil_plan`), passed whole and checked
+// against this kernel's geometry, so that the two cannot disagree: a plan
+// built for another tile, halo, ring or grid is refused, not run.
+template <typename T>
+int launch3d(const T* w_host, const int* taps_host, int ntaps, int n0, int n1,
+             int n2, int tile_y, int tile_x, int halo, int tiles_y,
+             int tiles_x, int chunk, long long blocks, long long smem_bytes,
+             long long nrows, long long nrows_pad, const T* x, T* y,
+             void* stream) {
+  // <= 48 KB in f32 and f64: no opt-in
+  const long long smem = (long long)sizeof(T) * (kSlots + kMirror) * kPlane;
+  if (n0 <= 0 || n1 <= 0 || n2 <= 0 || chunk <= 0 || tile_y != kTY ||
+      tile_x != kTX || halo != kHalo || tiles_y != (n1 + kTY - 1) / kTY ||
+      tiles_x != (n2 + kTX - 1) / kTX ||
+      blocks != (long long)tiles_x * tiles_y * ((n0 + chunk - 1) / chunk) ||
+      blocks > 0x7fffffffLL || smem_bytes != smem)
+    return (int)cudaErrorInvalidValue;
+  Taps<T> taps;
+  for (int t = 0; t < kMaxTaps; ++t) {
+    const int* d = taps_host + 3 * t;
+    for (int k = 0; k < 3; ++k)
+      if (d[k] < -kHalo || d[k] > kHalo) return (int)cudaErrorInvalidValue;
+    taps.w[t] = w_host[t];
+    taps.off[t] =
+        (d[0] + kHalo) * kPlane + (d[1] + kHalo) * kHX + d[2] + kHalo;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  const unsigned nb = (unsigned)blocks;
+  const size_t smem_sz = (size_t)smem_bytes;
+  switch (ntaps) {
+    case 7: stencil3d_kernel<T, 7><<<nb, kThreads3d, smem_sz, s>>>(
+        taps, n0, n1, n2, tiles_x, tiles_y, chunk, nrows, nrows_pad, x, y);
+      break;
+    case 15: stencil3d_kernel<T, 15><<<nb, kThreads3d, smem_sz, s>>>(
+        taps, n0, n1, n2, tiles_x, tiles_y, chunk, nrows, nrows_pad, x, y);
+      break;
+    case 27: stencil3d_kernel<T, 27><<<nb, kThreads3d, smem_sz, s>>>(
+        taps, n0, n1, n2, tiles_x, tiles_y, chunk, nrows, nrows_pad, x, y);
+      break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int ngsamg_stencil_matvec_f32(const float* vals,
@@ -178,4 +398,29 @@ extern "C" int ngsamg_stencil_matvec_f64(const double* vals,
                                          void* stream) {
   return launch<double>(vals, meta, m, d, d0, d1, d2, d3, nrows, nrows_pad, x,
                         y, stream);
+}
+
+extern "C" int ngsamg_stencil3d_f32(const float* w_host, const int* taps_host,
+                                    int ntaps, int n0, int n1, int n2,
+                                    int tile_y, int tile_x, int halo,
+                                    int tiles_y, int tiles_x, int chunk,
+                                    long long blocks, long long smem_bytes,
+                                    long long nrows, long long nrows_pad,
+                                    const float* x, float* y, void* stream) {
+  return launch3d<float>(w_host, taps_host, ntaps, n0, n1, n2, tile_y, tile_x,
+                         halo, tiles_y, tiles_x, chunk, blocks, smem_bytes,
+                         nrows, nrows_pad, x, y, stream);
+}
+
+extern "C" int ngsamg_stencil3d_f64(const double* w_host,
+                                    const int* taps_host, int ntaps, int n0,
+                                    int n1, int n2, int tile_y, int tile_x,
+                                    int halo, int tiles_y, int tiles_x,
+                                    int chunk, long long blocks,
+                                    long long smem_bytes, long long nrows,
+                                    long long nrows_pad, const double* x,
+                                    double* y, void* stream) {
+  return launch3d<double>(w_host, taps_host, ntaps, n0, n1, n2, tile_y,
+                          tile_x, halo, tiles_y, tiles_x, chunk, blocks,
+                          smem_bytes, nrows, nrows_pad, x, y, stream);
 }

@@ -4,7 +4,8 @@ Replace the Pallas TPU kernels ngsamg_tpu/ops/dia_pallas.py `_dia_kernel`
 (full storage, K2) and `_dia_sym_kernel` (symmetric half storage, K3); the
 kernels are ``csrc/dia_matvec.cu``. ``A`` is a
 :class:`ngsamg_tpu_torch.sparse.formats.DiaMatrix` (duck-typed here:
-``data``, ``offsets``, ``nrows_pad``, ``sym_half``).
+``data``, ``offsets``, ``nrows_pad``, ``sym_half``, and ``launch``, the
+:class:`DiaLaunch` that :func:`stage` made when the level was built).
 
 :func:`dia_matvec` launches the kernel for a CUDA tensor and raises if it
 cannot; for a CPU tensor it runs :func:`_dia_matvec_plain`.
@@ -12,7 +13,7 @@ cannot; for a CPU tensor it runs :func:`_dia_matvec_plain`.
 
 from __future__ import annotations
 
-import functools
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -26,6 +27,82 @@ LAUNCHES = {
     "dia_sym_matvec_f32": 0,
     "dia_sym_matvec_f64": 0,
 }
+
+TILE_ROWS = 32  # rows of a K2 block: one per lane (kTileRows in the kernel)
+DIAGS_PER_GROUP = 8  # K2: at least this many diagonals per warp ...
+MAX_GROUPS = 16  # ... and at most this many warps per block
+SMEM_BUDGET = 48 * 1024  # bytes a block gets without an opt-in
+OFFSET_BYTES = 8  # the offsets are staged as int64
+
+
+@dataclass(frozen=True)
+class DiaPlan:
+    """K2's launch plan for one level (full storage).
+
+    A block covers ``tile`` rows with ``groups`` warps; warp g sums the
+    diagonals [g * per_group, (g + 1) * per_group). On the "smem" path the
+    block stages x's window [r0 + lo, r0 + lo + window) in shared memory;
+    on the "ldg" path (window 0) it reads x through the read-only cache.
+    ``smem_bytes`` is what the kernel's layout takes (offsets, partial
+    sums, window); the launch derives the same size from the other fields.
+    """
+
+    tile: int
+    groups: int
+    per_group: int
+    window: int
+    lo: int
+    smem_bytes: int
+    path: str
+    blocks: int
+
+
+def dia_plan(offsets, n_pad: int, itemsize: int) -> DiaPlan:
+    """K2's plan from the level's shape alone (offsets ascending). Raises
+    if even the offsets and partial sums overflow the shared-memory budget
+    (about 5,600 diagonals)."""
+    ndiag = len(offsets)
+    groups = min(MAX_GROUPS, max(1, -(-ndiag // DIAGS_PER_GROUP)))
+    per_group = -(-ndiag // groups)
+    groups = max(1, -(-ndiag // per_group)) if per_group else 1
+    lo = min(int(offsets[0]), 0) if ndiag else 0
+    hi = max(int(offsets[-1]), 0) if ndiag else 0
+    base = ndiag * OFFSET_BYTES + groups * TILE_ROWS * itemsize
+    if base > SMEM_BUDGET:
+        raise ValueError(
+            f"dia_matvec: {ndiag} diagonals need {base} B of shared memory "
+            f"for K2's offsets and partial sums (budget {SMEM_BUDGET} B)"
+        )
+    window = TILE_ROWS + hi - lo
+    if base + window * itemsize <= SMEM_BUDGET:
+        path, smem = "smem", base + window * itemsize
+    else:
+        path, smem, window = "ldg", base, 0
+    return DiaPlan(
+        tile=TILE_ROWS, groups=groups, per_group=per_group, window=window,
+        lo=lo, smem_bytes=smem, path=path,
+        blocks=-(-n_pad // TILE_ROWS),
+    )
+
+
+@dataclass(frozen=True)
+class DiaLaunch:
+    """What a launch needs, made once per staged level: the offsets on the
+    level's device and, for full storage, K2's plan."""
+
+    offs: torch.Tensor  # (ndiag,) int64
+    plan: DiaPlan | None  # None for sym_half (K3: one thread per row)
+
+
+def stage(A) -> DiaLaunch:
+    offsets = tuple(int(o) for o in A.offsets)
+    if A.sym_half and min(offsets, default=0) < 0:
+        raise ValueError("dia_matvec: sym_half stores offsets >= 0 only")
+    offs = torch.tensor(offsets, dtype=torch.int64, device=A.data.device)
+    plan = None if A.sym_half else dia_plan(
+        offsets, A.nrows_pad, A.data.element_size()
+    )
+    return DiaLaunch(offs=offs, plan=plan)
 
 
 def _dia_matvec_plain(A, x: torch.Tensor) -> torch.Tensor:
@@ -53,11 +130,6 @@ def _dia_matvec_plain(A, x: torch.Tensor) -> torch.Tensor:
     return y[:, None]
 
 
-@functools.lru_cache(maxsize=64)
-def _device_offsets(offsets: tuple, device: torch.device):
-    return torch.tensor(offsets, dtype=torch.int64, device=device)
-
-
 def dia_matvec(A, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x for a DiaMatrix (full or sym_half); x: (nrows_pad, 1)."""
     if x.device.type == "cpu":
@@ -72,29 +144,32 @@ def dia_matvec(A, x: torch.Tensor) -> torch.Tensor:
             f"x {x.dtype}@{x.device}"
         )
     ndiag = len(A.offsets)
-    if tuple(A.data.shape) != (ndiag, A.nrows_pad) or not A.data.is_contiguous():
+    if A.data.shape != (ndiag, A.nrows_pad) or not A.data.is_contiguous():
         raise ValueError(
             f"dia_matvec: data must be contiguous ({ndiag}, {A.nrows_pad}), "
             f"got {tuple(A.data.shape)}"
         )
-    if tuple(x.shape) != (A.nrows_pad, 1) or not x.is_contiguous():
+    if x.shape != (A.nrows_pad, 1) or not x.is_contiguous():
         raise ValueError(
             f"dia_matvec: x must be contiguous ({A.nrows_pad}, 1), "
             f"got {tuple(x.shape)}"
         )
-    if A.sym_half and min(A.offsets, default=0) < 0:
-        raise ValueError("dia_matvec: sym_half stores offsets >= 0 only")
-    offs = _device_offsets(tuple(int(o) for o in A.offsets), x.device)
+    launch = A.launch
     y = torch.empty_like(x)
-    kind = "dia_sym_matvec" if A.sym_half else "dia_matvec"
-    key = f"{kind}_{'f32' if x.dtype == torch.float32 else 'f64'}"
+    key = ("dia_sym_matvec" if A.sym_half else "dia_matvec") + (
+        "_f32" if x.dtype == torch.float32 else "_f64"
+    )
     sym = f"ngsamg_{key}"
     fn = getattr(cuda_lib.library(), sym)
-    rc = fn(
-        A.data.data_ptr(), offs.data_ptr(), ndiag, A.nrows_pad,
-        x.data_ptr(), y.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if A.sym_half:
+        rc = fn(A.data.data_ptr(), launch.offs.data_ptr(), ndiag, A.nrows_pad,
+                x.data_ptr(), y.data_ptr(), stream)
+    else:
+        p = launch.plan
+        rc = fn(A.data.data_ptr(), launch.offs.data_ptr(), ndiag, A.nrows_pad,
+                p.groups, p.per_group, p.window, p.lo, x.data_ptr(),
+                y.data_ptr(), stream)
     cuda_lib.check(rc, sym)
     LAUNCHES[key] += 1
     return y

@@ -131,10 +131,11 @@ class SolveInfo:
 class AMGPreconditioner:
     """Algebraic multigrid preconditioner, device-resident solve phase.
 
-    ``device`` is required: the hierarchy is staged there and the solve
-    runs there ("cuda" for the hand-written kernels, "cpu" for their plain
-    versions). Options of the JAX package that this port does not run
-    raise: ``shards != 1``, ``dist_setup > 1`` and ``do_test``. The local
+    ``device``: where the hierarchy is staged and the solve runs, "cuda"
+    (the default: the hand-written kernels) or "cpu" (their plain
+    versions, which callers ask for explicitly). Options of the JAX
+    package that this port does not run raise: ``shards != 1``,
+    ``dist_setup > 1`` and ``do_test``. The local
     cluster correction (``options.cluster_corr``) is staged on
     unstructured finest levels, as in the JAX package.
     """
@@ -151,7 +152,7 @@ class AMGPreconditioner:
         elmat_data: tuple | None = None,
         nodalp2: np.ndarray | None = None,
         dof_layout: str = "interleaved",
-        device: str | torch.device,
+        device: str | torch.device = "cuda",
         **flags,
     ):
         if options is None:

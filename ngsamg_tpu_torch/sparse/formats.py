@@ -27,14 +27,13 @@ it for their scope (precond/amg.py ``_full_f32``).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import scipy.sparse as sp
 import torch
 
-from ..ops.dia_cuda import dia_matvec
-from ..ops.stencil_cuda import stencil_matvec
+from ..ops import dia_cuda, stencil_cuda
 
 
 @dataclass(frozen=True)
@@ -53,6 +52,11 @@ class DiaMatrix:
     nrows: int
     nrows_pad: int
     sym_half: bool = False
+    # K2/K3's launch arguments, made once here (ops/dia_cuda.py ``stage``)
+    launch: object = field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "launch", dia_cuda.stage(self))
 
 
 @dataclass(frozen=True)
@@ -111,6 +115,12 @@ class StencilDia:
     dims: tuple  # lattice extents
     nrows: int
     nrows_pad: int
+    # K1's launch plan and arguments, made once here (ops/stencil_cuda.py
+    # ``stage``)
+    launch: object = field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "launch", stencil_cuda.stage(self))
 
 
 def _tile_ell_matvec(A: TileELL, x: torch.Tensor) -> torch.Tensor:
@@ -127,9 +137,9 @@ def _tile_ell_matvec(A: TileELL, x: torch.Tensor) -> torch.Tensor:
 def matvec(A, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x for the port's device formats; x: (nrows_pad, bs)."""
     if isinstance(A, DiaMatrix):
-        return dia_matvec(A, x)
+        return dia_cuda.dia_matvec(A, x)
     if isinstance(A, StencilDia):
-        return stencil_matvec(A, x)
+        return stencil_cuda.stencil_matvec(A, x)
     if isinstance(A, TileELLStack):
         return torch.cat([_tile_ell_matvec(b, x) for b in A.blocks])
     if isinstance(A, TileELL):

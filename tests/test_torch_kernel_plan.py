@@ -1,0 +1,450 @@
+"""Launch plans of the port's K1 (stencil) and K2 (DIA) kernels, on the CPU.
+
+The wrappers compute each kernel's launch plan from the level's shape when
+the level is staged (ops/stencil_cuda.py ``stencil_plan``, ops/dia_cuda.py
+``dia_plan``). These tests check the plans at the headline's level shapes,
+at ``unstructured_poisson(20, 3)``'s DIA level and at the odd shapes of
+chip_smoke.py's build phase: each fits a block's shared memory and covers
+every output row exactly once.
+
+A numpy walk of the same tiles, halos, plane ring and diagonal groups
+computes y as the kernels do. It is held, at rtol 1e-5, to the plain
+PyTorch version and to the JAX package's Pallas kernels run in interpret
+mode (as tests/test_pallas_interpret.py runs them), on seeded odd shapes.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ngsamg_tpu.ops.dia_pallas import dia_matvec_pallas
+from ngsamg_tpu.ops.stencil_pallas import stencil_matvec_pallas
+from ngsamg_tpu.sparse import formats as jf
+from ngsamg_tpu_torch.ops import dia_cuda, stencil_cuda
+from ngsamg_tpu_torch.sparse import formats as tf
+
+torch.set_num_threads(2)
+
+SMEM_PER_BLOCK = 232_448  # 227 KB: the most an H100 block can use
+TILE = 8192  # the JAX DIA kernel's row tile (LANES * ROWS_PER_TILE)
+
+# the headline's level-0 stencil (P1 on Kuhn tetrahedra), in its order
+HEADLINE_STENCIL = (
+    (-1, -1, -1), (-1, -1, 0), (-1, 0, -1), (-1, 0, 0), (0, -1, -1),
+    (0, -1, 0), (0, 0, -1), (0, 0, 0), (0, 0, 1), (0, 1, 0), (0, 1, 1),
+    (1, 0, 0), (1, 0, 1), (1, 1, 0), (1, 1, 1),
+)
+SEVEN_POINT = ((0, 0, 0), (1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0),
+               (0, 0, 1), (0, 0, -1))
+CUBE = tuple((a, b, c) for a in (-1, 0, 1) for b in (-1, 0, 1)
+             for c in (-1, 0, 1))
+SHUFFLED_CUBE = tuple(CUBE[i] for i in np.random.default_rng(7).permutation(27))
+
+# the headline's DIA levels 3 and 4 (poisson_3d(216) on one H100):
+# (rows, nrows_pad, diagonals, min offset, max offset)
+HEADLINE_DIA = [(19683, 19688, 81, -1486, 1486), (2744, 2744, 251, -617, 617)]
+
+
+# ---------------------------------------------------------------------------
+# numpy walks of the kernels' blocks
+# ---------------------------------------------------------------------------
+
+
+def _axis_cover(extent, tile, ntiles):
+    """How often each index of an axis is owned by one of its tiles."""
+    cover = np.zeros(extent, dtype=int)
+    for k in range(ntiles):
+        cover[k * tile: min((k + 1) * tile, extent)] += 1
+    return cover
+
+
+def kernel_tap_offsets(taps, plan):
+    """Each tap's shared-memory offset from the thread's cell in the
+    three-plane window, as the kernel's launch computes it from the
+    (dz, dy, dx) that the wrapper passes."""
+    h = plan.halo
+    hx = plan.tile[1] + 2 * h
+    psz = hx * (plan.tile[0] + 2 * h)
+    d = np.asarray(list(taps)).reshape(-1, 3)
+    return (d[:, 0] + h) * psz + (d[:, 1] + h) * hx + d[:, 2] + h
+
+
+def walk_stencil(A, x, plan):
+    """The tiled K1 kernel, block by block: halo-padded planes in a ring of
+    RING_SLOTS (plane p in slot (p - z0 + 1) % RING_SLOTS, slots below
+    RING_MIRROR also in their mirrors after the ring), the taps read at
+    their offsets in the window of three slots from (z - z0) % RING_SLOTS
+    on, summed in ``A.offs`` order (zero-weight padding included).
+    Returns y and the writes per row."""
+    n0, n1, n2 = A.dims
+    ty_n, tx_n = plan.tiles
+    th, tw = plan.tile
+    hy, hx = th + 2 * plan.halo, tw + 2 * plan.halo
+    psz = hy * hx
+    slots, mirror = stencil_cuda.RING_SLOTS, stencil_cuda.RING_MIRROR
+    assert plan.smem_bytes == (slots + mirror) * psz * x.itemsize
+    off = kernel_tap_offsets(A.launch.taps, plan)
+    w = np.zeros(stencil_cuda.MAX_TAPS, dtype=x.dtype)
+    w[: len(A.offs)] = A.vals.numpy()
+    xl = x[: A.nrows].reshape(A.dims)
+    y = np.full(A.nrows_pad, np.nan, dtype=x.dtype)
+    writes = np.zeros(A.nrows_pad, dtype=int)
+    y[A.nrows:] = 0  # block 0 zeroes the pad tail
+    writes[A.nrows:] += 1
+    cy, cx = np.divmod(np.arange(th * tw), tw)
+    cells = cy * hx + cx  # each thread's cell in a ring plane
+
+    def plane(z, y0, x0):
+        p = np.zeros((hy, hx), dtype=x.dtype)
+        if 0 <= z < n0:
+            ys, xs = max(y0 - 1, 0), max(x0 - 1, 0)
+            ye, xe = min(y0 - 1 + hy, n1), min(x0 - 1 + hx, n2)
+            p[ys - (y0 - 1): ye - (y0 - 1), xs - (x0 - 1): xe - (x0 - 1)] = \
+                xl[z, ys:ye, xs:xe]
+        return p.reshape(-1)
+
+    for b in range(plan.blocks):
+        tile = b % (ty_n * tx_n)
+        y0, x0 = (tile // tx_n) * th, (tile % tx_n) * tw
+        z0 = (b // (ty_n * tx_n)) * plan.chunk
+        z1 = min(z0 + plan.chunk, n0)
+        gy, gx = y0 + cy, x0 + cx
+        live = (gy < n1) & (gx < n2)
+        ring = np.full((slots + mirror) * psz, np.nan, dtype=x.dtype)
+        for p in range(z0 - 1, z1 + 1):  # the planes the chunk reads
+            s = (p - z0 + 1) % slots
+            for slot in (s, s + slots) if s < mirror else (s,):
+                ring[slot * psz: (slot + 1) * psz] = plane(p, y0, x0)
+            if p < z0 + 1:
+                continue
+            z = p - 1  # planes z - 1, z, z + 1 are in the ring
+            win = cells + ((z - z0) % slots) * psz
+            acc = np.zeros(th * tw, dtype=x.dtype)
+            for t in range(plan.ntaps):
+                acc = acc + w[t] * ring[win + off[t]]
+            g = z * n1 * n2 + gy[live] * n2 + gx[live]
+            y[g] = acc[live]
+            writes[g] += 1
+    return y, writes
+
+
+def walk_dia(A, x, plan):
+    """The split-diagonal K2 kernel, block by block: the x window (or
+    bounds-checked reads on the ldg path), one partial sum per diagonal
+    group, reduced in group order. Returns y, the writes per row and how
+    often each block visits each diagonal."""
+    n_pad = A.nrows_pad
+    data = A.data.numpy()
+    offs = np.asarray(A.offsets)
+    ndiag = len(offs)
+    y = np.full(n_pad, np.nan, dtype=x.dtype)
+    writes = np.zeros(n_pad, dtype=int)
+    visits = np.zeros((plan.blocks, ndiag), dtype=int)
+    lanes = np.arange(plan.tile)
+    for b in range(plan.blocks):
+        rows = b * plan.tile + lanes
+        live = rows < n_pad
+        rc = np.minimum(rows, n_pad - 1)
+        if plan.path == "smem":
+            j = b * plan.tile + plan.lo + np.arange(plan.window)
+            win = np.where((j >= 0) & (j < n_pad),
+                           x[np.clip(j, 0, n_pad - 1)], 0).astype(x.dtype)
+        part = np.zeros((plan.groups, plan.tile), dtype=x.dtype)
+        for g in range(plan.groups):
+            for d in range(g * plan.per_group,
+                           min((g + 1) * plan.per_group, ndiag)):
+                visits[b, d] += 1
+                if plan.path == "smem":
+                    k = lanes + offs[d] - plan.lo
+                    assert k.min() >= 0 and k.max() < plan.window
+                    v = win[k]
+                else:
+                    jj = rows + offs[d]
+                    v = np.where((jj >= 0) & (jj < n_pad),
+                                 x[np.clip(jj, 0, n_pad - 1)], 0)
+                part[g] = part[g] + data[d, rc] * v.astype(x.dtype)
+        s = part[0]
+        for g in range(1, plan.groups):
+            s = s + part[g]
+        y[rows[live]] = s[live]
+        writes[rows[live]] += 1
+    return y, writes, visits
+
+
+# ---------------------------------------------------------------------------
+# K1 plans
+# ---------------------------------------------------------------------------
+
+
+def _stencil_case(dims, offs, dtype=np.float32, seed=0):
+    rng = np.random.default_rng(seed)
+    n = int(np.prod(dims))
+    vals = rng.standard_normal(len(offs)).astype(dtype)
+    offs = tuple(tuple(int(v) for v in o) for o in offs)
+    dims = tuple(int(d) for d in dims)
+    n_pad = -(-n // 8) * 8
+    A_t = tf.StencilDia(vals=torch.from_numpy(vals), offs=offs, dims=dims,
+                        nrows=n, nrows_pad=n_pad)
+    A_j = jf.StencilDia(vals=jnp.asarray(vals), offs=offs, dims=dims,
+                        nrows=n, nrows_pad=n_pad)
+    x = np.zeros(n_pad, dtype=dtype)
+    x[:n] = rng.standard_normal(n).astype(dtype)
+    return A_t, A_j, x
+
+
+def _check_stencil_plan(plan, dims, m):
+    assert plan.variant == "tiled3d"
+    assert plan.smem_bytes <= SMEM_PER_BLOCK
+    assert plan.halo == 1 and plan.tile == (stencil_cuda.TILE_Y,
+                                            stencil_cuda.TILE_X)
+    assert plan.ntaps in stencil_cuda.TAP_COUNTS and plan.ntaps >= m
+    n0, n1, n2 = dims
+    ty_n, tx_n = plan.tiles
+    nchunks = -(-n0 // plan.chunk)
+    assert plan.blocks == ty_n * tx_n * nchunks < 2**31
+    # every lattice row exactly once: each axis partition covers its axis
+    for extent, tile, ntiles in ((n0, plan.chunk, nchunks),
+                                 (n1, plan.tile[0], ty_n),
+                                 (n2, plan.tile[1], tx_n)):
+        assert (_axis_cover(extent, tile, ntiles) == 1).all()
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_headline_stencil_plan(itemsize):
+    """Level 0 of poisson_3d(216): the tiled variant, 15 taps."""
+    dims = (215, 215, 215)
+    plan = stencil_cuda.stencil_plan(HEADLINE_STENCIL, dims, itemsize)
+    _check_stencil_plan(plan, dims, 15)
+    assert plan.ntaps == 15
+    assert plan.tiles == (14, 7)
+    assert plan.smem_bytes == 10 * 18 * 34 * itemsize  # 8 slots + 2 mirrors
+    assert plan.smem_bytes <= 48 * 1024  # no opt-in, in f64 too
+    assert plan.blocks >= 132  # the grid fills every SM of an H100
+
+
+@pytest.mark.parametrize(
+    "dims,offs,variant,ntaps",
+    [
+        ((7, 9, 11), SEVEN_POINT, "tiled3d", 7),
+        ((13, 19, 45), HEADLINE_STENCIL, "tiled3d", 15),
+        ((2, 3, 5), SHUFFLED_CUBE, "tiled3d", 27),
+        ((5, 4, 38), ((0, 0, 0), (1, 0, 0), (-1, 0, 0), (0, 0, 2),
+                      (1, 1, -1), (-1, -1, 1)), "general", 6),
+        ((33, 131), ((0, 0), (2, 0), (-2, 0), (0, 3), (0, -3), (1, 1),
+                     (-1, -1)), "general", 7),
+    ],
+)
+def test_stencil_variant_from_shape(dims, offs, variant, ntaps):
+    """The variant comes from the shape alone; the staged level holds the
+    plan and the kernel's parameters."""
+    A_t, _, _ = _stencil_case(dims, offs)
+    plan = A_t.launch.plan
+    assert plan == stencil_cuda.stencil_plan(offs, dims, 4)
+    assert plan.variant == variant and plan.ntaps == ntaps
+    if variant == "general":
+        assert A_t.launch.meta.dtype == torch.int64
+        assert A_t.launch.weights is None
+        return
+    _check_stencil_plan(plan, dims, len(offs))
+    assert list(A_t.launch.weights) == pytest.approx(
+        A_t.vals.tolist() + [0.0] * (stencil_cuda.MAX_TAPS - len(offs)))
+    pad = stencil_cuda.MAX_TAPS - len(offs)
+    assert list(A_t.launch.taps) == [v for o in offs for v in o] + [0] * 3 * pad
+    assert A_t.launch.meta is None
+
+
+def test_tap_offsets_address_the_right_cell():
+    """The launch passes the taps as (dz, dy, dx) in ``offs`` order; the
+    kernel's offset of tap (dz, dy, dx) reads plane dz + 1 of the
+    three-plane window, row dy + 1 and column dx + 1 of the thread's 3 x 3
+    neighbourhood; padded taps read the output cell itself."""
+    hx = stencil_cuda.TILE_X + 2
+    psz = hx * (stencil_cuda.TILE_Y + 2)
+    A, _, _ = _stencil_case((2, 3, 5), SHUFFLED_CUBE)
+    off = kernel_tap_offsets(A.launch.taps, A.launch.plan)
+    for t, (dz, dy, dx) in enumerate(SHUFFLED_CUBE):
+        plane, rest = divmod(int(off[t]), psz)
+        assert (plane, *divmod(rest, hx)) == (dz + 1, dy + 1, dx + 1)
+    B, _, _ = _stencil_case((7, 9, 11), SEVEN_POINT)
+    pad = kernel_tap_offsets(B.launch.taps, B.launch.plan)[7:]
+    assert pad.tolist() == [psz + hx + 1] * (stencil_cuda.MAX_TAPS - 7)
+
+
+@pytest.mark.parametrize(
+    "dims,offs,target",
+    [
+        ((7, 9, 11), SEVEN_POINT, None),
+        ((13, 19, 45), HEADLINE_STENCIL, None),
+        ((2, 3, 5), SHUFFLED_CUBE, None),
+        # few target blocks, so that a block marches over many planes:
+        # chunks of 7 and 6 planes (the ring wraps once), of 5 and 4, and
+        # of 11 and 10 (the window crosses the mirrored slots twice)
+        ((13, 19, 45), HEADLINE_STENCIL, 12),
+        ((9, 17, 70), SHUFFLED_CUBE, 18),
+        ((21, 9, 40), SHUFFLED_CUBE, 8),
+    ],
+)
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_stencil_walk_matches_plain_and_jax(dims, offs, target, dtype,
+                                            monkeypatch):
+    if target is not None:
+        monkeypatch.setattr(stencil_cuda, "TARGET_BLOCKS", target)
+    A_t, A_j, x = _stencil_case(dims, offs, dtype, seed=sum(dims))
+    plan = stencil_cuda.stencil_plan(A_t.offs, A_t.dims, x.itemsize)
+    if target is not None:
+        assert 1 < plan.chunk < dims[0]
+    _check_stencil_plan(plan, dims, len(offs))
+    y, writes = walk_stencil(A_t, x, plan)
+    assert (writes == 1).all()
+    y_plain = stencil_cuda._stencil_matvec_plain(
+        A_t, torch.from_numpy(x)[:, None]).numpy()[:, 0]
+    np.testing.assert_allclose(y, y_plain, rtol=1e-5, atol=1e-5)
+    if dtype == np.float32:
+        y_pl = np.asarray(stencil_matvec_pallas(
+            A_j, jnp.asarray(x)[:, None], interpret=True))[:, 0]
+        np.testing.assert_allclose(y, y_pl, rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(y[A_t.nrows:], 0.0)
+
+
+# ---------------------------------------------------------------------------
+# K2 plans
+# ---------------------------------------------------------------------------
+
+
+def _check_dia_plan(plan, offsets, n_pad, itemsize):
+    ndiag = len(offsets)
+    assert plan.smem_bytes <= dia_cuda.SMEM_BUDGET <= SMEM_PER_BLOCK
+    assert plan.tile == 32 and 1 <= plan.groups <= dia_cuda.MAX_GROUPS
+    # every diagonal in exactly one group, no group empty
+    assert (plan.groups - 1) * plan.per_group < max(ndiag, 1)
+    assert plan.groups * plan.per_group >= ndiag
+    # every row in exactly one tile
+    assert plan.blocks * plan.tile >= n_pad > (plan.blocks - 1) * plan.tile
+    part = ndiag * 8 + plan.groups * plan.tile * itemsize
+    if plan.path == "smem":
+        assert plan.window == plan.tile + max(offsets[-1], 0) \
+            - min(offsets[0], 0)
+        assert plan.smem_bytes == part + plan.window * itemsize
+    else:
+        assert plan.path == "ldg" and plan.window == 0
+        assert plan.smem_bytes == part
+        assert part + (plan.tile + offsets[-1] - offsets[0]) * itemsize \
+            > dia_cuda.SMEM_BUDGET
+
+
+@pytest.mark.parametrize("rows,n_pad,ndiag,lo,hi", HEADLINE_DIA)
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_headline_dia_plans(rows, n_pad, ndiag, lo, hi, itemsize):
+    """Levels 3 and 4 of poisson_3d(216): the smem path, with the
+    diagonals split over up to 16 warps."""
+    # the plan reads the count and the extreme offsets only
+    offsets = tuple(int(o) for o in np.linspace(lo, hi, ndiag).round())
+    assert len(set(offsets)) == ndiag
+    plan = dia_cuda.dia_plan(offsets, n_pad, itemsize)
+    _check_dia_plan(plan, offsets, n_pad, itemsize)
+    assert plan.path == "smem"
+    assert plan.groups == min(16, -(-len(offsets) // 8))
+    assert plan.blocks == -(-n_pad // 32)
+
+
+def test_unstructured_dia_level_plan():
+    """Level 0 of unstructured_poisson(20, 3), staged on the CPU: K2's
+    plan at that level's shape, and the walk against the plain version."""
+    from ngsamg_tpu_torch import AMGOptions, AMGPreconditioner
+    from ngsamg_tpu_torch.config import SmootherOptions, SmootherType
+    from ngsamg_tpu_torch.utils import fem
+
+    q = fem.unstructured_poisson(20, dim=3)
+    opts = AMGOptions(smoother=SmootherOptions(type=SmootherType.CHEBYSHEV))
+    pc = AMGPreconditioner(q.A, coords=q.coords, options=opts, device="cpu")
+    A = pc.setup().op.levels[0].A
+    assert isinstance(A, tf.DiaMatrix) and not A.sym_half
+    assert (A.nrows, len(A.offsets)) == (6859, 81)
+    plan = A.launch.plan
+    _check_dia_plan(plan, A.offsets, A.nrows_pad, 4)
+    assert plan.path == "smem" and plan.groups == 11
+    x = np.zeros(A.nrows_pad, dtype=np.float32)
+    x[: A.nrows] = np.random.default_rng(11).standard_normal(A.nrows)
+    y, writes, visits = walk_dia(A, x, plan)
+    assert (writes == 1).all() and (visits == 1).all()
+    y_plain = dia_cuda._dia_matvec_plain(
+        A, torch.from_numpy(x)[:, None]).numpy()[:, 0]
+    np.testing.assert_allclose(y, y_plain, rtol=1e-5, atol=1e-5)
+
+
+def _dia_case(offsets, n, dtype=np.float32, seed=0):
+    n_pad = -(-n // TILE) * TILE
+    rng = np.random.default_rng(seed)
+    data = np.zeros((len(offsets), n_pad), dtype=dtype)
+    for d, off in enumerate(offsets):
+        lo, hi = max(0, -off), min(n, n - off)
+        data[d, lo:hi] = rng.standard_normal(hi - lo).astype(dtype)
+    offsets = tuple(int(o) for o in offsets)
+    A_t = tf.DiaMatrix(data=torch.from_numpy(data), offsets=offsets,
+                       nrows=n, nrows_pad=n_pad)
+    A_j = jf.DiaMatrix(data=jnp.asarray(data), offsets=offsets, nrows=n,
+                       nrows_pad=n_pad, use_pallas=False)
+    x = np.zeros(n_pad, dtype=dtype)
+    x[:n] = rng.standard_normal(n).astype(dtype)
+    return A_t, A_j, x
+
+
+@pytest.mark.parametrize(
+    "offsets,n,path",
+    [
+        ((-200, -128, -3, 0, 3, 128, 200), TILE - 77, "smem"),
+        ((-300, 0, 300), 2 * TILE - 5, "smem"),
+        # more diagonals than one warp takes: 41 over 6 warps
+        (tuple(range(-60, 61, 3)), TILE - 31, "smem"),
+        # a window larger than the shared-memory budget
+        ((-40000, -1, 0, 1, 40000), 5 * TILE - 3, "ldg"),
+    ],
+)
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_dia_walk_matches_plain_and_jax(offsets, n, path, dtype):
+    A_t, A_j, x = _dia_case(offsets, n, dtype, seed=len(offsets))
+    plan = A_t.launch.plan
+    assert plan == dia_cuda.dia_plan(offsets, A_t.nrows_pad, x.itemsize)
+    _check_dia_plan(plan, A_t.offsets, A_t.nrows_pad, x.itemsize)
+    assert plan.path == path
+    y, writes, visits = walk_dia(A_t, x, plan)
+    assert (writes == 1).all() and (visits == 1).all()
+    y_plain = dia_cuda._dia_matvec_plain(
+        A_t, torch.from_numpy(x)[:, None]).numpy()[:, 0]
+    np.testing.assert_allclose(y, y_plain, rtol=1e-5, atol=1e-5)
+    if dtype == np.float32:
+        y_pl = np.asarray(dia_matvec_pallas(
+            A_j, jnp.asarray(x)[:, None], interpret=True))[:, 0]
+        np.testing.assert_allclose(y[:n], y_pl[:n], rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(y[n:], 0.0)
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_dia_plan_refuses_too_many_diagonals(itemsize):
+    """K2 keeps every offset and the groups' partial sums in shared memory:
+    a level whose offsets alone pass the budget is refused when its plan
+    is made (at staging), and one diagonal fewer still fits."""
+    part = dia_cuda.MAX_GROUPS * dia_cuda.TILE_ROWS * itemsize
+    fits = (dia_cuda.SMEM_BUDGET - part) // dia_cuda.OFFSET_BYTES
+    plan = dia_cuda.dia_plan(tuple(range(fits)), 2 * fits, itemsize)
+    assert plan.path == "ldg" and plan.smem_bytes <= dia_cuda.SMEM_BUDGET
+    with pytest.raises(ValueError, match="shared memory"):
+        dia_cuda.dia_plan(tuple(range(fits + 1)), 2 * fits, itemsize)
+    dtype = torch.float32 if itemsize == 4 else torch.float64
+    with pytest.raises(ValueError, match="shared memory"):
+        tf.DiaMatrix(data=torch.zeros((fits + 1, 8), dtype=dtype),
+                     offsets=tuple(range(fits + 1)), nrows=8, nrows_pad=8)
+
+
+def test_sym_half_levels_keep_the_row_kernel():
+    """K3 is unchanged: its staged launch holds the device offsets and no
+    split plan; negative offsets are refused once, at staging."""
+    data = torch.zeros((2, 64))
+    A = tf.DiaMatrix(data=data, offsets=(0, 5), nrows=60, nrows_pad=64,
+                     sym_half=True)
+    assert A.launch.plan is None
+    assert A.launch.offs.tolist() == [0, 5]
+    with pytest.raises(ValueError, match="sym_half"):
+        tf.DiaMatrix(data=data, offsets=(-5, 0), nrows=60, nrows_pad=64,
+                     sym_half=True)

@@ -251,9 +251,20 @@ def test_unported_options_raise(field, value, item):
 
 
 def test_device_is_required():
-    """No implicit CPU default: the caller names the device."""
+    """No implicit CPU default: without ``device=`` the hierarchy goes to
+    the card, so a machine without CUDA raises; the CPU is asked for."""
     p = tfem.poisson_3d(12)
-    with pytest.raises(TypeError, match="device"):
-        ngsamg_tpu_torch.AMGPreconditioner(
+    if torch.cuda.is_available():
+        pc = ngsamg_tpu_torch.AMGPreconditioner(
             p.A, coords=p.coords, options=_cheb(ngsamg_tpu_torch)
         )
+        assert pc.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            ngsamg_tpu_torch.AMGPreconditioner(
+                p.A, coords=p.coords, options=_cheb(ngsamg_tpu_torch)
+            )
+    pc = ngsamg_tpu_torch.AMGPreconditioner(
+        p.A, coords=p.coords, options=_cheb(ngsamg_tpu_torch), device="cpu"
+    )
+    assert pc.device.type == "cpu"
