@@ -15,7 +15,10 @@ Phases, each of which raises (nonzero exit) on failure:
    general K1 on reach 2 and on a 2-d lattice (and the tiled launch must
    refuse a plan that does not match its geometry), K2 on both of its paths
    (an x window in shared memory, and the read-only cache where the
-   window would not fit), K3; f32 and f64.
+   window would not fit), K3 on every shape of plan it can select (one
+   diagonal group and several, tiles too near the ends to skip the bounds
+   tests; its launch must refuse a plan that does not match the kernel's
+   layout); f32 and f64.
 3. main path — resets the kernel launch counters, assembles
    ``fem.poisson_3d(216)``, runs ``AMGPreconditioner(..., device="cuda")
    .setup()`` and ``solve(b, tol=1e-8, return_device=True)``, reads the
@@ -25,10 +28,13 @@ Phases, each of which raises (nonzero exit) on failure:
    version on the staged levels of that hierarchy (max |err| / max |y|
    <= 1e-6 in f32, <= 1e-13 in f64: K1 keeps the sum order and only FMA
    contraction differs; K2 sums its diagonal groups apart, which stays
-   far inside the f32 tolerance). Per level: the device time per launch
-   (CUDA events around the replay of a CUDA graph of 50 launches, over
-   50), the single-call time (``call_ms``, which includes the wrapper's
-   host time), the bytes (of the DIA data only the in-range entries) and
+   far inside the f32 tolerance). Two launches on the same input must
+   give the same bits. Per level: the device time per launch (CUDA events
+   around the replay of a CUDA graph of 50 launches, over 50), the time
+   of one launch after a write that sweeps the L2 (``cold_ms``), for K3
+   the time of the one-thread-per-row kernel it replaced (``old_ms``,
+   built here from ``csrc/probes/dia_sym_row.cu``), the single-call time (``call_ms``, which
+   includes the wrapper's host time), the bytes (of the DIA data only the in-range entries) and
    the bound (bytes at 3.35 TB/s), the time of
    one PyTorch call for the same function (``library_ms``: conv3d for K1,
    cuSPARSE via ``torch.sparse.mm`` for K2/K3; the port never calls
@@ -52,6 +58,9 @@ Phases, each of which raises (nonzero exit) on failure:
    card against the CPU; K2 must launch. The card solve is then traced
    step by step twice, with K2 and with K2 swapped for its plain version,
    and the two residual histories are printed (a report, not a check).
+8. MIS coarsening — ``unstructured_poisson(20, dim=3)`` with
+   ``coarsen.algo = MIS`` on the card against the same solve on the CPU:
+   the same level sizes, iterations within one, true relres <= 1e-8.
 
 The last lines are the nvidia-smi line, one JSON object describing the
 kernels, and ``{"ok": true, "device": {...}}``.
@@ -70,7 +79,6 @@ import numpy as np
 
 F32_TOL = 1e-6
 F64_TOL = 1e-13
-GRAPH_LAUNCHES = 50
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FLOP_S = {"f32": 67e12, "f64": 34e12}  # H100 SXM, no tensor cores
 HEADLINE_LEVELS = [9938375, 1259712, 157464, 19683, 2744, 343]
@@ -127,60 +135,6 @@ def _reset_counts():
     for d in (stencil_cuda.LAUNCHES, dia_cuda.LAUNCHES):
         for k in d:
             d[k] = 0
-
-
-def _time_ms(fn, reps: int = 25) -> float:
-    """Median time of one call between two CUDA events, after a warm-up.
-    For a small kernel this is mostly the wrapper's host time (``call_ms``)."""
-    import torch
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        e.synchronize()
-        times.append(s.elapsed_time(e))
-    return float(np.median(times))
-
-
-def _graph_ms(fn, n: int = GRAPH_LAUNCHES, reps: int = 5) -> float:
-    """Device time per launch: CUDA events around the replay of a CUDA
-    graph that holds ``n`` calls of ``fn``, over ``n`` (median of ``reps``
-    replays). ``fn`` is warmed up first, so every staged cache is filled
-    before the capture."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(n):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        graph.replay()
-        e.record()
-        e.synchronize()
-        times.append(s.elapsed_time(e) / n)
-    del graph
-    torch.cuda.synchronize()
-    return float(np.median(times))
 
 
 def _bound_ms(nbytes: int, flops: int, dtype) -> tuple:
@@ -352,16 +306,14 @@ def phase_build():
                 continue
             raise
         raise AssertionError(f"K1 ran with a mismatched plan {bad}")
-    for offsets, n, sym, path in [
-        ((-200, -128, -3, 0, 3, 128, 200), tile - 77, False, "smem"),
-        ((-128, -1, 0, 1, 128), tile, False, "smem"),
-        ((-300, 0, 300), 2 * tile - 5, False, "smem"),
+    for offsets, n, path in [
+        ((-200, -128, -3, 0, 3, 128, 200), tile - 77, "smem"),
+        ((-128, -1, 0, 1, 128), tile, "smem"),
+        ((-300, 0, 300), 2 * tile - 5, "smem"),
         # a span whose x window exceeds the shared-memory budget
-        ((-40000, -1, 0, 1, 40000), 5 * tile - 3, False, "ldg"),
+        ((-40000, -1, 0, 1, 40000), 5 * tile - 3, "ldg"),
         # more diagonals than one warp takes, rows not a multiple of 32
-        (tuple(range(-60, 61, 3)), 1001, False, "smem"),
-        ((0, 1, 127, 128, 500), tile - 13, True, None),
-        ((0, 128, tile + 37), 3 * tile - 9, True, None),
+        (tuple(range(-60, 61, 3)), 1001, "smem"),
     ]:
         n_pad = -(-n // tile) * tile if n >= tile else -(-n // 8) * 8
         rng = np.random.default_rng(0)
@@ -369,19 +321,72 @@ def phase_build():
         for d, off in enumerate(offsets):
             lo, hi = max(0, -off), min(n, n - off)
             data[d, lo:hi] = rng.standard_normal(hi - lo)
-        dts = ((torch.float32, F32_TOL), (torch.float64, F64_TOL))
-        for dt, tol in dts if not sym else dts[:1]:
+        for dt, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
             A = formats.DiaMatrix(
                 data=torch.as_tensor(data, dtype=dt, device="cuda"),
-                offsets=offsets, nrows=n, nrows_pad=n_pad, sym_half=sym,
+                offsets=offsets, nrows=n, nrows_pad=n_pad,
             )
-            got = None if sym else A.launch.plan.path
-            if got != path:
-                raise AssertionError(f"K2 {offsets}: path {got}, not {path}")
+            if A.launch.plan.path != path:
+                raise AssertionError(
+                    f"K2 {offsets}: path {A.launch.plan.path}, not {path}")
             x = _rand_x(n, n_pad, dt, 1)
             _check_kernel(A, x, dia_cuda.dia_matvec,
                           dia_cuda._dia_matvec_plain, tol,
-                          f"K{3 if sym else 2} {path} {offsets} {dt}")
+                          f"K2 {path} {offsets} {dt}")
+    # K3: every shape of plan it can select (one diagonal group or
+    # several), f32 and f64
+    many = tuple(range(0, 20)) + tuple(range(300, 320)) + (5000, 5001)
+    for offsets, n, n_pad, variant in [
+        # all tiles but the first far enough inside to skip the tests
+        ((0, 1, 127, 128, 500), 40 * tile - 13, 40 * tile, "tile-r2-u2-g1"),
+        # an offset larger than a tile: every tile tests its bounds
+        ((0, 128, tile + 37), 3 * tile - 9, 3 * tile, "tile-r2-u2-g1"),
+        # 42 diagonals on few rows: the diagonals split over groups
+        (many, 20001, 20008, "tile-r2-u4-g8"),
+        (many, 100001, 100008, "tile-r2-u4-g4"),
+        # no main diagonal stored; a padding that is even, not more
+        ((3, 64, 700), 300001, 300002, "tile-r2-u2-g1"),
+    ]:
+        rng = np.random.default_rng(len(offsets))
+        data = np.zeros((len(offsets), n_pad))
+        for d, off in enumerate(offsets):
+            data[d, : n - off] = rng.standard_normal(n - off)
+        for dt, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
+            A = formats.DiaMatrix(
+                data=torch.as_tensor(data, dtype=dt, device="cuda"),
+                offsets=offsets, nrows=n, nrows_pad=n_pad, sym_half=True,
+            )
+            if _variant(A) != variant:
+                raise AssertionError(
+                    f"K3 {n_pad} rows {dt}: variant {_variant(A)}, "
+                    f"expected {variant}")
+            key = "dia_sym_matvec_" + ("f32" if dt == torch.float32 else "f64")
+            before = dia_cuda.LAUNCHES[key]
+            x = _rand_x(n, n_pad, dt, 1)
+            _check_kernel(A, x, dia_cuda.dia_matvec,
+                          dia_cuda._dia_matvec_plain, tol,
+                          f"K3 {variant} {n_pad} rows {dt}")
+            _same_bits(dia_cuda.dia_matvec, A, x, f"K3 {variant}")
+            if dia_cuda.LAUNCHES[key] != before + 1 + 2:
+                raise AssertionError(f"K3 {variant}: {key} did not launch")
+    # K3's launch refuses a plan that does not match the kernel's layout
+    plan = A.launch.plan
+    for bad in (dict(tile=plan.tile // 2), dict(batch=8),
+                dict(smem_bytes=plan.smem_bytes + 8),
+                dict(blocks=plan.blocks + 1)):
+        wrong = types.SimpleNamespace(
+            data=A.data, offsets=A.offsets, nrows=A.nrows,
+            nrows_pad=A.nrows_pad, sym_half=True,
+            launch=dataclasses.replace(
+                A.launch, plan=dataclasses.replace(plan, **bad)),
+        )
+        try:
+            dia_cuda.dia_matvec(wrong, x)
+        except RuntimeError as e:  # cudaErrorInvalidValue from the launch
+            if "launch failed with error 1" in str(e):
+                continue
+            raise
+        raise AssertionError(f"K3 ran with a mismatched plan {bad}")
     print("[build] small-shape kernel checks passed", flush=True)
 
 
@@ -509,11 +514,57 @@ def _variant(A) -> str:
     from ngsamg_tpu_torch.ops import dia_cuda
 
     plan = A.launch.plan
-    if plan is None:
-        return "row"  # K3: one thread per row
     if isinstance(plan, dia_cuda.DiaPlan):
         return f"split-{plan.path}"
-    return plan.variant
+    return plan.variant  # K1's and K3's plans name theirs
+
+
+def _same_bits(kernel, A, x, label):
+    """Two launches on the same input give the same bits."""
+    import torch
+
+    y1, y2 = kernel(A, x), kernel(A, x)
+    torch.cuda.synchronize()
+    if not torch.equal(y1, y2):
+        raise AssertionError(f"{label}: two launches differ")
+
+
+def _build_row_kernel():
+    """Build and load ``csrc/probes/dia_sym_row.cu``: the one-thread-per-row
+    K3 that the tiled one replaced. The package does not build it."""
+    import ctypes
+
+    from ngsamg_tpu_torch.ops import cuda_lib
+
+    src = cuda_lib.CSRC / "probes" / "dia_sym_row.cu"
+    out = cuda_lib.build().parent / "libdia_sym_row.so"
+    cmd = [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-o", str(out), str(src)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed:\n{res.stdout}{res.stderr}")
+    fn = ctypes.CDLL(str(out)).ngsamg_dia_sym_row_f32
+    P = ctypes.c_void_p
+    fn.argtypes = [P, P, ctypes.c_int, ctypes.c_longlong, P, P, P]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _row_kernel(fn, A, x):
+    """One launch of the row kernel on a staged level: the before number."""
+    import torch
+
+    from ngsamg_tpu_torch.ops import cuda_lib
+
+    y = torch.empty_like(x)
+
+    def run():
+        rc = fn(A.data.data_ptr(), A.launch.offs.data_ptr(), len(A.offsets),
+                A.nrows_pad, x.data_ptr(), y.data_ptr(),
+                torch.cuda.current_stream(x.device).cuda_stream)
+        cuda_lib.check(rc, "dia_sym_row")
+        return y
+
+    return run
 
 
 def phase_kernels(p, pc, launches):
@@ -525,6 +576,7 @@ def phase_kernels(p, pc, launches):
 
     from ngsamg_tpu_torch.ops import dia_cuda, stencil_cuda
     from ngsamg_tpu_torch.sparse import formats
+    from ngsamg_tpu_torch.utils.timing import cold_ms, event_ms, graph_ms
 
     cases = []  # (kernel name, level, A, dtype)
     for lvl, lev in enumerate(pc.op.levels):
@@ -538,6 +590,7 @@ def phase_kernels(p, pc, launches):
             name = "dia_sym_matvec_f32" if A.sym_half else "dia_matvec_f32"
             cases.append((name, lvl, A, torch.float32))
     per_kernel = {}
+    row_fn = _build_row_kernel()
     for name, lvl, A, dt in cases:
         if name.startswith("stencil"):
             kern, plain = stencil_cuda.stencil_matvec, \
@@ -549,6 +602,7 @@ def phase_kernels(p, pc, launches):
         tol = F32_TOL if dt == torch.float32 else F64_TOL
         x = _rand_x(A.nrows, A.nrows_pad, dt, 100 + lvl)
         err, rel = _check_kernel(A, x, kern, plain, tol, f"{name} level {lvl}")
+        _same_bits(kern, A, x, f"{name} level {lvl}")
         nbytes, flops = _level_cost(A, dt)
         bound_ms, bound_by = _bound_ms(nbytes, flops, dt)
         entry = {
@@ -556,16 +610,24 @@ def phase_kernels(p, pc, launches):
             "terms": len(getattr(A, "offsets", None) or A.offs),
             "bytes": nbytes, "flops": flops, "max_abs_err": err,
             "rel_err": rel,
-            "device_ms": _graph_ms(lambda: kern(A, x)),
-            "call_ms": _time_ms(lambda: kern(A, x)),
-            "plain_ms": _graph_ms(lambda: plain(A, x), n=5),
+            "device_ms": graph_ms(lambda: kern(A, x)),
+            "cold_ms": cold_ms(lambda: kern(A, x)),
+            "call_ms": event_ms(lambda: kern(A, x)),
+            "plain_ms": graph_ms(lambda: plain(A, x), n=5),
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
         lib = library(A, x)
-        entry["library_ms"] = None if lib is None else _graph_ms(lib)
+        entry["library_ms"] = None if lib is None else graph_ms(lib)
         entry["share_of_bound"] = bound_ms / entry["device_ms"]
         del lib
         entry["variant"] = _variant(A)
+        if name.startswith("dia_sym"):
+            old = _row_kernel(row_fn, A, x)
+            entry["old_max_abs_err"], _ = _check_kernel(
+                A, x, lambda A_, x_: old(), plain, tol,
+                f"{name} row kernel, level {lvl}")
+            entry["old_ms"] = graph_ms(old)
+            entry["old_cold_ms"] = cold_ms(old)
         if entry["variant"] == "tiled3d":
             # the general kernel on the same level: the before number
             meta = stencil_cuda._device_meta(A.offs, A.dims, x.device)
@@ -576,7 +638,7 @@ def phase_kernels(p, pc, launches):
             entry["general_max_abs_err"], _ = _check_kernel(
                 A, x, lambda A_, x_: general(), plain, tol,
                 f"{name} general kernel, level {lvl}")
-            entry["general_ms"] = _graph_ms(general)
+            entry["general_ms"] = graph_ms(general)
         print(f"[kernels] {name} " + json.dumps(entry), flush=True)
         per_kernel.setdefault(name, []).append(entry)
     rows = []
@@ -588,14 +650,16 @@ def phase_kernels(p, pc, launches):
             "replaces": replaces, "launches": int(launches[name]),
             "max_abs_err": max(e["max_abs_err"] for e in levels),
             "ms": big["device_ms"], "device_ms": big["device_ms"],
-            "call_ms": big["call_ms"], "plain_ms": big["plain_ms"],
+            "cold_ms": big["cold_ms"], "call_ms": big["call_ms"],
+            "plain_ms": big["plain_ms"],
             "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
             "library_ms": big["library_ms"],
             "variant": big["variant"],
             "levels": [
                 {k: e[k] for k in ("level", "rows", "variant", "device_ms",
-                                   "call_ms", "bound_ms", "share_of_bound",
-                                   "library_ms", "plain_ms", "general_ms")
+                                   "cold_ms", "call_ms", "bound_ms",
+                                   "share_of_bound", "library_ms", "plain_ms",
+                                   "general_ms", "old_ms", "old_cold_ms")
                  if k in e}
                 for e in levels
             ],
@@ -740,6 +804,7 @@ def phase_tile_ell(pc):
     import torch
 
     from ngsamg_tpu_torch.sparse import formats
+    from ngsamg_tpu_torch.utils.timing import event_ms
 
     rows = []
     for lvl, lev in enumerate(pc.op.levels):
@@ -752,7 +817,7 @@ def phase_tile_ell(pc):
                          + b.cols.numel() * b.cols.element_size()
                          for b in blocks)
             x = _rand_x(T.ncols_pad, T.ncols_pad, torch.float32, 200 + lvl)
-            ms = _time_ms(lambda: formats.matvec(T, x))
+            ms = event_ms(lambda: formats.matvec(T, x))
             row = {"level": lvl, "op": what, "format": type(T).__name__,
                    "rows": T.nrows, "cols_pad": T.ncols_pad,
                    "buckets": len(blocks), "slots": slots,
@@ -872,6 +937,51 @@ def phase_unstructured_reference():
     return errs
 
 
+def phase_mis():
+    """unstructured_poisson(20, dim=3) with MIS coarsening, card vs CPU."""
+    from ngsamg_tpu_torch import AMGPreconditioner
+    from ngsamg_tpu_torch.config import CoarsenOptions, CoarsenType
+    from ngsamg_tpu_torch.utils import fem
+
+    q = fem.unstructured_poisson(20, dim=3)
+    opts = _cheb_opts().replace(
+        coarsen=CoarsenOptions(algo=CoarsenType.MIS))
+    sols = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        pcs = AMGPreconditioner(q.A, coords=q.coords, options=opts,
+                                device=dev).setup()
+        t1 = time.perf_counter()
+        xs, inf = pcs.solve(q.b, tol=1e-8)
+        sols[dev] = (pcs, np.asarray(xs), inf, t1 - t0,
+                     time.perf_counter() - t1)
+    (pg, xg, ig, _, _), (pcc, xc, ic, _, _) = sols["cuda"], sols["cpu"]
+    relg = float(np.linalg.norm(q.b - q.A @ xg) / np.linalg.norm(q.b))
+    diff = float(np.linalg.norm(xg - xc) / np.linalg.norm(xc))
+    out = {
+        "dofs": int(q.n),
+        "level_sizes": [int(v) for v in pg.log_.nvs],
+        "operator_complexity": pg.operator_complexity,
+        "card": {"iterations": int(ig.iterations), "relres_true": relg,
+                 "setup_s": sols["cuda"][3], "solve_s": sols["cuda"][4]},
+        "cpu": {"iterations": int(ic.iterations),
+                "relres": float(ic.relres),
+                "setup_s": sols["cpu"][3], "solve_s": sols["cpu"][4]},
+        "x_diff": diff,
+    }
+    print("[mis] " + json.dumps(out), flush=True)
+    if out["level_sizes"] != [int(v) for v in pcc.log_.nvs]:
+        raise AssertionError("MIS hierarchy on the card differs from the CPU's")
+    if pg.num_levels < 2:
+        raise AssertionError("MIS coarsening built no coarse level")
+    if abs(ig.iterations - ic.iterations) > 1 or not ig.converged \
+            or relg > 1e-8:
+        raise AssertionError("MIS solve on the card disagrees with the CPU")
+    if diff > 1e-6:
+        raise AssertionError(f"MIS solve differs from the CPU by {diff}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -889,6 +999,7 @@ def main() -> int:
     phase_tile_ell(upc)
     del _up, upc
     unstruct_errs = phase_unstructured_reference()
+    phase_mis()
     for row in rows:  # fold in the checks at the small unstructured shapes
         err = unstruct_errs.get(row["name"])
         if err is not None:

@@ -34,14 +34,45 @@
 // (diagonal by diagonal): within a group in diagonal order, then across
 // groups.
 //
-// K3 streams its (ndiag, n_pad) half-storage data once, coalesced (thread
-// g reads data[d, g]), one thread per row in a grid-stride loop; the
-// ndiag shifted reads of x per row are served by L1/L2, and the
-// minus-direction term re-reads data[d, g - o], o rows back, from L2. Its
-// terms are summed in the plain version's order (diagonal by diagonal,
-// + term before - term). The TPU kernels' K-tile data halo only staged
-// data in VMEM and is not carried over. Offsets live in a device int64
-// array, so K3 has no diagonal cap.
+// K3 is bound by bytes: it streams its (ndiag, n_pad) half-storage data
+// once from device memory (86 MB at 1,259,712 rows x 17 diagonals; the
+// 21 MB of 157,464 x 34 stay in the L2 between launches) and re-reads each
+// entry once, o rows back, for the minus-direction term, out of L2. One
+// thread per row with a rolled loop over a runtime diagonal count (its
+// first design) loaded and summed diagonal by diagonal behind
+// data-dependent tests: a thread stalls at the first use of a load in
+// flight, so it kept one diagonal's loads in flight, a long chain for the
+// single wave of blocks on the small level. `dia_sym_tiled_kernel` gives a
+// block a tile of `tpg * 2` rows instead: a thread owns two consecutive
+// rows (n_pad is even: a level with an odd padding is refused at staging),
+// reads the aligned plus-direction data of a diagonal as one vector load,
+// starts the loads of U diagonals together, none behind a branch, and
+// keeps two independent sums; the shifted reads (x[g + o], x[g - o],
+// data[d, g - o]) go through the read-only cache (data loads that bypass
+// L1 ran slower: 46.0 against 42.3 us and 14.4 against 9.2, the short
+// offsets' re-reads hit there). The offsets sit in shared memory. A tile
+// whose rows all lie at least the largest offset inside [0, n_pad) skips
+// every bounds test (a block-uniform branch). Where the level has too few
+// rows to fill the card, the diagonals are split over `groups` thread
+// groups of the block (group g sums diagonals [g * per_group, (g + 1) *
+// per_group)) and the partial sums are reduced in shared memory in group
+// order, as K2 does. No atomics: the same input gives the same bits. With
+// one group the terms are summed in the plain version's order (diagonal by
+// diagonal, + term before - term). The wrapper makes the whole plan (U,
+// tpg, groups, per_group, tile, shared-memory size, blocks) from the
+// level's shape at staging: U is 2 with one group (a level that streams
+// from device memory) and 4 with several (a level that stays in the L2);
+// these two are the batches the library is built for.
+// The launch refuses a plan that does not match the kernel's own layout.
+// The offsets and the partial sums must fit 48 KB, about 6,000 diagonals:
+// a level with more is refused at staging. On the large level the kernel
+// sits 7.8 us above a flat read of the same bytes (41.3 against 33.5 us in
+// one call, NVIDIA H100 80GB HBM3, 700 W). Timed with the minus-direction
+// re-read, the shifted x reads or both compiled out it ran 39.5, 40.5 and
+// 38.9 us: the L2-to-SM traffic of those reads explains 2.4 us, and what
+// holds the rest is not known.
+// The TPU kernels' K-tile data halo only staged data in VMEM and is not
+// carried over.
 //
 // C interface (loaded with ctypes): each entry point launches on the given
 // stream and returns cudaGetLastError() as an int.
@@ -53,6 +84,7 @@ namespace {
 
 constexpr int kTileRows = 32;  // rows of a K2 tile: one per lane
 constexpr int kSmemBudget = 48 * 1024;  // a block's shared memory, no opt-in
+constexpr int kSymRows = 2;  // consecutive rows of a K3 thread
 
 // Shared memory: offsets (ndiag int64), the groups' partial sums
 // (groups x 32), then x's window (window values; 0 on the ldg path).
@@ -105,41 +137,160 @@ __global__ void dia_tiled_kernel(const T* __restrict__ data,
   }
 }
 
-template <typename T>
-__global__ void dia_sym_matvec_kernel(const T* __restrict__ data,
-                                      const long long* __restrict__ offs,
-                                      int ndiag, long long n_pad,
-                                      const T* __restrict__ x,
-                                      T* __restrict__ y) {
-  const long long step = (long long)gridDim.x * blockDim.x;
-  for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       g < n_pad; g += step) {
-    T acc = T(0);
-    for (int d = 0; d < ndiag; ++d) {
-      const long long o = offs[d];
-      const T* row = data + (long long)d * n_pad;
-      if (g + o < n_pad) acc += row[g] * x[g + o];
-      if (o > 0 && g >= o) acc += row[g - o] * x[g - o];
+// R values that load and store as one vector access (two for 32 bytes).
+template <typename T, int R>
+struct alignas(sizeof(T) * R <= 16 ? sizeof(T) * R : 16) Pack {
+  T v[R];
+};
+
+// U diagonals from d on for one thread's R rows from g0 on. All 4 * U * R
+// loads are started before the first sum uses one: a thread stalls at the
+// first use of a load in flight, so a loop that loads and sums diagonal by
+// diagonal keeps one diagonal's few loads in flight per thread, and the
+// card's memory latency then caps the rate far below its bandwidth. No
+// load sits behind a branch: CHECK clamps an index outside [0, n_pad) to
+// the thread's own row and zeroes that term's data; a tile far enough
+// inside skips the tests. The minus term of offset 0 is zeroed likewise.
+template <typename T, int R, int U, bool CHECK>
+__device__ __forceinline__ void sym_terms(
+    const T* __restrict__ data, const T* __restrict__ x,
+    const long long* __restrict__ s_offs, int d, long long n_pad,
+    long long g0, T (&acc)[R]) {
+  T ap[U][R], xp[U][R], am[U][R], xm[U][R];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const long long o = s_offs[d + u];
+    const T* row = data + (long long)(d + u) * n_pad;
+    const Pack<T, R> a = *reinterpret_cast<const Pack<T, R>*>(row + g0);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const long long own = g0 + i, jp = own + o, jm = own - o;
+      const bool okp = !CHECK || jp < n_pad;
+      const bool okm = o > 0 && (!CHECK || jm >= 0);
+      const long long cm = (CHECK && jm < 0) ? own : jm;
+      xp[u][i] = __ldg(x + (okp ? jp : own));
+      xm[u][i] = __ldg(x + cm);
+      const T m = __ldg(row + cm);
+      ap[u][i] = okp ? a.v[i] : T(0);
+      am[u][i] = okm ? m : T(0);
     }
-    y[g] = acc;
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      acc[i] += ap[u][i] * xp[u][i];
+      acc[i] += am[u][i] * xm[u][i];
+    }
   }
 }
 
-inline unsigned grid_for(long long n, int threads) {
-  long long blocks = (n + threads - 1) / threads;
-  if (blocks > (1LL << 20)) blocks = 1LL << 20;  // grid-stride beyond
-  return (unsigned)blocks;
+// Diagonals [d0, d1) in batches of U, the rest one by one.
+template <typename T, int R, int U, bool CHECK>
+__device__ __forceinline__ void sym_accumulate(
+    const T* __restrict__ data, const T* __restrict__ x,
+    const long long* __restrict__ s_offs, int d0, int d1, long long n_pad,
+    long long g0, T (&acc)[R]) {
+  int d = d0;
+  for (; d + U <= d1; d += U)
+    sym_terms<T, R, U, CHECK>(data, x, s_offs, d, n_pad, g0, acc);
+  for (; d < d1; ++d)
+    sym_terms<T, R, 1, CHECK>(data, x, s_offs, d, n_pad, g0, acc);
+}
+
+// Shared memory: with more than one group the groups' partial sums
+// (groups x tile, a multiple of 16 bytes), then the offsets (ndiag int64).
+template <typename T, int R, int U>
+__global__ void dia_sym_tiled_kernel(const T* __restrict__ data,
+                                     const long long* __restrict__ offs,
+                                     int ndiag, long long n_pad, int tpg,
+                                     int per_group, long long reach,
+                                     const T* __restrict__ x,
+                                     T* __restrict__ y) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int groups = blockDim.x / tpg;
+  const int t = threadIdx.x % tpg, g = threadIdx.x / tpg;
+  const long long tile = (long long)tpg * R;
+  T* s_part = reinterpret_cast<T*>(smem);
+  long long* s_offs =
+      reinterpret_cast<long long*>(s_part + (groups > 1 ? groups * tile : 0));
+  const long long r0 = (long long)blockIdx.x * tile;
+  for (int d = threadIdx.x; d < ndiag; d += blockDim.x) s_offs[d] = offs[d];
+  __syncthreads();
+  const long long g0 = r0 + (long long)t * R;
+  const bool live = g0 < n_pad;  // n_pad is a multiple of R
+  const int d0 = g * per_group, d1 = min(d0 + per_group, ndiag);
+  T acc[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i] = T(0);
+  if (live) {
+    if (r0 >= reach && r0 + tile + reach <= n_pad)
+      sym_accumulate<T, R, U, false>(data, x, s_offs, d0, d1, n_pad, g0, acc);
+    else
+      sym_accumulate<T, R, U, true>(data, x, s_offs, d0, d1, n_pad, g0, acc);
+  }
+  Pack<T, R> p;
+  if (groups > 1) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) p.v[i] = acc[i];
+    *reinterpret_cast<Pack<T, R>*>(s_part + (long long)g * tile + t * R) = p;
+    __syncthreads();
+    if (g != 0) return;
+    for (int k = 1; k < groups; ++k) {
+      p = *reinterpret_cast<const Pack<T, R>*>(s_part + (long long)k * tile +
+                                               t * R);
+#pragma unroll
+      for (int i = 0; i < R; ++i) acc[i] += p.v[i];
+    }
+  }
+  if (live) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) p.v[i] = acc[i];
+    *reinterpret_cast<Pack<T, R>*>(y + g0) = p;
+  }
+}
+
+// K3's plan (diagonals per batch, threads per group tpg, groups, per_group,
+// tile, shared-memory size, blocks) comes from the wrapper; `reach` is the
+// largest offset. A plan that does not match the kernel's layout is refused.
+template <typename T, int U>
+int launch_sym_u(const T* data, const long long* offs, int ndiag,
+                 long long n_pad, int tpg, int groups, int per_group,
+                 long long reach, int smem_bytes, long long blocks,
+                 const T* x, T* y, void* stream) {
+  dia_sym_tiled_kernel<T, kSymRows, U>
+      <<<(unsigned)blocks, tpg * groups, (size_t)smem_bytes,
+         (cudaStream_t)stream>>>(data, offs, ndiag, n_pad, tpg, per_group,
+                                 reach, x, y);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_sym(const T* data, const long long* offs, int ndiag,
-               long long n_pad, const T* x, T* y, void* stream) {
+               long long n_pad, int batch, int tpg, int groups,
+               int per_group, int tile, long long reach, int smem_bytes,
+               long long blocks, const T* x, T* y, void* stream) {
   if (n_pad <= 0) return 0;
-  const int threads = 256;
-  dia_sym_matvec_kernel<T><<<grid_for(n_pad, threads), threads, 0,
-                             (cudaStream_t)stream>>>(data, offs, ndiag, n_pad,
-                                                     x, y);
-  return (int)cudaGetLastError();
+  const uintptr_t ptrs =
+      reinterpret_cast<uintptr_t>(data) | reinterpret_cast<uintptr_t>(y);
+  if (tpg < 32 || tpg % 32 || groups < 1 || tpg * groups > 1024 ||
+      (long long)groups * per_group < ndiag || reach < 0 ||
+      n_pad % kSymRows || ptrs % (sizeof(T) * kSymRows) ||
+      tile != tpg * kSymRows || (batch != 2 && batch != 4))
+    return (int)cudaErrorInvalidValue;
+  const long long smem =
+      (long long)ndiag * sizeof(long long) +
+      (groups > 1 ? (long long)groups * tile * sizeof(T) : 0);
+  if (smem != smem_bytes || smem > kSmemBudget ||
+      blocks != (n_pad + tile - 1) / tile || blocks > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  return batch == 4
+             ? launch_sym_u<T, 4>(data, offs, ndiag, n_pad, tpg, groups,
+                                  per_group, reach, smem_bytes, blocks, x, y,
+                                  stream)
+             : launch_sym_u<T, 2>(data, offs, ndiag, n_pad, tpg, groups,
+                                  per_group, reach, smem_bytes, blocks, x, y,
+                                  stream);
 }
 
 // The plan (groups, per_group, window, lo) comes from the wrapper; the
@@ -184,14 +335,24 @@ extern "C" int ngsamg_dia_matvec_f64(const double* data,
 
 extern "C" int ngsamg_dia_sym_matvec_f32(const float* data,
                                          const long long* offs, int ndiag,
-                                         long long n_pad, const float* x,
+                                         long long n_pad, int batch, int tpg,
+                                         int groups, int per_group, int tile,
+                                         long long reach, int smem_bytes,
+                                         long long blocks, const float* x,
                                          float* y, void* stream) {
-  return launch_sym<float>(data, offs, ndiag, n_pad, x, y, stream);
+  return launch_sym<float>(data, offs, ndiag, n_pad, batch, tpg, groups,
+                           per_group, tile, reach, smem_bytes, blocks, x, y,
+                           stream);
 }
 
 extern "C" int ngsamg_dia_sym_matvec_f64(const double* data,
                                          const long long* offs, int ndiag,
-                                         long long n_pad, const double* x,
+                                         long long n_pad, int batch, int tpg,
+                                         int groups, int per_group, int tile,
+                                         long long reach, int smem_bytes,
+                                         long long blocks, const double* x,
                                          double* y, void* stream) {
-  return launch_sym<double>(data, offs, ndiag, n_pad, x, y, stream);
+  return launch_sym<double>(data, offs, ndiag, n_pad, batch, tpg, groups,
+                            per_group, tile, reach, smem_bytes, blocks, x, y,
+                            stream);
 }

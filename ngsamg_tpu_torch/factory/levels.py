@@ -9,15 +9,15 @@ the reference's `BaseAMGFactory::SetUpLevels` / `VertexAMGFactory`
 (base_factory.cpp:219-720, vertex_factory_impl.hpp). Per level:
 
   1. strength graph from mesh energy data,
-  2. coarse map: lattice blocks (AUTO on lattice coordinates) or pairwise
-     agglomeration (SPW),
+  2. coarse map: lattice blocks (AUTO on lattice coordinates), pairwise
+     agglomeration (SPW) or MIS-seeded aggregation (MIS),
   3. accept/reject by coarsening ratio,
   4. prolongation (piecewise or smoothed),
   5. Galerkin RAP -> next level matrix, mesh data mapped through the
      aggregation.
 
 Scalar energies only: the block-RAP branch, element-matrix (ELMAT) finest
-meshes and the MIS/plate coarseners raise, naming their ROADMAP items.
+meshes and the plate coarsener raise, naming their ROADMAP items.
 numpy/scipy only.
 """
 
@@ -116,10 +116,17 @@ def build_coarse_map(
         if algo == CoarsenType.LATTICE:
             raise ValueError("lattice coarsening: vertices are not a lattice")
         algo = CoarsenType.SPW  # AUTO fallback
+    if algo == CoarsenType.MIS:
+        from ..coarsen.mis import mis_aggregate
+
+        # the plain SOC: a robust one belongs to the block energies
+        # (``soc_robust``), which the scalar H1 energy does not define
+        S = mesh.edge_graph(weights=energy.soc(mesh))
+        return mis_aggregate(S, theta=float(c.theta.get(level)))
     if algo != CoarsenType.SPW:
         raise NotImplementedError(
             f"coarsening {algo.value!r} is not ported to ngsamg_tpu_torch "
-            "(MIS: ROADMAP queue 1 item 2; plate: item 3)"
+            "(the plate test coarsener: ROADMAP queue 1 item 3)"
         )
     aaf = c.aaf.get(level)
     # per-round re-evaluation against current coarse energies

@@ -47,8 +47,10 @@ _SIGNATURES = {
                              _I, _L, _L, _L, _L, _P, _P, _P],
     "ngsamg_dia_matvec_f32": [_P, _P, _I, _L, _I, _I, _I, _L, _P, _P, _P],
     "ngsamg_dia_matvec_f64": [_P, _P, _I, _L, _I, _I, _I, _L, _P, _P, _P],
-    "ngsamg_dia_sym_matvec_f32": [_P, _P, _I, _L, _P, _P, _P],
-    "ngsamg_dia_sym_matvec_f64": [_P, _P, _I, _L, _P, _P, _P],
+    "ngsamg_dia_sym_matvec_f32": [_P, _P, _I, _L, _I, _I, _I, _I, _I,
+                                  _L, _I, _L, _P, _P, _P],
+    "ngsamg_dia_sym_matvec_f64": [_P, _P, _I, _L, _I, _I, _I, _I, _I,
+                                  _L, _I, _L, _P, _P, _P],
 }
 
 

@@ -5,7 +5,20 @@ Replace the Pallas TPU kernels ngsamg_tpu/ops/dia_pallas.py `_dia_kernel`
 kernels are ``csrc/dia_matvec.cu``. ``A`` is a
 :class:`ngsamg_tpu_torch.sparse.formats.DiaMatrix` (duck-typed here:
 ``data``, ``offsets``, ``nrows_pad``, ``sym_half``, and ``launch``, the
-:class:`DiaLaunch` that :func:`stage` made when the level was built).
+:class:`DiaLaunch` that :func:`stage` made when the level was built: the
+offsets on the device and the level's launch plan, a :class:`DiaPlan` for
+full storage or a :class:`DiaSymPlan` for symmetric half storage).
+
+K3 gives a block a tile of rows; a thread owns two consecutive rows (so
+the aligned plus-direction data is one vector load per diagonal; a level
+with an odd padding is refused at staging), starts the loads of ``batch``
+diagonals together before it sums them, and reads the shifted terms
+through the read-only cache. A level too small to fill the card with one
+thread per two rows has its diagonals split over ``groups`` thread groups
+of the block, whose partial sums are reduced in shared memory in group
+order (no atomics: the same input gives the same bits).
+:func:`dia_sym_plan` decides all of this from the level's shape alone, and
+the launch refuses a plan that does not match the kernel's layout.
 
 :func:`dia_matvec` launches the kernel for a CUDA tensor and raises if it
 cannot; for a CPU tensor it runs :func:`_dia_matvec_plain`.
@@ -33,6 +46,18 @@ DIAGS_PER_GROUP = 8  # K2: at least this many diagonals per warp ...
 MAX_GROUPS = 16  # ... and at most this many warps per block
 SMEM_BUDGET = 48 * 1024  # bytes a block gets without an opt-in
 OFFSET_BYTES = 8  # the offsets are staged as int64
+SYM_ROWS = 2  # K3: consecutive rows of a thread (kSymRows in the kernel)
+SYM_THREADS = 256  # K3: threads of a block, over all its groups
+SYM_MIN_GROUP_THREADS = 32  # K3: a group is at least one warp
+SYM_DIAGS_PER_GROUP = 4  # K3: at least this many diagonals per group
+# K3 splits the diagonals until the grid holds this many threads: half of
+# what the 132 SMs of an H100 keep resident (2,048 each)
+SYM_TARGET_THREADS = 132 * 1024
+# K3: diagonals whose loads a thread starts together. A level that streams
+# from device memory (one group) runs best with 2, a small level whose
+# data stays in the L2 (several groups) with 4; the kernel is built for
+# these two
+SYM_BATCH_STREAM, SYM_BATCH_SPLIT = 2, 4
 
 
 @dataclass(frozen=True)
@@ -86,12 +111,77 @@ def dia_plan(offsets, n_pad: int, itemsize: int) -> DiaPlan:
 
 
 @dataclass(frozen=True)
+class DiaSymPlan:
+    """K3's launch plan for one level (symmetric half storage).
+
+    A block covers ``tile = tpg * SYM_ROWS`` rows with ``groups`` groups
+    of ``tpg`` threads; a thread owns ``SYM_ROWS`` consecutive rows and
+    loads ``batch`` diagonals at a time, and group g sums the diagonals
+    [g * per_group, (g + 1) * per_group). ``reach`` is the largest offset:
+    a tile at least that far inside [0, n_pad) skips the bounds tests.
+    ``smem_bytes`` is what the kernel's layout takes (partial sums when
+    groups > 1, then the offsets). The launch takes the whole plan, checks
+    it against the kernel's layout and launches ``blocks`` blocks with
+    ``smem_bytes`` of shared memory.
+    """
+
+    batch: int
+    tpg: int
+    groups: int
+    per_group: int
+    tile: int
+    reach: int
+    smem_bytes: int
+    blocks: int
+
+    @property
+    def variant(self) -> str:
+        return f"tile-r{SYM_ROWS}-u{self.batch}-g{self.groups}"
+
+
+def dia_sym_plan(offsets, n_pad: int, itemsize: int) -> DiaSymPlan:
+    """K3's plan from the level's shape alone (offsets >= 0, ascending).
+    Raises if the padded row count is odd (a thread owns two rows; the
+    levels' padding is a multiple of 8), or if the offsets and partial
+    sums overflow the shared-memory budget (about 6,000 diagonals)."""
+    ndiag = len(offsets)
+    if n_pad % SYM_ROWS:
+        raise ValueError(
+            f"dia_matvec: sym_half needs nrows_pad a multiple of {SYM_ROWS} "
+            f"for K3, got {n_pad}"
+        )
+    row_threads = n_pad // SYM_ROWS
+    groups = 1
+    while (groups * 2 * SYM_DIAGS_PER_GROUP <= ndiag
+           and groups * 2 * SYM_MIN_GROUP_THREADS <= SYM_THREADS
+           and row_threads * groups < SYM_TARGET_THREADS):
+        groups *= 2
+    per_group = -(-ndiag // groups) if ndiag else 0
+    tpg = SYM_THREADS // groups
+    tile = tpg * SYM_ROWS
+    smem = ndiag * OFFSET_BYTES + (groups * tile * itemsize
+                                   if groups > 1 else 0)
+    if smem > SMEM_BUDGET:
+        raise ValueError(
+            f"dia_matvec: {ndiag} diagonals need {smem} B of shared memory "
+            f"for K3's offsets and partial sums (budget {SMEM_BUDGET} B)"
+        )
+    return DiaSymPlan(
+        batch=SYM_BATCH_SPLIT if groups > 1 else SYM_BATCH_STREAM,
+        tpg=tpg, groups=groups, per_group=per_group,
+        tile=tile, reach=max(int(offsets[-1]), 0) if ndiag else 0,
+        smem_bytes=smem, blocks=-(-n_pad // tile),
+    )
+
+
+@dataclass(frozen=True)
 class DiaLaunch:
     """What a launch needs, made once per staged level: the offsets on the
-    level's device and, for full storage, K2's plan."""
+    level's device and the plan (K2's for full storage, K3's for symmetric
+    half storage)."""
 
     offs: torch.Tensor  # (ndiag,) int64
-    plan: DiaPlan | None  # None for sym_half (K3: one thread per row)
+    plan: DiaPlan | DiaSymPlan
 
 
 def stage(A) -> DiaLaunch:
@@ -99,10 +189,10 @@ def stage(A) -> DiaLaunch:
     if A.sym_half and min(offsets, default=0) < 0:
         raise ValueError("dia_matvec: sym_half stores offsets >= 0 only")
     offs = torch.tensor(offsets, dtype=torch.int64, device=A.data.device)
-    plan = None if A.sym_half else dia_plan(
-        offsets, A.nrows_pad, A.data.element_size()
+    make = dia_sym_plan if A.sym_half else dia_plan
+    return DiaLaunch(
+        offs=offs, plan=make(offsets, A.nrows_pad, A.data.element_size())
     )
-    return DiaLaunch(offs=offs, plan=plan)
 
 
 def _dia_matvec_plain(A, x: torch.Tensor) -> torch.Tensor:
@@ -162,11 +252,12 @@ def dia_matvec(A, x: torch.Tensor) -> torch.Tensor:
     sym = f"ngsamg_{key}"
     fn = getattr(cuda_lib.library(), sym)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    p = launch.plan
     if A.sym_half:
         rc = fn(A.data.data_ptr(), launch.offs.data_ptr(), ndiag, A.nrows_pad,
-                x.data_ptr(), y.data_ptr(), stream)
+                p.batch, p.tpg, p.groups, p.per_group, p.tile, p.reach,
+                p.smem_bytes, p.blocks, x.data_ptr(), y.data_ptr(), stream)
     else:
-        p = launch.plan
         rc = fn(A.data.data_ptr(), launch.offs.data_ptr(), ndiag, A.nrows_pad,
                 p.groups, p.per_group, p.window, p.lo, x.data_ptr(),
                 y.data_ptr(), stream)

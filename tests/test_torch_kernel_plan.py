@@ -1,14 +1,15 @@
-"""Launch plans of the port's K1 (stencil) and K2 (DIA) kernels, on the CPU.
+"""Launch plans of the port's K1 (stencil), K2 (DIA) and K3 (symmetric-half
+DIA) kernels, on the CPU.
 
 The wrappers compute each kernel's launch plan from the level's shape when
 the level is staged (ops/stencil_cuda.py ``stencil_plan``, ops/dia_cuda.py
-``dia_plan``). These tests check the plans at the headline's level shapes,
+``dia_plan`` and ``dia_sym_plan``). These tests check the plans at the headline's level shapes,
 at ``unstructured_poisson(20, 3)``'s DIA level and at the odd shapes of
 chip_smoke.py's build phase: each fits a block's shared memory and covers
 every output row exactly once.
 
-A numpy walk of the same tiles, halos, plane ring and diagonal groups
-computes y as the kernels do. It is held, at rtol 1e-5, to the plain
+A numpy walk of the same tiles, halos, plane ring, diagonal groups and
+load batches computes y as the kernels do. It is held, at rtol 1e-5, to the plain
 PyTorch version and to the JAX package's Pallas kernels run in interpret
 mode (as tests/test_pallas_interpret.py runs them), on seeded odd shapes.
 """
@@ -170,6 +171,62 @@ def walk_dia(A, x, plan):
         y[rows[live]] = s[live]
         writes[rows[live]] += 1
     return y, writes, visits
+
+
+def walk_dia_sym(A, x, plan):
+    """The tiled K3 kernel, block by block: a tile of ``tpg * SYM_ROWS``
+    rows, each diagonal group's diagonals in batches of
+    ``batch`` and then one by one, per diagonal the plus term before the
+    minus term, an index outside [0, n_pad) clamped to the thread's own
+    row with its data zeroed (tiles at least ``reach`` inside skip the
+    tests and must not need them), the groups' partial sums added in group
+    order. Returns y, the writes per row, and how often each stored entry
+    was used in the plus and in the minus direction."""
+    n_pad = A.nrows_pad
+    data = A.data.numpy()
+    offs = np.asarray(A.offsets)
+    ndiag = len(offs)
+    y = np.full(n_pad, np.nan, dtype=x.dtype)
+    writes = np.zeros(n_pad, dtype=int)
+    used = np.zeros((2, ndiag, n_pad), dtype=int)
+    assert plan.tile == plan.tpg * dia_cuda.SYM_ROWS
+    for b in range(plan.blocks):
+        r0 = b * plan.tile
+        rows = r0 + np.arange(plan.tile)
+        live = rows < n_pad  # whole threads: n_pad % SYM_ROWS == 0
+        own = np.minimum(rows, n_pad - 1)
+        inside = r0 >= plan.reach and r0 + plan.tile + plan.reach <= n_pad
+        part = np.zeros((plan.groups, plan.tile), dtype=x.dtype)
+        for g in range(plan.groups):
+            d0 = g * plan.per_group
+            d1 = min(d0 + plan.per_group, ndiag)
+            nfull = max(d1 - d0, 0) // plan.batch * plan.batch
+            batches = [range(d, d + plan.batch)
+                       for d in range(d0, d0 + nfull, plan.batch)]
+            batches += [range(d, d + 1) for d in range(d0 + nfull, d1)]
+            for batch in batches:
+                loaded = []
+                for d in batch:  # every load of the batch first
+                    jp, jm = rows + offs[d], rows - offs[d]
+                    if inside:
+                        assert jp.max() < n_pad and jm.min() >= 0
+                    okp = live & (jp < n_pad)
+                    okm = live & (offs[d] > 0) & (jm >= 0)
+                    cm = np.where(live & (jm >= 0), jm, own)
+                    cp = np.where(okp, jp, own)
+                    loaded.append((np.where(okp, data[d, own], 0), x[cp],
+                                   np.where(okm, data[d, cm], 0), x[cm]))
+                    used[0, d, rows[okp]] += 1
+                    used[1, d, jm[okm]] += 1
+                for ap, xp, am, xm in loaded:  # then the sums, in order
+                    part[g] = part[g] + (ap * xp).astype(x.dtype)
+                    part[g] = part[g] + (am * xm).astype(x.dtype)
+        s = part[0]
+        for g in range(1, plan.groups):
+            s = s + part[g]
+        y[rows[live]] = s[live]
+        writes[rows[live]] += 1
+    return y, writes, used
 
 
 # ---------------------------------------------------------------------------
@@ -437,14 +494,187 @@ def test_dia_plan_refuses_too_many_diagonals(itemsize):
                      offsets=tuple(range(fits + 1)), nrows=8, nrows_pad=8)
 
 
-def test_sym_half_levels_keep_the_row_kernel():
-    """K3 is unchanged: its staged launch holds the device offsets and no
-    split plan; negative offsets are refused once, at staging."""
+# ---------------------------------------------------------------------------
+# K3 plans
+# ---------------------------------------------------------------------------
+
+# the stencils of the headline's symmetric-half levels 1 and 2
+# (poisson_3d(216): 108^3 rows x 17 stored diagonals, 54^3 x 34), as lattice
+# offsets (dz, dy, dx) whose linear offset dz L^2 + dy L + dx is >= 0
+SYM_STENCIL_1 = (
+    [(0, 0, 0), (0, 0, 1), (0, 0, 2), (0, 1, -1), (0, 1, 0), (0, 1, 1),
+     (0, 2, 0)]
+    + [(1, dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)] + [(2, 0, 0)]
+)
+SYM_STENCIL_2 = (
+    [(0, 0, dx) for dx in (0, 1, 2)] + [(0, 1, dx) for dx in range(-2, 3)]
+    + [(0, 2, dx) for dx in (-1, 0, 1)] + [(1, -2, 0)]
+    + [(1, -1, dx) for dx in range(-1, 3)] + [(1, 0, dx) for dx in range(-2, 3)]
+    + [(1, 1, dx) for dx in (-1, 0, 1)] + [(1, 2, -1), (1, 2, 0)]
+    + [(2, -1, 0), (2, -1, 1)] + [(2, 0, dx) for dx in (-1, 0, 1)]
+    + [(2, 1, dx) for dx in (-1, 0, 1)]
+)
+HEADLINE_SYM = [(108, SYM_STENCIL_1), (54, SYM_STENCIL_2)]
+
+
+def _lattice_offsets(stencil, L):
+    return tuple(sorted(dz * L * L + dy * L + dx for dz, dy, dx in stencil))
+
+
+def _check_dia_sym_plan(plan, offsets, n_pad, itemsize):
+    ndiag = len(offsets)
+    assert plan.smem_bytes <= dia_cuda.SMEM_BUDGET <= SMEM_PER_BLOCK
+    assert n_pad % dia_cuda.SYM_ROWS == 0
+    assert plan.batch == (dia_cuda.SYM_BATCH_SPLIT if plan.groups > 1
+                          else dia_cuda.SYM_BATCH_STREAM)
+    assert plan.tpg % 32 == 0 and plan.tpg * plan.groups == \
+        dia_cuda.SYM_THREADS
+    assert plan.tile == plan.tpg * dia_cuda.SYM_ROWS
+    # every diagonal in exactly one group
+    assert plan.groups * plan.per_group >= ndiag
+    assert plan.groups == 1 or plan.per_group >= dia_cuda.SYM_DIAGS_PER_GROUP
+    # every row in exactly one tile
+    assert plan.blocks * plan.tile >= n_pad > (plan.blocks - 1) * plan.tile
+    assert plan.reach == max(offsets)
+    part = plan.groups * plan.tile * itemsize if plan.groups > 1 else 0
+    assert plan.smem_bytes == part + 8 * ndiag
+
+
+@pytest.mark.parametrize("L,stencil", HEADLINE_SYM)
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_headline_dia_sym_plans(L, stencil, itemsize):
+    """Levels 1 and 2 of poisson_3d(216): the offsets are the ones the
+    hierarchy stages, the large level runs one group, the small one
+    splits its diagonals in two to fill the card."""
+    offsets = _lattice_offsets(stencil, L)
+    if L == 108:
+        assert offsets == (0, 1, 2, 107, 108, 109, 216, 11555, 11556, 11557,
+                           11663, 11664, 11665, 11771, 11772, 11773, 23328)
+    else:
+        assert len(offsets) == 34 and offsets[-4:] == (5833, 5885, 5886, 5887)
+    n = L ** 3
+    plan = dia_cuda.dia_sym_plan(offsets, n, itemsize)
+    _check_dia_sym_plan(plan, offsets, n, itemsize)
+    assert plan.blocks >= 132  # the grid fills every SM of an H100
+    if L == 108:
+        assert plan.variant == "tile-r2-u2-g1" and plan.blocks == 2461
+    else:
+        assert plan.variant == "tile-r2-u4-g2" and plan.per_group == 17
+        assert plan.blocks * dia_cuda.SYM_THREADS >= \
+            dia_cuda.SYM_TARGET_THREADS
+
+
+def _dia_sym_case(offsets, n, n_pad=None, dtype=np.float32, seed=0):
+    if n_pad is None:
+        n_pad = -(-n // TILE) * TILE
+    rng = np.random.default_rng(seed)
+    data = np.zeros((len(offsets), n_pad), dtype=dtype)
+    for d, off in enumerate(offsets):
+        data[d, : max(n - off, 0)] = rng.standard_normal(
+            max(n - off, 0)).astype(dtype)
+    offsets = tuple(int(o) for o in offsets)
+    A_t = tf.DiaMatrix(data=torch.from_numpy(data), offsets=offsets,
+                       nrows=n, nrows_pad=n_pad, sym_half=True)
+    A_j = None
+    if n_pad % TILE == 0:  # the JAX kernel's row tile
+        A_j = jf.DiaMatrix(data=jnp.asarray(data), offsets=offsets, nrows=n,
+                           nrows_pad=n_pad, use_pallas=False, sym_half=True)
+    x = np.zeros(n_pad, dtype=dtype)
+    x[:n] = rng.standard_normal(n).astype(dtype)
+    return A_t, A_j, x
+
+
+SYM_CASES = {
+    # the headline's level-1 and level-2 stencils on lattices cut to 20^3
+    # and 16^3 (one group, and the diagonals split over groups)
+    "level1-20": (_lattice_offsets(SYM_STENCIL_1, 20), 20 ** 3, None),
+    "level2-16": (_lattice_offsets(SYM_STENCIL_2, 16), 16 ** 3, None),
+    # n not a multiple of the tile, n_pad even and not a multiple of 8
+    "level1-12-ragged": (_lattice_offsets(SYM_STENCIL_1, 12), 12 ** 3 - 5,
+                         12 ** 3 - 2),
+    "level2-13-ragged": (_lattice_offsets(SYM_STENCIL_2, 13), 13 ** 3,
+                         13 ** 3 + 1),
+    # an offset larger than a tile; no tile is far enough inside
+    "offset-over-tile": ((0, 1, 127, 128, 5000), TILE - 13, None),
+    # an offset larger than a block's shared memory could window
+    "offset-over-smem": ((0, 128, 40000), 5 * TILE - 3, None),
+    # no main diagonal stored; a single diagonal
+    "no-diagonal": ((3, 64, 700), 3000, 3000),
+    "one-diagonal": ((0,), 1001, 1008),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SYM_CASES))
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_dia_sym_walk_matches_plain_and_jax(case, dtype):
+    offsets, n, n_pad = SYM_CASES[case]
+    A_t, A_j, x = _dia_sym_case(offsets, n, n_pad, dtype, seed=len(offsets))
+    plan = A_t.launch.plan
+    assert plan == dia_cuda.dia_sym_plan(offsets, A_t.nrows_pad, x.itemsize)
+    _check_dia_sym_plan(plan, A_t.offsets, A_t.nrows_pad, x.itemsize)
+    y, writes, used = walk_dia_sym(A_t, x, plan)
+    assert (writes == 1).all()
+    # every stored entry (row g of offset o with g + o inside) is used
+    # once in each direction, the main diagonal in the plus direction only
+    for d, o in enumerate(A_t.offsets):
+        stored = np.arange(A_t.nrows_pad) + o < A_t.nrows_pad
+        np.testing.assert_array_equal(used[0, d], stored.astype(int))
+        np.testing.assert_array_equal(
+            used[1, d], (stored & (o > 0)).astype(int))
+    y_plain = dia_cuda._dia_matvec_plain(
+        A_t, torch.from_numpy(x)[:, None]).numpy()[:, 0]
+    np.testing.assert_allclose(y, y_plain, rtol=1e-5, atol=1e-5)
+    if dtype == np.float32 and A_j is not None:
+        y_pl = np.asarray(dia_matvec_pallas(
+            A_j, jnp.asarray(x)[:, None], interpret=True))[:, 0]
+        np.testing.assert_allclose(y[:n], y_pl[:n], rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(y[n:], 0.0)
+
+
+def test_dia_sym_plan_follows_the_shape():
+    """The plan reads the shape alone: groups from the rows and the
+    diagonal count, the batch from the groups; the same for f32 and f64."""
+    offs = _lattice_offsets(SYM_STENCIL_2, 54)
+    for itemsize in (4, 8):
+        big = dia_cuda.dia_sym_plan(offs, 10 ** 7, itemsize)
+        assert big.variant == "tile-r2-u2-g1"
+        mid = dia_cuda.dia_sym_plan(offs, 100008, itemsize)
+        assert mid.variant == "tile-r2-u4-g4"
+        small = dia_cuda.dia_sym_plan(offs, 4096, itemsize)
+        assert small.variant == "tile-r2-u4-g8"
+        assert small.tpg == 32 and small.per_group == 5
+        few = dia_cuda.dia_sym_plan((0, 1, 64), 4096, itemsize)
+        assert few.groups == 1  # too few diagonals to split
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_dia_sym_plan_refuses_too_many_diagonals(itemsize):
+    """K3 keeps every offset in shared memory: a level whose offsets pass
+    the budget is refused when it is staged; negative offsets are refused
+    there too."""
+    fits = dia_cuda.SMEM_BUDGET // dia_cuda.OFFSET_BYTES
+    n = 10 ** 7  # one group: no partial sums
+    plan = dia_cuda.dia_sym_plan(tuple(range(fits)), n, itemsize)
+    assert plan.groups == 1 and plan.smem_bytes == dia_cuda.SMEM_BUDGET
+    with pytest.raises(ValueError, match="shared memory"):
+        dia_cuda.dia_sym_plan(tuple(range(fits + 1)), n, itemsize)
     data = torch.zeros((2, 64))
     A = tf.DiaMatrix(data=data, offsets=(0, 5), nrows=60, nrows_pad=64,
                      sym_half=True)
-    assert A.launch.plan is None
+    assert isinstance(A.launch.plan, dia_cuda.DiaSymPlan)
     assert A.launch.offs.tolist() == [0, 5]
     with pytest.raises(ValueError, match="sym_half"):
         tf.DiaMatrix(data=data, offsets=(-5, 0), nrows=60, nrows_pad=64,
                      sym_half=True)
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_dia_sym_plan_refuses_odd_padding(itemsize):
+    """A K3 thread owns two rows: an odd padded row count is refused when
+    the level is staged (the levels' padding is a multiple of 8)."""
+    with pytest.raises(ValueError, match="multiple of 2"):
+        dia_cuda.dia_sym_plan((0, 1, 64), 4097, itemsize)
+    dtype = torch.float32 if itemsize == 4 else torch.float64
+    with pytest.raises(ValueError, match="multiple of 2"):
+        tf.DiaMatrix(data=torch.zeros((2, 63), dtype=dtype), offsets=(0, 5),
+                     nrows=60, nrows_pad=63, sym_half=True)

@@ -211,16 +211,16 @@ def test_f64_finest_stencil(pair):
 
 
 def test_unported_paths_raise():
-    """Unported algorithms raise instead of running another one: MIS
-    coarsening (which declines the structured fast path and reaches the
-    generic loop), the GS smoother and the W-cycle."""
+    """Unported algorithms raise instead of running another one: the plate
+    test coarsener (which declines the structured fast path and reaches
+    the generic loop), the GS smoother and the W-cycle."""
     p = tfem.poisson_3d(12)
     opts = _cheb(ngsamg_tpu_torch)
-    mis = opts.replace(coarsen=ngsamg_tpu_torch.config.CoarsenOptions(
-        algo=ngsamg_tpu_torch.config.CoarsenType.MIS
+    plate = opts.replace(coarsen=ngsamg_tpu_torch.config.CoarsenOptions(
+        algo=ngsamg_tpu_torch.config.CoarsenType.PLATE
     ))
-    with pytest.raises(NotImplementedError, match="'mis'.*item 2"):
-        setup_levels(p.A, ngsamg_tpu_torch.precond.amg.H1Energy(), mis, None)
+    with pytest.raises(NotImplementedError, match="'plate'.*item 3"):
+        setup_levels(p.A, ngsamg_tpu_torch.precond.amg.H1Energy(), plate, None)
     gs = ngsamg_tpu_torch.AMGOptions()  # default smoother: GS
     with pytest.raises(NotImplementedError):
         ngsamg_tpu_torch.AMGPreconditioner(
