@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of ngsamg_tpu_torch on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py    # poisson_3d(216), 9,938,375 DoF, and
-                             # unstructured_poisson(55, 3, refine=1), 1,411,632
+    python3 chip_smoke.py    # poisson_3d(216), 9,938,375 DoF,
+                             # unstructured_poisson(55, 3, refine=1), 1,411,632,
+                             # unstructured_elasticity(36, 3, refine=1), 1,250,196
 
 Phases, each of which raises (nonzero exit) on failure:
 
@@ -61,6 +62,25 @@ Phases, each of which raises (nonzero exit) on failure:
 8. MIS coarsening — ``unstructured_poisson(20, dim=3)`` with
    ``coarsen.algo = MIS`` on the card against the same solve on the CPU:
    the same level sizes, iterations within one, true relres <= 1e-8.
+
+9. elasticity — assembles ``fem.unstructured_elasticity(36, dim=3,
+   refine=1)`` (1,250,196 DoF), sets it up with ``energy="elasticity",
+   block_size=3`` on the default device (block-ELL levels of 3x3 and 6x6
+   blocks, 3x6 / 6x3 block transfers, symmetric scaling, the f64 coarse
+   inverse), runs a warm-up ``solve(maxiter=2, mixed=True)`` and then
+   ``solve(tol=1e-8, maxiter=120, mixed=True)`` twice (first and warm);
+   checks that every tensor of the staged operator and the f64 twin are on
+   the card, convergence, the true relative residual (host, f64, scipy)
+   <= 1e-8 and at most 40 iterations.
+10. block-ELL — the device time per call (CUDA-graph replay) of the plain
+   torch block-ELL matvec of every block-ELL level and transfer of that
+   hierarchy in f32, and of the finest level's f64 twin, beside its stored
+   bytes and bound (those bytes, one read of x and one write of y, at
+   3.35 TB/s). There is no hand-written block-ELL kernel.
+11. elasticity reference — ``elasticity_3d(8)`` (19,440 DoF) solved on the
+   card and on the CPU, ``mixed=True`` and plain: iterations within one,
+   solutions to 1e-6 relative; ``bell.spmv`` on the card against the CPU
+   at block shapes (3,3), (6,6), (3,6), (6,3) to rtol 1e-5.
 
 The last lines are the nvidia-smi line, one JSON object describing the
 kernels, and ``{"ok": true, "device": {...}}``.
@@ -982,6 +1002,222 @@ def phase_mis():
     return out
 
 
+ELAST_N = 36  # unstructured_elasticity(36, dim=3, refine=1)
+ELAST_DOFS = 1250196
+ELAST_MAX_IT = 40  # the reference's budget; the JAX package's record is 38
+
+
+def _operator_tensors(op):
+    """Every tensor the staged operator holds, with a label."""
+    import torch
+
+    def walk(obj, label):
+        if isinstance(obj, torch.Tensor):
+            yield label, obj
+        elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+            for f in dataclasses.fields(obj):
+                yield from walk(getattr(obj, f.name), f"{label}.{f.name}")
+        elif isinstance(obj, (tuple, list)):
+            for i, v in enumerate(obj):
+                yield from walk(v, f"{label}[{i}]")
+
+    yield from walk(op, "op")
+
+
+def phase_elasticity():
+    """3D elasticity at 1,250,196 DoF on the card, mixed-precision PCG."""
+    import torch
+
+    from ngsamg_tpu_torch import AMGPreconditioner
+    from ngsamg_tpu_torch.sparse import bell
+    from ngsamg_tpu_torch.utils import fem
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    p = fem.unstructured_elasticity(ELAST_N, dim=3, refine=1)
+    t1 = time.perf_counter()
+    pc = AMGPreconditioner(
+        p.A, energy="elasticity", block_size=3, coords=p.coords,
+        options=_cheb_opts(),
+    ).setup()
+    t2 = time.perf_counter()
+    pc.solve(p.b, maxiter=2, mixed=True)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    x, info = pc.solve(p.b, tol=1e-8, maxiter=120, mixed=True)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    _x2, info2 = pc.solve(p.b, tol=1e-8, maxiter=120, mixed=True)
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    launches = _counts()
+    if x.shape != (p.n,) or not np.isfinite(x).all():
+        raise AssertionError(f"solution: shape {x.shape}, not all finite")
+    relres = float(np.linalg.norm(p.b - p.A @ x) / np.linalg.norm(p.b))
+    # block-ELL and dense levels run no hand-written kernel (the JAX
+    # package has none there); a DIA level would, and must then launch
+    for k in sorted(_path_kernels(pc)):
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} never launched on this path")
+    tensors = list(_operator_tensors(pc.op)) + list(
+        _operator_tensors(pc._A64_mixed))
+    off_card = [lab for lab, t in tensors if t.device.type != "cuda"]
+    level_fmts = [type(lev.A).__name__ for lev in pc.op.levels]
+    out = {
+        "dofs": int(p.n),
+        "device": str(pc.device),
+        "assembly_s": t1 - t0,
+        "setup_host_s": pc.setup_time_host,
+        "setup_staging_s": pc.setup_time_device,
+        "warmup_solve_s": t3 - t2,
+        "solve_s": t4 - t3,
+        "warm_solve_s": t5 - t4,
+        "iterations": int(info.iterations),
+        "restarts": int(info.outer_iterations) - 1,
+        "warm_iterations": int(info2.iterations),
+        "relres_true": relres,
+        "relres_solver": float(info.relres),
+        "num_levels": pc.num_levels,
+        "operator_complexity": pc.operator_complexity,
+        "level_sizes": [int(v) for v in pc.log_.nvs],
+        "level_formats": level_fmts,
+        "block_shapes": [
+            [list(T.block_shape) if isinstance(T, bell.BlockELL) else None
+             for T in (lev.A, lev.P, lev.R)] for lev in pc.op.levels],
+        "twin": type(pc._A64_mixed).__name__,
+        "tensors_on_card": len(tensors) - len(off_card),
+        "device_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches,
+    }
+    print("[elasticity] " + json.dumps(out), flush=True)
+    if pc.device.type != "cuda" or off_card:
+        raise AssertionError(f"not on the card: {pc.device}, {off_card}")
+    if int(p.n) != ELAST_DOFS:
+        raise AssertionError(f"{p.n} DoF != {ELAST_DOFS}")
+    if not isinstance(pc.A_dev, bell.BlockELL) or not isinstance(
+            pc._A64_mixed, bell.BlockELL):
+        raise AssertionError(f"finest level {level_fmts[0]}, twin "
+                             f"{type(pc._A64_mixed).__name__}")
+    if pc.op.coarse_inv.dtype != torch.float64:
+        raise AssertionError("the coarse inverse is not f64")
+    if not info.converged or relres > 1e-8:
+        raise AssertionError(
+            f"not converged: solver relres {info.relres}, true {relres}")
+    if int(info.iterations) > ELAST_MAX_IT:
+        raise AssertionError(f"{info.iterations} iterations > {ELAST_MAX_IT}")
+    return p, pc, out
+
+
+def phase_block_ell(pc):
+    """Plain torch block-ELL matvec per block-ELL level and transfer (f32),
+    and the finest level's f64 twin."""
+    import torch
+
+    from ngsamg_tpu_torch.precond.amg import _full_f32
+    from ngsamg_tpu_torch.sparse import bell
+    from ngsamg_tpu_torch.utils.timing import graph_ms
+
+    ops = [("A64", 0, pc._A64_mixed)]
+    for lvl, lev in enumerate(pc.op.levels):
+        ops += [(what, lvl, T) for what, T in
+                (("A", lev.A), ("P", lev.P), ("R", lev.R))]
+    rows = []
+    for what, lvl, T in ops:
+        if not isinstance(T, bell.BlockELL):
+            continue
+        dt = T.data.dtype
+        br, cbc = T.block_shape
+        bc = cbc // T.col_chunk
+        nx = -(-T.ncols // 8) * 8
+        g = torch.Generator(device="cuda")
+        g.manual_seed(400 + lvl)
+        x = torch.randn((nx, bc), dtype=dt, device="cuda", generator=g)
+        stored = (T.data.numel() * T.data.element_size()
+                  + T.cols.numel() * T.cols.element_size())
+        nbytes = stored + (x.numel() + T.nrows_pad * br) * x.element_size()
+        flops = 2 * T.data.numel()
+        bound, by = _bound_ms(nbytes, flops, dt)
+        with _full_f32():
+            ms = graph_ms(lambda: bell.spmv(T, x), n=10)
+        row = {"level": lvl, "op": what, "dtype": str(dt).split(".")[-1],
+               "rows": T.nrows, "cols": T.ncols, "slots": T.ell_width,
+               "block": [br, bc], "stored_bytes": stored, "bytes": nbytes,
+               "ms": ms, "bound_ms": bound, "bound_by": by,
+               "share_of_bound": bound / ms}
+        print("[block_ell] " + json.dumps(row), flush=True)
+        rows.append(row)
+    if not rows:
+        raise AssertionError("no block-ELL operator in the hierarchy")
+    return rows
+
+
+def phase_elasticity_reference():
+    """elasticity_3d(8) on the card against the CPU, mixed and plain; and
+    bell.spmv on the card against the CPU at the four block shapes."""
+    import scipy.sparse as sp
+    import torch
+
+    from ngsamg_tpu_torch import AMGPreconditioner
+    from ngsamg_tpu_torch.precond.amg import _full_f32
+    from ngsamg_tpu_torch.sparse import bell
+    from ngsamg_tpu_torch.utils import fem
+
+    q = fem.elasticity_3d(8)
+    pcs = {
+        dev: AMGPreconditioner(
+            q.A, energy="elasticity", block_size=3, coords=q.coords,
+            options=_cheb_opts(), device=dev,
+        ).setup()
+        for dev in ("cuda", "cpu")
+    }
+    out = {"dofs": int(q.n),
+           "level_sizes": [int(v) for v in pcs["cuda"].log_.nvs],
+           "level_formats": [type(lev.A).__name__
+                             for lev in pcs["cuda"].op.levels]}
+    for mixed in (True, None):
+        (xg, ig), (xc, ic) = (
+            pcs[dev].solve(q.b, tol=1e-8, mixed=mixed)
+            for dev in ("cuda", "cpu"))
+        relg = float(np.linalg.norm(q.b - q.A @ xg) / np.linalg.norm(q.b))
+        diff = float(np.linalg.norm(xg - xc) / np.linalg.norm(xc))
+        key = "mixed" if mixed else "plain"
+        out[key] = {"card_iterations": int(ig.iterations),
+                    "cpu_iterations": int(ic.iterations),
+                    "card_relres_true": relg, "x_diff": diff}
+        if abs(ig.iterations - ic.iterations) > 1 or not ig.converged \
+                or relg > 1e-8:
+            raise AssertionError(f"elasticity_3d(8) {key} on the card "
+                                 f"disagrees with the CPU: {out[key]}")
+        if diff > 1e-6:
+            raise AssertionError(f"elasticity_3d(8) {key} differs from the "
+                                 f"CPU by {diff}")
+    if not isinstance(pcs["cuda"].A_dev, bell.BlockELL):
+        raise AssertionError("elasticity_3d(8): finest level not block-ELL")
+    rng = np.random.default_rng(11)
+    errs = {}
+    for br, bc in ((3, 3), (6, 6), (3, 6), (6, 3)):
+        nbr, nbc = 4001, (4001 if br == bc else 1733)
+        S = sp.random(nbr, nbc, density=12.0 / nbc, random_state=5,
+                      format="csr")
+        B = sp.bsr_matrix(
+            (rng.standard_normal((S.nnz, br, bc)), S.indices, S.indptr),
+            shape=(nbr * br, nbc * bc))
+        x = rng.standard_normal((-(-nbc // 8) * 8, bc)).astype(np.float32)
+        ys = {}
+        for dev in ("cuda", "cpu"):
+            T = bell.from_scipy(B, br, bc, dtype=np.float32, device=dev)
+            with _full_f32():
+                ys[dev] = bell.spmv(T, torch.from_numpy(x).to(dev)).cpu()
+        err = float((ys["cuda"] - ys["cpu"]).abs().max()
+                    / ys["cpu"].abs().max())
+        errs[f"{br}x{bc}"] = err
+        if err > 1e-5:
+            raise AssertionError(f"bell.spmv {br}x{bc}: card vs CPU {err}")
+    out["spmv_card_vs_cpu"] = errs
+    print("[elasticity-reference] " + json.dumps(out), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1000,6 +1236,10 @@ def main() -> int:
     del _up, upc
     unstruct_errs = phase_unstructured_reference()
     phase_mis()
+    _ep, epc, _eout = phase_elasticity()
+    phase_block_ell(epc)
+    del _ep, epc
+    phase_elasticity_reference()
     for row in rows:  # fold in the checks at the small unstructured shapes
         err = unstruct_errs.get(row["name"])
         if err is not None:

@@ -9,6 +9,7 @@ the JAX package wrote in Pallas. It imports neither JAX nor ngsamg_tpu.
 Public API:
     AMGPreconditioner — strict-algebraic-mode front-end
     AMGOptions, options_from_flags, SpecOpt — configuration
+    apps.h1.H1Energy, apps.elasticity.ElasticityEnergy — PDE energies
     utils.fem — problem generators
 """
 

@@ -26,6 +26,11 @@ class Energy(abc.ABC):
     #: DOFs per vertex in the AMG space (1..3 H1, 3/6 elasticity)
     dpv: int
 
+    #: whether coarsening should use the robust (generalized-EVP) SOC by
+    #: default (config CoarsenOptions.robust=None defers to this; the
+    #: reference enables robust coarsening for elasticity)
+    default_robust: bool = False
+
     @abc.abstractmethod
     def build_finest_mesh(
         self, A: sp.spmatrix, coords: np.ndarray | None
@@ -66,3 +71,10 @@ class Energy(abc.ABC):
 
     def vertex_positions(self, mesh: AlgebraicMesh) -> np.ndarray | None:
         return mesh.vertex_data.get("pos")
+
+    def embedding_matrix(self, mesh: AlgebraicMesh) -> sp.spmatrix | None:
+        """Optional finest-level embedding E: AMG space -> FEM space, e.g.
+        disp-only FEM DOFs embedded into the disp+rot elasticity AMG space.
+        None (identity) for H1.
+        """
+        return None

@@ -1,4 +1,4 @@
-"""H1 (scalar diffusion) AMG energy.
+"""H1 (scalar / vector diffusion) AMG energy.
 
 Copied from ngsamg_tpu/apps/h1.py, numpy branches only (the original's
 fused native passes ``finest_mesh_scal`` and ``spw_round_h1`` compute the
@@ -13,7 +13,9 @@ h1.hpp:45-138, h1_impl.hpp:384-431):
 * replacement-matrix block for edge (i,j) with weight w: [[w, -w], [-w, w]]
   (h1_energy.hpp:236-273 `CalcRMBlock`), attractive part only
 
-Vector-valued H1 (``bs > 1``) is a block energy: ROADMAP queue 1 item 3.
+For vector-valued H1 (``bs > 1``) the graph is identical and all blocks are
+w * I_bs: the mesh is taken from the block traces, and coarsening decisions
+are made on the scalar weights.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import numpy as np
 import scipy.sparse as sp
 
 from ..mesh.topo import AlgebraicMesh
+from ..sparse.host import to_bsr
 from .base import Energy
 
 
@@ -32,14 +35,20 @@ class H1Energy(Energy):
 
     # -- finest-level mesh ------------------------------------------------
     def build_finest_mesh(self, A, coords=None) -> AlgebraicMesh:
-        if self.bs != 1:
-            raise NotImplementedError(
-                "vector H1 (block_size > 1) is not ported to "
-                "ngsamg_tpu_torch (ROADMAP queue 1 item 3)"
+        bs = self.bs
+        if bs == 1:
+            T = A.tocsr().copy()
+        else:
+            B = to_bsr(A, bs)
+            tr = np.einsum("nii->n", B.data)
+            nv = B.shape[0] // bs
+            # own copies of the structure: setdiag/eliminate_zeros below
+            # mutate them in place, and B is the cached view of A
+            T = sp.csr_matrix(
+                (tr, B.indices.copy(), B.indptr.copy()), shape=(nv, nv)
             )
-        T = A.tocsr().copy()
         # Edges keep every off-diagonal coupling with SIGNED weight
-        # -a_ij: attractive couplings positive, repulsive negative.
+        # -trace(a_ij): attractive couplings positive, repulsive negative.
         # Strength/energy consumers clamp to the attractive part (the
         # standard SA strength filter), while coarse-level Galerkin weight
         # sums (map_data) stay signed so repulsive couplings CANCEL
@@ -88,7 +97,7 @@ class H1Energy(Energy):
 
     # -- replacement (aux) matrix ----------------------------------------
     def replacement_matrix(self, mesh: AlgebraicMesh) -> sp.spmatrix:
-        nv = mesh.nv
+        nv, bs = mesh.nv, self.bs
         i, j = mesh.edges[:, 0], mesh.edges[:, 1]
         # attractive part only (signed edge weights): the aux matrix must
         # stay SPD — the SA filtered-matrix convention
@@ -99,7 +108,10 @@ class H1Energy(Energy):
         rows = np.concatenate([i, j, np.arange(nv)])
         cols = np.concatenate([j, i, np.arange(nv)])
         vals = np.concatenate([-w, -w, d])
-        return sp.coo_matrix((vals, (rows, cols)), shape=(nv, nv)).tocsr()
+        Ahat = sp.coo_matrix((vals, (rows, cols)), shape=(nv, nv)).tocsr()
+        if bs == 1:
+            return Ahat
+        return sp.kron(Ahat, sp.eye(bs), format="bsr")
 
     # -- coarse data mapping ----------------------------------------------
     def map_data(

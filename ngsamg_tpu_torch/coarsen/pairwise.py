@@ -1,8 +1,8 @@
 """Successive pairwise-agglomeration coarsening (SPW), data-parallel form.
 
-Copied from ngsamg_tpu/coarsen/pairwise.py, scalar branches with their
-numpy code (the original's native ``handshake_match``, ``collapse_graph``
-and fused H1 matching round compute the same results). The reference's
+Copied from ngsamg_tpu/coarsen/pairwise.py with its numpy code (the
+original's native ``handshake_match``, ``collapse_graph`` and fused H1
+matching round compute the same results). The reference's
 `SPWAgglomerator` (spw_agg.hpp:15-165, spw_agg_impl.hpp:1440-1831) runs
 `numRounds` rounds of greedy pairwise matching; here each round is
 *handshake matching*:
@@ -12,8 +12,9 @@ and fused H1 matching round compute the same results). The reference's
     mutual proposals become matched pairs;
   until no new matches form.
 
-The robust (pencil-EVP) strength, the agglomerate-wide big-SOC check and
-the plate test coarsener serve the block energies: ROADMAP queue 1 item 3.
+Block energies score candidate pairs with the robust (pencil-EVP) strength
+(``_robust_soc_prefiltered``); ``big_soc_vet`` is the agglomerate-wide
+acceptance check and ``plate_test_aggregate`` the plate test coarsener.
 """
 
 from __future__ import annotations
@@ -174,6 +175,147 @@ def spw_aggregate(
     return v2c, n_cur
 
 
+def big_soc_vet(
+    energy,
+    mesh,
+    v2c: np.ndarray,
+    partner: np.ndarray,
+    rho: float,
+    max_members: int = 16,
+    Dfull: np.ndarray | None = None,
+) -> np.ndarray:
+    """Agglomerate-wide stability acceptance check (`bigSOC`).
+
+    The reference's `AggregateWideStabilityCheck` (enabled by
+    `checkBigSOC`): before two agglomerates merge, require the
+    diagonal smoother M (full aux diagonals, including outside
+    connections) to be rho-dominated by the SUB-assembled replacement
+    energy A of the union ORTHOGONAL to the rigid-body space:
+
+        A - rho (M - M P (P^T M P)^+ P^T M)  >=  0   (SSPD)
+
+    with P the Q-transported kernel basis (`AssembleAhatBlock`
+    conventions). Matched pairs failing
+    the check are un-matched for the round (the handshake analog of the
+    reference rejecting a non-viable neighbor and falling through).
+
+    ``mesh``/``v2c`` are the FINE mesh and the composed fine->current
+    aggregation — the check is member-resolved like the reference's
+    (fAggData + getFullAgg). Unions of fewer than 3 members auto-pass
+    (reference n < 3 early-out); unions above ``max_members`` auto-pass
+    (the reference's agg sizes are bounded by 2^rounds).
+
+    Returns the vetted ``partner`` array.
+    """
+    n_cur = int(v2c.max()) + 1 if len(v2c) else 0
+    a = np.flatnonzero(
+        (partner >= 0) & (np.arange(len(partner)) < partner)
+    )
+    if not len(a):
+        return partner
+    b = partner[a]
+    npair = len(a)
+    # pair id per CURRENT coarse vertex (-1 = not in a vetted pair)
+    pair_of = np.full(max(n_cur, 1), -1, dtype=np.int64)
+    pair_of[a] = np.arange(npair)
+    pair_of[b] = np.arange(npair)
+    # fine members per pair (sorted fine ids — QuickSort(allMems))
+    act = v2c >= 0
+    fine_ids = np.flatnonzero(act)
+    fine_pair = pair_of[v2c[fine_ids]]
+    sel = fine_pair >= 0
+    fine_ids, fine_pair = fine_ids[sel], fine_pair[sel]
+    order = np.lexsort((fine_ids, fine_pair))
+    fine_ids, fine_pair = fine_ids[order], fine_pair[order]
+    counts = np.bincount(fine_pair, minlength=npair)
+    offs = np.concatenate([[0], np.cumsum(counts)])
+    # local member slot of each fine id within its pair
+    slot = np.arange(len(fine_ids)) - offs[fine_pair]
+    # fine id -> (pair, slot) lookup
+    v_pair = np.full(mesh.nv, -1, dtype=np.int64)
+    v_slot = np.zeros(mesh.nv, dtype=np.int64)
+    v_pair[fine_ids] = fine_pair
+    v_slot[fine_ids] = slot
+
+    d = energy.dpv
+    pos = mesh.vertex_data["pos"]
+    E = mesh.edge_data["mat"]
+    edges = mesh.edges
+    if Dfull is None:  # caller may hoist this out of the round loop
+        Dfull = energy.aux_diagonal(mesh)
+
+    # edges interior to a pair's union
+    ei, ej = edges[:, 0], edges[:, 1]
+    pe = v_pair[ei]
+    in_pair = (pe >= 0) & (pe == v_pair[ej])
+    reject = np.zeros(npair, dtype=bool)
+    sizes = counts
+    for m in np.unique(sizes):
+        if m < 3:
+            continue  # reference early-out: unions of < 3 auto-pass
+        if m > max_members:
+            continue  # bounded agg sizes; larger unions auto-pass
+        pids = np.flatnonzero(sizes == m)
+        if not len(pids):
+            continue
+        B = len(pids)
+        bidx = np.full(npair, -1, dtype=np.int64)
+        bidx[pids] = np.arange(B)
+        mem = fine_ids[
+            (offs[pids][:, None] + np.arange(m)).ravel()
+        ].reshape(B, m)
+        # sub-assembled replacement energy over the union's edges
+        A_blk = np.zeros((B, m, m, d, d))
+        esel = np.flatnonzero(in_pair & (bidx[pe] >= 0))
+        if len(esel):
+            i_f, j_f = ei[esel], ej[esel]
+            pb = bidx[pe[esel]]
+            si, sj = v_slot[i_f], v_slot[j_f]
+            mid = 0.5 * (pos[i_f] + pos[j_f])
+            Qim = energy.transport(pos[i_f], mid)
+            Qjm = energy.transport(pos[j_f], mid)
+            Ee = E[esel]
+            QiE = np.swapaxes(Qim, -1, -2) @ Ee
+            QjE = np.swapaxes(Qjm, -1, -2) @ Ee
+            np.add.at(A_blk, (pb, si, si), QiE @ Qim)
+            np.add.at(A_blk, (pb, sj, sj), QjE @ Qjm)
+            np.add.at(A_blk, (pb, si, sj), -(QiE @ Qjm))
+            np.add.at(A_blk, (pb, sj, si), -(QjE @ Qim))
+        A_mat = A_blk.transpose(0, 1, 3, 2, 4).reshape(
+            B, m * d, m * d
+        )
+        # block-diagonal smoother of FULL aux diagonals
+        M_mat = np.zeros((B, m * d, m * d))
+        for k in range(m):
+            M_mat[:, k * d:(k + 1) * d, k * d:(k + 1) * d] = Dfull[
+                mem[:, k]
+            ]
+        # rigid-body space transported from member 0
+        P = np.zeros((B, m * d, d))
+        for k in range(m):
+            P[:, k * d:(k + 1) * d, :] = energy.transport(
+                pos[mem[:, k]], pos[mem[:, 0]]
+            )
+        PtM = np.swapaxes(P, -1, -2) @ M_mat  # (B, d, md)
+        PtMP = PtM @ P
+        PtMP_inv = np.linalg.pinv(PtMP, rcond=1e-12, hermitian=True)
+        M_ortho = M_mat - np.swapaxes(PtM, -1, -2) @ (PtMP_inv @ PtM)
+        G = A_mat - rho * M_ortho
+        G = 0.5 * (G + np.swapaxes(G, -1, -2))
+        lam = np.linalg.eigvalsh(G)
+        scale = np.maximum(
+            np.abs(lam).max(axis=1), 1e-300
+        )
+        # SSPD: semi-definiteness up to relative roundoff (CheckForSSPD)
+        reject[pids] = lam[:, 0] < -1e-10 * scale
+    bad = np.flatnonzero(reject)
+    if len(bad):
+        partner = partner.copy()
+        partner[a[bad]] = -1
+        partner[b[bad]] = -1
+    return partner
+
+
 def spw_aggregate_energy(
     energy,
     mesh,
@@ -184,24 +326,27 @@ def spw_aggregate_energy(
     active: np.ndarray | None = None,
     aaf: float | None = None,
     max_agg: int | None = None,
+    robust: bool = True,
+    neib_boost: bool = False,
+    scal_rel_thresh: float = 0.25,
+    soc_reduction: str | None = None,
     diag_stab_boost: float = 0.0,
     big_soc: bool = False,
+    big_soc_rho: float | None = None,
 ) -> tuple[np.ndarray, int]:
-    """SPW with per-round energy re-evaluation.
+    """SPW with per-round energy re-evaluation (robust pick/check).
 
-    Each round rebuilds the coarse algebraic mesh (`energy.map_data`) and
-    re-scores all candidate pairs with the energy's strength of connection
-    before the handshake matching, so every matching decision is made
-    against up-to-date energies rather than a Galerkin-collapsed scalar
-    graph (spw_agg_impl.hpp:1440-1831).
+    The reference's SPW consults generalized EVPs per candidate pair and
+    re-checks agglomerates against the CURRENT intermediate coarse energies
+    (spw_agg_impl.hpp:1440-1831). The
+    data-parallel counterpart: each round rebuilds the coarse algebraic
+    mesh (Q-transported energy sums, `energy.map_data`) and re-scores all
+    candidate pairs with the robust (pencil-EVP) SOC before the handshake
+    matching — every matching decision is made against up-to-date energies
+    rather than a Galerkin-collapsed scalar graph.
     """
     from ..mesh.topo import map_edges
 
-    if big_soc:
-        raise NotImplementedError(
-            "the big-SOC acceptance check is not ported to "
-            "ngsamg_tpu_torch (ROADMAP queue 1 item 3)"
-        )
     n = mesh.nv
     if active is None:
         active = np.ones(n, dtype=bool)
@@ -217,10 +362,24 @@ def spw_aggregate_energy(
     sizes = np.ones(cur_mesh.nv, dtype=np.int64)
     if aaf is not None:
         rounds = 10
+    use_robust = robust and hasattr(energy, "soc_robust")
+    rob_kw = {}
+    if use_robust:
+        if soc_reduction is not None:
+            rob_kw["reduction"] = soc_reduction
+        if neib_boost:
+            rob_kw["neib_boost"] = True
     map_kw = (
         {"diag_stab_boost": float(diag_stab_boost)}
         if diag_stab_boost
         else {}
+    )
+    # big-SOC vets on the FINE mesh: its full aux diagonal is
+    # round-invariant, compute it once outside the round loop
+    big_soc_D = (
+        energy.aux_diagonal(mesh)
+        if big_soc and rounds > 1 and hasattr(energy, "transport")
+        else None
     )
     for _round in range(rounds):
         if aaf is not None and n_cur <= aaf * n0:
@@ -230,8 +389,27 @@ def spw_aggregate_energy(
             cm = cm & (sizes * 2 <= max_agg)
         if not cm.any():
             break
-        S = cur_mesh.edge_graph(weights=energy.soc(cur_mesh))
+        soc = (
+            _robust_soc_prefiltered(
+                energy, cur_mesh, rob_kw, scal_rel_thresh
+            )
+            if use_robust
+            else energy.soc(cur_mesh)
+        )
+        S = cur_mesh.edge_graph(weights=soc)
         partner = handshake_match(S, theta, can_match=cm)
+        if big_soc and _round >= 1 and hasattr(energy, "transport"):
+            # agglomerate-wide acceptance (checkBigSOC, !FIRST_ROUND
+            # like the reference): vet merged unions on the
+            # FINE members before accepting the round's matches
+            partner = big_soc_vet(
+                energy,
+                mesh,
+                v2c,
+                partner,
+                theta if big_soc_rho is None else float(big_soc_rho),
+                Dfull=big_soc_D,
+            )
         c2agg, n_agg = aggregates_from_partner(partner, cur_active)
         if n_agg >= n_cur or n_agg == 0:
             break
@@ -249,9 +427,43 @@ def spw_aggregate_energy(
         cur_active = np.ones(n_agg, dtype=bool)
         n_cur = n_agg
     if adopt_orphans and n_cur:
-        S_c = cur_mesh.edge_graph(weights=energy.soc(cur_mesh))
+        soc = (
+            _robust_soc_prefiltered(
+                energy, cur_mesh, rob_kw, scal_rel_thresh
+            )
+            if use_robust
+            else energy.soc(cur_mesh)
+        )
+        S_c = cur_mesh.edge_graph(weights=soc)
         v2c, n_cur = _adopt_orphans(S_c, v2c, n_cur)
     return v2c, n_cur
+
+
+def _robust_soc_prefiltered(energy, mesh, rob_kw, rel: float):
+    """Robust SOC with the reference's scalar phase-(a) neighbor filter.
+
+    `FindNeib3Step` (spw_agg_impl.hpp:677-711) computes the cheap scalar
+    weight for ALL neighbors, then robust-scores only those clearing
+    ``scalRelThresh * maxScalWt`` (relative to the picking vertex's row
+    maximum; default 0.25, spw_agg_impl.hpp:1404) and sets the rest to
+    -1 (excluded). The symmetric-handshake counterpart: an edge is
+    shortlisted when it clears the threshold for EITHER endpoint; only
+    shortlisted edges pay the pencil EVP, the rest score 0 (never
+    proposed). ``rel <= 0`` disables the filter.
+    """
+    if rel <= 0 or "neib_boost" in rob_kw:
+        # neighbor-boost accumulates path energies mesh-wide; keep the
+        # full scoring there (the boost already changes every pencil)
+        return energy.soc_robust(mesh, **rob_kw)
+    w = energy.soc(mesh)
+    i, j = mesh.edges[:, 0], mesh.edges[:, 1]
+    rowmax = np.zeros(mesh.nv)
+    np.maximum.at(rowmax, i, w)
+    np.maximum.at(rowmax, j, w)
+    keep = (w >= rel * rowmax[i]) | (w >= rel * rowmax[j])
+    if keep.all():
+        return energy.soc_robust(mesh, **rob_kw)
+    return energy.soc_robust(mesh, edge_subset=keep, **rob_kw)
 
 
 def _adopt_orphans(S_c, v2c, n_c):
@@ -281,3 +493,21 @@ def _adopt_orphans(S_c, v2c, n_c):
     m = out >= 0
     out[m] = newid[tgt[out[m]]]
     return out, int(keep.sum())
+
+
+def plate_test_aggregate(coords: np.ndarray, active=None, nz: int = 0):
+    """Debug coarsener: aggregate along the last coordinate axis.
+
+    Stand-in for the reference's `PlateTestAgglomerator`: all vertices sharing the
+    same (x, y) column form one aggregate.
+    """
+    n = len(coords)
+    if active is None:
+        active = np.ones(n, dtype=bool)
+    key = np.round(coords[:, :-1] * 1e8).astype(np.int64)
+    keys = key[:, 0] if key.shape[1] == 1 else key[:, 0] * (2**31) + key[:, 1]
+    v2agg = np.full(n, -1, dtype=np.int64)
+    act = np.flatnonzero(active)
+    uniq, inv = np.unique(keys[act], return_inverse=True)
+    v2agg[act] = inv
+    return v2agg, len(uniq)

@@ -16,9 +16,9 @@ the reference's `BaseAMGFactory::SetUpLevels` / `VertexAMGFactory`
   5. Galerkin RAP -> next level matrix, mesh data mapped through the
      aggregation.
 
-Scalar energies only: the block-RAP branch, element-matrix (ELMAT) finest
-meshes and the plate coarsener raise, naming their ROADMAP items.
-numpy/scipy only.
+Block energies fold the finest-level embedding into P and take the block
+RAP on scipy's BSR products. Element-matrix (ELMAT) finest meshes are not
+ported (the front-end rejects ``elmat_data``). numpy/scipy only.
 """
 
 from __future__ import annotations
@@ -51,6 +51,7 @@ class SetupLevel:
     row_bs: int  # matrix block size (FEM dofs/vertex at this level)
     mesh: AlgebraicMesh
     P: sp.bsr_matrix | None = None  # prolongation next-coarser -> this level
+    P_amg: sp.bsr_matrix | None = None  # P before the finest embedding fold
     v2agg: np.ndarray | None = None
     # set when P can be applied implicitly on device (lattice levels):
     # dict(dims_f, dims_c, omega) — see transfer/lattice_transfer.py
@@ -116,36 +117,42 @@ def build_coarse_map(
         if algo == CoarsenType.LATTICE:
             raise ValueError("lattice coarsening: vertices are not a lattice")
         algo = CoarsenType.SPW  # AUTO fallback
-    if algo == CoarsenType.MIS:
-        from ..coarsen.mis import mis_aggregate
-
-        # the plain SOC: a robust one belongs to the block energies
-        # (``soc_robust``), which the scalar H1 energy does not define
-        S = mesh.edge_graph(weights=energy.soc(mesh))
-        return mis_aggregate(S, theta=float(c.theta.get(level)))
-    if algo != CoarsenType.SPW:
-        raise NotImplementedError(
-            f"coarsening {algo.value!r} is not ported to ngsamg_tpu_torch "
-            "(the plate test coarsener: ROADMAP queue 1 item 3)"
-        )
+    if algo == CoarsenType.PLATE:
+        pos = energy.vertex_positions(mesh)
+        return pairwise.plate_test_aggregate(pos)
+    r = c.robust.get(level)
+    robust = (
+        getattr(energy, "default_robust", False) if r is None else bool(r)
+    ) and hasattr(energy, "soc_robust")
     aaf = c.aaf.get(level)
-    # per-round re-evaluation against current coarse energies
-    # (spw_agg_impl.hpp:1440-1831): every matching round rebuilds the
-    # intermediate coarse mesh (SIGNED Galerkin weight sums — net-zero
-    # couplings between sub-clusters stop looking strong) and re-scores
-    # candidates. The robust SOC belongs to energies that define one
-    # (``soc_robust``); the scalar H1 energy does not, so ``robust`` has no
-    # effect here, as in the JAX package.
-    return pairwise.spw_aggregate_energy(
-        energy,
-        mesh,
-        rounds=int(c.spw_rounds.get(level)),
-        theta=float(c.theta.get(level)),
-        adopt_orphans=bool(c.adopt_orphans.get(level)),
-        aaf=None if aaf is None else float(aaf),
-        diag_stab_boost=float(c.diag_stab_boost.get(level)),
-        big_soc=bool(c.big_soc.get(level)),
-    )
+    if algo == CoarsenType.SPW:
+        # per-round re-evaluation against current coarse energies
+        # (spw_agg_impl.hpp:1440-1831): every matching round rebuilds the
+        # intermediate coarse mesh (SIGNED Galerkin weight sums — net-zero
+        # couplings between sub-clusters stop looking strong) and
+        # re-scores candidates; with `robust` the scoring is the
+        # pencil-EVP SOC (default ON for elasticity)
+        sred = c.soc_reduction.get(level)
+        return pairwise.spw_aggregate_energy(
+            energy,
+            mesh,
+            rounds=int(c.spw_rounds.get(level)),
+            theta=float(c.theta.get(level)),
+            adopt_orphans=bool(c.adopt_orphans.get(level)),
+            aaf=None if aaf is None else float(aaf),
+            robust=robust,
+            neib_boost=bool(c.neib_boost.get(level)),
+            scal_rel_thresh=float(c.scal_rel_thresh.get(level)),
+            soc_reduction=None if sred is None else str(sred),
+            diag_stab_boost=float(c.diag_stab_boost.get(level)),
+            big_soc=bool(c.big_soc.get(level)),
+            big_soc_rho=c.big_soc_rho.get(level),
+        )
+    from ..coarsen.mis import mis_aggregate
+
+    soc = energy.soc_robust(mesh) if robust else energy.soc(mesh)
+    S = mesh.edge_graph(weights=soc)
+    return mis_aggregate(S, theta=float(c.theta.get(level)))
 
 
 def build_prolongation(
@@ -487,9 +494,8 @@ def setup_levels(
 
     Full-lattice problems take the structured fast path; everything else
     runs the generic loop on the matrix-extracted (ALG) energy mesh.
-    Element-matrix (ELMAT) meshes and the block RAP of block energies are
-    not ported (the front-end rejects ``elmat_data``, and the H1 energy
-    raises for ``block_size > 1``).
+    Element-matrix (ELMAT) meshes are not ported (the front-end rejects
+    ``elmat_data``).
     """
     lc = opts.levels
     # the fast path accepts DIA input directly (no CSR conversion)
@@ -530,10 +536,22 @@ def setup_levels(
                 energy, cur.mesh, mesh_c, v2agg, opts, lvl,
                 A=cur.A, row_bs=cur.row_bs,
             )
+        E = energy.embedding_matrix(cur.mesh) if lvl == 0 else None
+        if E is not None:
+            cur.P_amg = P  # pre-embedding (dpv-space) prolongation
+            P = (E @ P).tobsr(blocksize=(cur.row_bs, energy.dpv))
         # Galerkin products ALWAYS in f64 on the host: the device staging
         # casts to the solve dtype afterwards (an f32 RAP fuzzes exact
-        # coarse null modes to ~1e-7)
-        Ac = rap(cur.A, P, dtype=np.float64)
+        # coarse null modes to ~1e-7, and the 3D-elasticity coarsest
+        # matrix then takes a garbage Cholesky inverse)
+        if energy.dpv > 1 and sp.issparse(P) and P.format == "bsr" \
+                and P.blocksize == (cur.row_bs, energy.dpv):
+            Ac = rap(
+                cur.A, P, dtype=np.float64, bs_r=cur.row_bs,
+                bs_c=energy.dpv,
+            )
+        else:
+            Ac = rap(cur.A, P, dtype=np.float64)
         cur.P = P
         cur.v2agg = v2agg
         levels.append(

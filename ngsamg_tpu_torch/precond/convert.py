@@ -4,8 +4,9 @@
 ``AMGOperator`` — with its leaves already read out as numpy arrays, e.g.
 ``jax.tree_util.tree_map(np.asarray, pc.op)`` — into this package's
 :class:`~ngsamg_tpu_torch.solve.cycle.AMGOperator`, so both packages can run
-one cycle on identical data: stencil, DIA, dense and tile-ELL levels,
-lattice and tile-ELL transfers, the cluster correction and an f32 or f64
+one cycle on identical data: stencil, DIA, dense, tile-ELL and block-ELL
+levels, lattice, tile-ELL and block-ELL transfers (square or rectangular
+blocks), scalar or block ``Dinv``, the cluster correction and an f32 or f64
 coarse inverse. A ``SupernodeELL`` (what the JAX package stages for
 tile-ELL when its native packer is not built) is rebuilt as a matrix from
 its blocks and packed with this package's tile-ELL packer. The JAX classes
@@ -21,7 +22,7 @@ import torch
 from ..smoothers.cluster_corr import ClusterCorrection
 from ..smoothers.core import ChebyshevSmoother
 from ..solve.cycle import AMGOperator, DeviceLevel
-from ..sparse import formats
+from ..sparse import bell, formats
 from ..transfer.lattice_transfer import LatticeProlongation, LatticeRestriction
 
 
@@ -71,6 +72,17 @@ def _format(A, device):
         )
     if kind == "SupernodeELL":
         return _supernode_as_tile_ell(A, device)
+    if kind == "BlockELL":
+        return bell.BlockELL(
+            data=_t(A.data, device),
+            cols=torch.from_numpy(
+                np.array(A.cols, dtype=np.int32, copy=True)
+            ).to(device),
+            nrows=int(A.nrows),
+            ncols=int(A.ncols),
+            nrows_pad=int(A.nrows_pad),
+            col_chunk=int(A.col_chunk),
+        )
     raise TypeError(f"level format {kind} has no port")
 
 
@@ -131,7 +143,7 @@ def _transfer(T, A, device):
     if T is None:
         return None
     kind = type(T).__name__
-    if kind in ("TileELL", "TileELLStack", "SupernodeELL"):
+    if kind in ("TileELL", "TileELLStack", "SupernodeELL", "BlockELL"):
         return _format(T, device)
     cls = {
         "LatticeProlongation": LatticeProlongation,

@@ -13,7 +13,7 @@ import numpy as np
 import scipy.sparse as sp
 
 from ..config import SmootherOptions, SmootherType
-from ..sparse.host import block_diagonal_fast
+from ..sparse.host import block_diagonal_fast, to_bsr
 from .core import ChebyshevSmoother
 
 
@@ -50,7 +50,9 @@ def _lam_max_estimate(A: sp.spmatrix, bs: int, Dinv: np.ndarray, iters=12):
     rng = np.random.default_rng(0)
     x = rng.standard_normal(n)
     lam = 2.0
-    Ac = A.tocsr()
+    # block levels iterate on the cached BSR view (~bs^2 less index work
+    # per matvec than the scalar CSR, the same sums)
+    Ac = to_bsr(A, bs) if bs > 1 else A.tocsr()
     for _ in range(iters):
         y = Ac @ x
         y = np.einsum("nij,nj->ni", Dinv, y.reshape(-1, bs)).ravel()

@@ -4,7 +4,9 @@ Port of ngsamg_tpu/smoothers/core.py. Contract as there:
 ``smooth(sm, A, x, b)`` performs the forward sweep(s), ``smooth_back`` the
 reverse; ``x=None`` means a zero initial guess. Both smoothers are
 polynomials in Dinv A, so the backward sweep is the forward one. The
-multicolor and block Gauss-Seidel smoothers are not ported yet.
+multicolor and block Gauss-Seidel smoothers are not ported yet (ROADMAP
+queue 1 item 4). Block levels (bs 3 and 6) run Chebyshev with a block
+Dinv, order 5 on the window [0.25, 1] lam_max (smoothers/build.py).
 
 The Chebyshev recurrence scalars (theta, delta, sigma, rho) are computed
 on the host in the level's dtype, as the JAX package computes them in its
@@ -67,7 +69,8 @@ def smooth(sm: Smoother, A, x: torch.Tensor | None, b: torch.Tensor):
     if isinstance(sm, JacobiSmoother):
         return _jacobi(sm, A, x, b)
     raise NotImplementedError(
-        f"smoother {type(sm).__name__} is not ported to ngsamg_tpu_torch"
+        f"smoother {type(sm).__name__} is not ported to ngsamg_tpu_torch "
+        "(ROADMAP queue 1 item 4)"
     )
 
 

@@ -4,9 +4,10 @@ Port of ngsamg_tpu/solve/cycle.py: pre-smooth (zero start) -> restrict the
 residual -> coarse solve -> prolongate-add -> backward post-smooth. The
 coarsest level applies a dense inverse with ``torch.matmul``, staged in the
 level dtype, or in f64 inside an f32 cycle (scaled unstructured
-hierarchies). A cluster correction, when the hierarchy carries one, wraps
-the cycle multiplicatively and symmetrically. The W and BS cycles are not
-ported yet.
+hierarchies, scalar or block; vectors are (nrows_pad, bs) and change
+shape between levels of different block size). A cluster correction, when
+the hierarchy carries one, wraps the cycle multiplicatively and
+symmetrically. The W and BS cycles are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from ..sparse.formats import matvec
 class DeviceLevel:
     """One AMG level on the device."""
 
-    A: object  # StencilDia | DiaMatrix | TileELLStack | DenseMatrix
+    A: object  # StencilDia | DiaMatrix | TileELLStack | BlockELL | DenseMatrix
     smoother: Smoother | None
     P: object | None  # prolongation: next-coarser -> this level
     R: object | None  # restriction (P^T)

@@ -1,0 +1,201 @@
+"""Device-resident block-ELL sparse format + SpMV.
+
+Port of ngsamg_tpu/sparse/bell.py: a padded ELL layout of small dense
+blocks, the format of block (bs > 1) levels and of their rectangular
+transfers:
+
+* ``data``: (n_pad, K, br, C*bc) — K slots per block row, zero-padded
+* ``cols``: (n_pad, K) int32 — block-column (or column-chunk) index per
+  slot, 0 for padding
+
+The matvec is what it is in the JAX package, which computes it in XLA (no
+Pallas kernel): one gather of x rows by ``cols`` and one contraction
+"nkij,nkj->ni" in the tensor's dtype, here in plain torch. Block vectors are
+(n, bc) tensors (``formats.block_vec`` / ``formats.flat_vec``). Row counts
+are padded to a multiple of ``row_align``; padded rows are entirely zero and
+stay zero through every operation. The host packing is numpy, bit for bit
+the JAX package's. ``spmv_rows`` (multicolor Gauss-Seidel) waits for the GS
+family (ROADMAP queue 1 item 4).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from . import host as _host
+
+
+@dataclass(frozen=True)
+class BlockELL:
+    """Padded block-ELL sparse matrix (block rows x block cols).
+
+    ``col_chunk = C > 1`` stores each slot as C ADJACENT block columns
+    side by side (``data``: (n, K, br, C*bc), ``cols``: chunk index =
+    block_col // C): the matvec gathers one (C*bc)-wide row of x per slot
+    instead of C separate bc-wide gathers; the price is zero-fill where
+    only one column of a chunk is present.
+    """
+
+    data: torch.Tensor  # (n_pad, K, br, col_chunk*bc)
+    cols: torch.Tensor  # (n_pad, K) int32 (block col, or chunk id if C>1)
+    nrows: int  # logical number of block rows
+    ncols: int  # logical number of block cols
+    nrows_pad: int  # padded number of block rows (= data.shape[0])
+    col_chunk: int = 1
+
+    @property
+    def ell_width(self) -> int:
+        return self.data.shape[1]
+
+    @property
+    def block_shape(self) -> tuple[int, int]:
+        return self.data.shape[2], self.data.shape[3]
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        br, bc = self.block_shape
+        return self.nrows * br, self.ncols * bc
+
+    def __matmul__(self, x: torch.Tensor) -> torch.Tensor:
+        return spmv(self, x)
+
+
+def to_scipy(A: BlockELL) -> sp.csr_matrix:
+    """Padded block-ELL -> scipy BSR->CSR (introspection/debugging)."""
+    data = A.data.cpu().numpy().astype(np.float64)[: A.nrows]
+    cols = A.cols.cpu().numpy()[: A.nrows]
+    if A.col_chunk > 1:
+        C = A.col_chunk
+        n, K, br, cbc = data.shape
+        bc = cbc // C
+        # expand each chunk slot into C plain block slots
+        data = data.reshape(n, K, br, C, bc).transpose(0, 1, 3, 2, 4)
+        data = data.reshape(n, K * C, br, bc)
+        cols = (
+            cols[:, :, None] * C + np.arange(C)[None, None, :]
+        ).reshape(n, K * C)
+        # a chunk overhanging ncols holds only zero blocks: clamp the
+        # index into range (eliminate_zeros drops them below)
+        cols = np.minimum(cols, max(A.ncols - 1, 0))
+    n, K, br, bc = data.shape
+    B = sp.bsr_matrix(
+        (
+            data.reshape(n * K, br, bc),
+            cols.reshape(-1),
+            np.arange(n + 1) * K,
+        ),
+        shape=(n * br, A.ncols * bc),
+    )
+    C = B.tocsr()
+    C.eliminate_zeros()  # padding slots are all-zero blocks at col 0
+    return C
+
+
+def _chunked_pack(A, bs_r: int, bs_c: int, C: int, dtype):
+    """(data (n, K, br, C*bc), cols (n, K) chunk ids) — C adjacent block
+    columns per slot (see BlockELL.col_chunk)."""
+    if bs_r == bs_c == 1:
+        B = A.tocsr()
+        # the plain-assignment scatter below drops (not sums) duplicate
+        # stored entries and assumes ascending column order — canonicalize
+        if not B.has_canonical_format:
+            B.sum_duplicates()
+        bdata = B.data.reshape(-1, 1, 1)
+        indptr, indices = B.indptr, B.indices
+        n = B.shape[0]
+    else:
+        if bs_r == bs_c:
+            B = _host.to_bsr(A, bs_r)  # cached square-block view
+        else:
+            B = sp.bsr_matrix(A, blocksize=(bs_r, bs_c))
+        if not B.has_sorted_indices:
+            B.sort_indices()
+        bdata = B.data
+        indptr, indices = B.indptr, B.indices
+        n = B.shape[0] // bs_r
+    deg = np.diff(indptr)
+    rows = np.repeat(np.arange(n, dtype=np.int64), deg)
+    cols_b = indices.astype(np.int64)
+    cc = cols_b // C
+    # BSR column indices are ascending per row, so (row, cc) runs are
+    # contiguous: slot = rank of the (row, chunk) pair within its row
+    newp = np.ones(len(rows), dtype=bool)
+    newp[1:] = (rows[1:] != rows[:-1]) | (cc[1:] != cc[:-1])
+    gid = np.cumsum(newp) - 1
+    pair_row = rows[newp]
+    row_first = np.searchsorted(pair_row, np.arange(n, dtype=np.int64))
+    slot_pair = np.arange(len(pair_row), dtype=np.int64) - row_first[
+        pair_row
+    ]
+    slot = slot_pair[gid]
+    K = int(slot.max(initial=-1)) + 1 if len(slot) else 1
+    K = max(K, 1)
+    data = np.zeros((n, K, bs_r, C, bs_c), dtype=np.dtype(dtype))
+    cols = np.zeros((n, K), dtype=np.int32)
+    data[rows, slot, :, cols_b % C, :] = bdata
+    cols[rows, slot] = cc.astype(np.int32)
+    return data.reshape(n, K, bs_r, C * bs_c), cols
+
+
+def from_scipy(
+    A,
+    bs_r: int = 1,
+    bs_c: int = 1,
+    dtype=np.float32,
+    row_align: int = 8,
+    width: int | None = None,
+    col_chunk: int = 1,
+    device="cpu",
+) -> BlockELL:
+    """Build a BlockELL on ``device`` from a host scipy matrix.
+
+    ``dtype`` is a numpy dtype (the packing is host code). ``width``
+    forces the ELL width K; ``col_chunk`` packs that many adjacent block
+    columns per slot (SQUARE operators only: the matvec reshapes x by the
+    chunk, so the vector pad must divide it — row_align does).
+    """
+    if col_chunk > 1:
+        data, cols = _chunked_pack(A, bs_r, bs_c, col_chunk, dtype)
+    else:
+        data, cols = _host.pad_to_ell(
+            A, bs_r, bs_c, width=width, dtype=dtype
+        )
+    n = data.shape[0]
+    n_pad = -(-n // row_align) * row_align
+    if n_pad != n:
+        pad = n_pad - n
+        data = np.concatenate(
+            [data, np.zeros((pad,) + data.shape[1:], data.dtype)]
+        )
+        cols = np.concatenate(
+            [cols, np.zeros((pad, cols.shape[1]), cols.dtype)]
+        )
+    data = np.ascontiguousarray(data, dtype=np.dtype(dtype))
+    cols = np.ascontiguousarray(cols, dtype=np.int32)
+    return BlockELL(
+        data=torch.from_numpy(data).to(device),
+        cols=torch.from_numpy(cols).to(device),
+        nrows=n,
+        ncols=A.shape[1] // bs_c,
+        nrows_pad=n_pad,
+        col_chunk=col_chunk,
+    )
+
+
+def spmv(A: BlockELL, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x for a block vector x of shape (ncols_pad?, bc).
+
+    ``x`` may be longer than ``A.ncols`` (padded); gathered columns are
+    always < ncols so padding never contaminates the product. The
+    contraction is "nkij,nkj->ni" over the slot and the block column,
+    written as a broadcast product and one sum so that ``data`` is read
+    where it lies (an einsum would first copy it into (n, i, k*j) order).
+    """
+    if A.col_chunk > 1:
+        x = x.reshape(-1, A.col_chunk * x.shape[1])
+    xg = x[A.cols]  # (n, K, C*bc)
+    return (A.data * xg.unsqueeze(2)).sum(dim=(1, 3))

@@ -1,6 +1,6 @@
-"""Device sparse formats of the scalar hierarchies + the `matvec` dispatch.
+"""Device sparse formats + the `matvec` dispatch.
 
-Port of ngsamg_tpu/sparse/formats.py, cut to the formats scalar (H1)
+Port of ngsamg_tpu/sparse/formats.py, cut to the formats the ported
 hierarchies stage (see ``format_from_stencil`` and ``choose_format``):
 
 * :class:`StencilDia` — a uniform clipped stencil: m scalar values and m
@@ -16,6 +16,8 @@ hierarchies stage (see ``format_from_stencil`` and ``choose_format``):
   Pallas kernel), and so does the port, in plain torch: one gather and one
   batched product.
 * :class:`DenseMatrix` — small coarse levels, applied with ``torch.matmul``.
+* :class:`~ngsamg_tpu_torch.sparse.bell.BlockELL` (sparse/bell.py) — block
+  (bs > 1) unstructured levels and their transfers.
 
 Vectors are (nrows_pad, bs) tensors, as in the JAX package. The matvec of
 a CUDA tensor always runs the hand-written kernel where there is one (at
@@ -34,6 +36,7 @@ import scipy.sparse as sp
 import torch
 
 from ..ops import dia_cuda, stencil_cuda
+from . import bell as _bell
 
 
 @dataclass(frozen=True)
@@ -144,6 +147,8 @@ def matvec(A, x: torch.Tensor) -> torch.Tensor:
         return torch.cat([_tile_ell_matvec(b, x) for b in A.blocks])
     if isinstance(A, TileELL):
         return _tile_ell_matvec(A, x)
+    if isinstance(A, _bell.BlockELL):
+        return _bell.spmv(A, x)
     if isinstance(A, DenseMatrix):
         n, bs = x.shape
         return torch.matmul(A.data, x.reshape(-1)).reshape(n, bs)
@@ -573,14 +578,15 @@ def choose_format(
     *,
     device="cpu",
 ):
-    """Pick the format for one scalar level's matrix.
+    """Pick the format for one level's matrix.
 
     Priority, as in the JAX package: DIA for true stencil levels (<= 32
     diagonals); above ``DENSE_MAX_ROWS`` rows, DIA against the bucketed
     tile-ELL by stored bytes (DIA, which gathers nothing, wins up to twice
     the tile-ELL bytes) when the level has at most ``DIA_MAX_DIAGS``
     diagonals, else tile-ELL; small levels DIA (few diagonals) or dense.
-    Block (bs > 1) levels need block-ELL, which is not ported.
+    Block (bs > 1) unstructured levels keep their natural block tiles in
+    block-ELL.
     """
     n = A.shape[0] // bs
     # DIA wins over dense whenever the level is a stencil and not tiny
@@ -601,9 +607,10 @@ def choose_format(
             return dia_from_scipy(A, dtype, row_align, device=device)
     if n <= DENSE_MAX_ROWS and (n * bs) ** 2 * 4 <= 512e6:
         return dense_from_scipy(A, bs, dtype, row_align, device=device)
-    raise NotImplementedError(
-        f"level of {n} rows (bs={bs}) needs block-ELL, which "
-        "ngsamg_tpu_torch does not have yet (ROADMAP queue 1 item 3)"
+    if bs == 1:
+        return tile_ell_stack_from_scipy(A, dtype, device=device)
+    return _bell.from_scipy(
+        A, bs, bs, dtype=dtype, row_align=row_align, device=device
     )
 
 

@@ -1,21 +1,23 @@
 """Prolongation construction: piecewise transport + smoothed variant.
 
-Copied from ngsamg_tpu/transfer/prolongation.py, scalar (dpv == 1) numpy
-branches — the reference's `PWProlMap` and `SemiAuxSProlMap`
+Copied from ngsamg_tpu/transfer/prolongation.py, numpy branches — the
+reference's `PWProlMap` and `SemiAuxSProlMap`
 (vertex_factory_impl.hpp:1599-1659 and :1834-2433):
 
-* **Piecewise**: one entry per fine vertex, Q(x_coarse -> x_fine) (identity
-  for H1).
+* **Piecewise**: one block per fine vertex, Q(x_coarse -> x_fine) (identity
+  for H1, rigid-body extension for elasticity).
 * **Smoothed**: one damped-Jacobi step on P using the *replacement matrix*
   A-hat assembled from edge energies (rows with a small real-matrix coarse
   fan-out are smoothed with the filtered level matrix instead), followed by
   a fan-out bound (`sp_max_per_row`) and a drop tolerance (`sp_min_frac`).
   Truncated entries are transported into the strongest kept column, so the
-  energy kernel (constants for H1) stays exactly preserved.
+  energy kernel (constants for H1, rigid-body modes for elasticity) stays
+  exactly preserved.
 
 The original's fused native kernels (``smoothed_prol_scalar``,
-``truncate_prol_blocks``) compute the same P; the block (dpv > 1) branches
-serve the block energies (ROADMAP queue 1 item 3).
+``rho_power``, ``bsr_smooth_update``, ``bsr_mm``, ``truncate_prol_blocks``)
+compute the same P. The block (dpv > 1) smoothing keeps A-hat, the level
+matrix and P in BSR, so scipy's block products do the work.
 """
 
 from __future__ import annotations
@@ -25,14 +27,6 @@ import scipy.sparse as sp
 
 from ..apps.base import Energy
 from ..mesh.topo import AlgebraicMesh
-
-
-def _scalar_only(energy: Energy):
-    if energy.dpv != 1:
-        raise NotImplementedError(
-            "block prolongations are not ported to ngsamg_tpu_torch "
-            "(ROADMAP queue 1 item 3)"
-        )
 
 
 def piecewise_prol(
@@ -101,7 +95,15 @@ def smoothed_prol(
     truncation. ``omega`` is in units of 1/rho(D^-1 A); 4/3 is the
     classical SA optimum.
     """
-    _scalar_only(energy)
+    dpv = energy.dpv
+    if dpv > 1:
+        P = _smoothed_block(
+            energy, mesh_f, v2agg, P_pw, omega=omega, A=A, row_bs=row_bs,
+            max_classic=max_classic,
+        )
+        return truncate_prol(
+            energy, mesh_c, P, max_per_row=max_per_row, min_frac=min_frac
+        )
     Ahat = energy.replacement_matrix(mesh_f).tocsr()
     d = Ahat.diagonal()
     dinv = np.where(d > 0, 1.0 / np.maximum(d, 1e-300), 0.0)
@@ -116,7 +118,7 @@ def smoothed_prol(
 
     classic = None
     if A is not None and row_bs == 1 and max_classic and max_classic > 1:
-        classic = _classic_rows(A, v2agg, P_pw.shape[1], max_classic)
+        classic = _classic_rows(A, 1, v2agg, P_pw.shape[1], max_classic)
     if classic is not None and classic.any():
         # SA filtering: lump positive off-diagonals onto the diagonal
         # (rowsum-preserving); the filtered classic matrix ~= the aux
@@ -135,6 +137,68 @@ def smoothed_prol(
     return truncate_prol(
         energy, mesh_c, P, max_per_row=max_per_row, min_frac=min_frac
     )
+
+
+def _block_diag_bsr(blocks: np.ndarray) -> sp.bsr_matrix:
+    """Block-diagonal BSR of an (n, bs, bs) stack."""
+    n, bs = blocks.shape[0], blocks.shape[1]
+    return sp.bsr_matrix(
+        (blocks, np.arange(n, dtype=np.int32), np.arange(n + 1)),
+        shape=(n * bs, n * bs),
+    )
+
+
+def _smoothed_block(
+    energy, mesh_f, v2agg, P_pw, *, omega, A, row_bs, max_classic
+) -> sp.bsr_matrix:
+    """The damped-Jacobi step of :func:`smoothed_prol` for dpv > 1, before
+    truncation: block Dinv = pinv of A-hat's diagonal blocks, rho by power
+    iteration, P = P_pw - (omega/rho) Dinv A-hat P_pw; classic rows (only
+    where the level matrix already has dpv-blocks) take the level matrix
+    with its own rho instead."""
+    from ..sparse.host import block_diagonal_fast, to_bsr
+
+    dpv = energy.dpv
+    nf = mesh_f.nv
+    Ahat_raw = energy.replacement_matrix(mesh_f)
+    Ahat = (
+        Ahat_raw
+        if sp.issparse(Ahat_raw)
+        and Ahat_raw.format == "bsr"
+        and Ahat_raw.blocksize == (dpv, dpv)
+        else sp.bsr_matrix(Ahat_raw.tocsr(), blocksize=(dpv, dpv))
+    )
+    if not Ahat.has_sorted_indices:
+        Ahat.sort_indices()
+    Dinv_mat = _block_diag_bsr(
+        np.linalg.pinv(block_diagonal_fast(Ahat, dpv))
+    )
+    rho = _rho_estimate(lambda x: Dinv_mat @ x, Ahat)
+    scale = omega / max(rho, 1e-12)
+    Ppw_b = P_pw.tobsr(blocksize=(dpv, dpv))
+    P = (Ppw_b - scale * (Dinv_mat @ (Ahat @ Ppw_b))).tocsr()
+
+    classic = None
+    if A is not None and row_bs == dpv and max_classic and max_classic > 1:
+        classic = _classic_rows(
+            A, dpv, v2agg, P_pw.shape[1] // dpv, max_classic
+        )
+    if classic is not None and classic.any():
+        Ar = to_bsr(A, dpv)  # cached on the level matrix object
+        DinvA = _block_diag_bsr(
+            np.linalg.pinv(block_diagonal_fast(Ar, dpv))
+        )
+        rho_r = _rho_estimate(lambda x: DinvA @ x, Ar, seed=1)
+        scale_r = omega / max(float(rho_r), 1e-12)
+        P_real = (Ppw_b - scale_r * (DinvA @ (Ar @ Ppw_b))).tocsr()
+        sel = sp.diags(np.repeat(classic.astype(np.float64), dpv))
+        inv = sp.diags(np.repeat((~classic).astype(np.float64), dpv))
+        P = (sel @ P_real + inv @ P).tocsr()
+        P.eliminate_zeros()
+
+    P = P.tobsr(blocksize=(dpv, dpv))
+    P.sort_indices()
+    return P
 
 
 def _filter_pos_offdiag(A: sp.csr_matrix) -> sp.csr_matrix:
@@ -163,7 +227,7 @@ def _filter_pos_offdiag(A: sp.csr_matrix) -> sp.csr_matrix:
 
 
 def _classic_rows(
-    A: sp.spmatrix, v2agg: np.ndarray, nc: int, max_classic: int
+    A: sp.spmatrix, dpv: int, v2agg: np.ndarray, nc: int, max_classic: int
 ) -> np.ndarray:
     """Rows whose real-matrix coarse image has <= max_classic columns.
 
@@ -171,7 +235,7 @@ def _classic_rows(
     (vertex_factory_impl.hpp:1855 MAX_PER_ROW_CLASSIC)."""
     from ..sparse.host import block_norm_graph
 
-    W, _d = block_norm_graph(A, 1)
+    W, _d = block_norm_graph(A, dpv)
     nf = W.shape[0]
     rows = np.repeat(np.arange(nf, dtype=np.int64), np.diff(W.indptr))
     aggs = v2agg[W.indices]

@@ -1,10 +1,13 @@
 """FEM problem generators for the port's tests and its chip smoke run.
 
-Copied from ngsamg_tpu/utils/fem.py: ``Problem``, the 3D Kuhn-tet P1
-Poisson assembly and its helpers (the headline problem of the benchmark),
-and the unstructured P1 Poisson generator (perturbed Delaunay meshes with
-optional uniform red refinement, ``unstructured_poisson``). The structured
-2D and the elasticity generators wait for the slices that need them.
+Copied from ngsamg_tpu/utils/fem.py: ``Problem``, the structured 2D and
+the 3D Kuhn-tet P1 Poisson assembly with their helpers (``poisson_3d`` is
+the headline problem of the benchmark), the unstructured P1 Poisson
+generator (perturbed Delaunay meshes with optional uniform red refinement,
+``unstructured_poisson``), and P1 linear elasticity: cantilever beams
+(``elasticity_2d/3d``), a thin plate, the unstructured generator
+(``unstructured_elasticity``) and vector-valued H1 (``vector_poisson``),
+all with interleaved per-vertex displacement DOFs (block size = dim).
 numpy/scipy only.
 """
 
@@ -29,6 +32,31 @@ class Problem:
     @property
     def n(self) -> int:
         return self.A.shape[0]
+
+
+def _grid_2d(nx: int, ny: int, lx: float = 1.0, ly: float = 1.0):
+    """Structured triangulation of [0,lx]x[0,ly]: (nx+1)(ny+1) verts."""
+    xs = np.linspace(0.0, lx, nx + 1)
+    ys = np.linspace(0.0, ly, ny + 1)
+    X, Y = np.meshgrid(xs, ys, indexing="ij")
+    verts = np.stack([X.ravel(), Y.ravel()], axis=1)
+
+    def vid(i, j):
+        return i * (ny + 1) + j
+
+    i, j = np.meshgrid(np.arange(nx), np.arange(ny), indexing="ij")
+    i, j = i.ravel(), j.ravel()
+    v00, v10 = vid(i, j), vid(i + 1, j)
+    v01, v11 = vid(i, j + 1), vid(i + 1, j + 1)
+    # two triangles per square
+    tris = np.concatenate(
+        [
+            np.stack([v00, v10, v11], axis=1),
+            np.stack([v00, v11, v01], axis=1),
+        ],
+        axis=0,
+    )
+    return verts, tris
 
 
 # Kuhn split of the unit cube into 6 tets (all share main diagonal 0-7)
@@ -114,6 +142,29 @@ def _eliminate_dirichlet(A, b, coords, fixed_mask, block_size=1):
         free = np.repeat(free_v, block_size)
     A = A[free][:, free].tocsr()
     return A, b[free], coords[free_v]
+
+
+def poisson_2d(n: int = 32, jump: bool = False, f=1.0) -> Problem:
+    """P1 Poisson on the unit square, Dirichlet on the whole boundary.
+
+    ``jump=True`` uses a checkerboard-with-inclusions coefficient field (1 vs
+    1e4).
+    """
+    verts, tris = _grid_2d(n, n)
+    centers = verts[tris].mean(axis=1)
+    if jump:
+        coeff = np.where(_in_inclusions_2d(centers), 1e4, 1.0)
+    else:
+        coeff = np.ones(len(tris))
+    Ke, vol = _p1_stiffness(verts, tris, coeff)
+    A = _assemble(len(verts), tris, Ke)
+    # rhs: f * vol/3 per vertex of each element
+    b = np.zeros(len(verts))
+    np.add.at(b, tris.ravel(), np.repeat(f * vol / 3.0, 3))
+    x, y = verts[:, 0], verts[:, 1]
+    fixed = (x == 0) | (x == 1) | (y == 0) | (y == 1)
+    A, b, coords = _eliminate_dirichlet(A, b, verts, fixed)
+    return Problem(A=A, b=b, coords=coords, dim=2, block_size=1)
 
 
 def poisson_3d(n: int = 16, jump: bool = False, f=1.0) -> Problem:
@@ -376,3 +427,179 @@ def unstructured_poisson(n: int, dim: int = 2, jump: bool = False,
     A, b, coords = _eliminate_dirichlet(A, b, verts, fixed)
     return Problem(A=A, b=b, coords=coords, dim=dim, block_size=1)
 
+
+# ---------------------------------------------------------------------------
+# linear elasticity (P1, vector-valued)
+# ---------------------------------------------------------------------------
+
+
+def _elasticity_elem(verts, elems, E, nu, plane_stress=True):
+    """Element stiffness for linear elasticity with P1 displacements.
+
+    Small-strain isotropic: a(u,v) = int 2 mu eps(u):eps(v) + lam div u div v.
+    """
+    dim = verts.shape[1]
+    ne, nl = elems.shape
+    X = verts[elems]
+    D = X[:, 1:, :] - X[:, :1, :]
+    detD = np.linalg.det(D)
+    vol = np.abs(detD) / (2.0 if dim == 2 else 6.0)
+    Dinv = np.linalg.inv(D)
+    G = np.empty((ne, nl, dim))
+    G[:, 1:, :] = np.transpose(Dinv, (0, 2, 1))
+    G[:, 0, :] = -G[:, 1:, :].sum(axis=1)
+
+    E = np.broadcast_to(np.asarray(E, dtype=np.float64), (ne,))
+    mu = E / (2 * (1 + nu))
+    if dim == 2 and plane_stress:
+        lam = E * nu / (1 - nu * nu)
+    else:
+        lam = E * nu / ((1 + nu) * (1 - 2 * nu))
+    mu5 = mu[:, None, None, None, None]
+    lam5 = lam[:, None, None, None, None]
+
+    # standard small-strain isotropic element stiffness:
+    # mu*(delta_ab G_i.G_j + G_ib G_ja) + lam G_ia G_jb
+    GiGj = np.einsum("eid,ejd->eij", G, G)  # (ne, nl, nl)
+    Ke = (
+        mu5 * np.einsum("eij,ab->eiajb", GiGj, np.eye(dim))
+        + mu5 * np.einsum("eib,eja->eiajb", G, G)
+        + lam5 * np.einsum("eia,ejb->eiajb", G, G)
+    )
+    Ke *= vol[:, None, None, None, None]
+    return Ke.reshape(ne, nl * dim, nl * dim), vol
+
+
+def _beam(dim, n, length):
+    """Beam domain [0,length] x [0,1]^(dim-1), clamped at x=0."""
+    if dim == 2:
+        verts, elems = _grid_2d(length * n, n, lx=float(length))
+    else:
+        verts, elems = _grid_3d(length * n, n, n, lx=float(length))
+    fixed = verts[:, 0] == 0.0
+    return verts, elems, fixed
+
+
+def thin_plate_elasticity(
+    n: int = 12, thickness: float = 0.1, E=1e3, nu=0.3, load=1.0
+) -> Problem:
+    """3D elasticity on a thin plate [0,1]^2 x [0,t], one element through
+    the thickness, clamped at x=0.
+
+    The high-aspect-ratio tets produce NEAR-SINGULAR edge/vertex energy
+    matrices — the regime the reference's robust min-eigenvalue SOC with
+    neighbor-boost accumulation exists for.
+    """
+    dim = 3
+    verts, elems = _grid_3d(n, n, 1, lz=float(thickness))
+    fixed = verts[:, 0] == 0.0
+    Ke, vol = _elasticity_elem(verts, elems, E, nu)
+    nl = elems.shape[1]
+    dof = (elems[:, :, None] * dim + np.arange(dim)[None, None, :]).reshape(
+        len(elems), nl * dim
+    )
+    nv = len(verts)
+    rows = np.repeat(dof, nl * dim, axis=1).ravel()
+    cols = np.tile(dof, (1, nl * dim)).ravel()
+    A = sp.coo_matrix(
+        (Ke.ravel(), (rows, cols)), shape=(nv * dim, nv * dim)
+    ).tocsr()
+    A.sum_duplicates()
+    b = np.zeros(nv * dim)
+    w = np.repeat(load * vol / nl, nl)
+    np.add.at(b, (elems.ravel() * dim + (dim - 1)), -w)
+    A, b, coords = _eliminate_dirichlet(A, b, verts, fixed, block_size=dim)
+    return Problem(A=A, b=b, coords=coords, dim=dim, block_size=dim)
+
+
+def _elasticity(dim, n, length, E, nu, load, jump=False) -> Problem:
+    verts, elems, fixed = _beam(dim, n, length)
+    if jump:
+        # two-material beam: stiff inclusions along the length
+        centers = verts[elems].mean(axis=1)
+        stiff = (centers[:, 0] % 4.0) < 2.0
+        Evec = np.where(stiff, E * 1e3, E)
+    else:
+        Evec = E
+    Ke, vol = _elasticity_elem(verts, elems, Evec, nu)
+    nl = elems.shape[1]
+    # vector DOF indices: vertex v -> [v*dim, ..., v*dim+dim-1]
+    dof = (elems[:, :, None] * dim + np.arange(dim)[None, None, :]).reshape(
+        len(elems), nl * dim
+    )
+    nv = len(verts)
+    rows = np.repeat(dof, nl * dim, axis=1).ravel()
+    cols = np.tile(dof, (1, nl * dim)).ravel()
+    A = sp.coo_matrix(
+        (Ke.ravel(), (rows, cols)), shape=(nv * dim, nv * dim)
+    ).tocsr()
+    A.sum_duplicates()
+    # downward volume load
+    b = np.zeros(nv * dim)
+    w = np.repeat(load * vol / nl, nl)
+    np.add.at(b, (elems.ravel() * dim + (dim - 1)), -w)
+    A, b, coords = _eliminate_dirichlet(A, b, verts, fixed, block_size=dim)
+    return Problem(A=A, b=b, coords=coords, dim=dim, block_size=dim)
+
+
+def vector_poisson(base: Problem, bs: int) -> Problem:
+    """Multidim / vector-valued H1: block a_ij = a_scalar_ij * I_bs.
+
+    Identical graph per component.
+    """
+    # kron in block layout: each scalar entry becomes a bs x bs identity block
+    A = sp.kron(base.A, sp.eye(bs), format="csr")
+    b = np.repeat(base.b, bs)
+    return Problem(
+        A=A, b=b, coords=base.coords, dim=base.dim, block_size=bs
+    )
+
+
+def unstructured_elasticity(n: int = 12, dim: int = 2, E=1e3, nu=0.3,
+                            load=1.0, seed: int = 0,
+                            refine: int = 0) -> Problem:
+    """P1 elasticity on a perturbed Delaunay mesh, clamped at x=0.
+
+    ``refine`` uniform red refinements reach the 1M-DoF scale without
+    the ~10-minute Qhull cost of a 300k-point 3D Delaunay.
+    """
+    verts, elems = _unstructured_mesh(n, dim, seed=seed)
+    for _ in range(max(refine, 0)):
+        verts, elems = refine_simplices(verts, elems)
+    nl = elems.shape[1]
+    nv = len(verts)
+    b = np.zeros(nv * dim)
+    # chunked assembly: at 2M tets the monolithic COO route needs ~7 GB
+    # of (nl*dim)^2-fanout temporaries (cf. _assemble_chunked)
+    A = None
+    chunk = 200_000
+    for lo in range(0, len(elems), chunk):
+        el = elems[lo: lo + chunk]
+        Ke, vol = _elasticity_elem(verts, el, E, nu)
+        dof = (
+            el[:, :, None] * dim + np.arange(dim)[None, None, :]
+        ).reshape(len(el), nl * dim)
+        rows = np.repeat(dof, nl * dim, axis=1).ravel()
+        cols = np.tile(dof, (1, nl * dim)).ravel()
+        Ac = sp.coo_matrix(
+            (Ke.ravel(), (rows, cols)), shape=(nv * dim, nv * dim)
+        ).tocsr()
+        Ac.sum_duplicates()
+        A = Ac if A is None else A + Ac
+        w = np.repeat(load * vol / nl, nl)
+        np.add.at(b, (el.ravel() * dim + (dim - 1)), -w)
+    fixed = verts[:, 0] == 0.0
+    A, b, coords = _eliminate_dirichlet(A, b, verts, fixed, block_size=dim)
+    return Problem(A=A, b=b, coords=coords, dim=dim, block_size=dim)
+
+
+def elasticity_2d(n: int = 8, length: int = 10, E=1e3, nu=0.3, load=1.0,
+                  jump: bool = False):
+    """2D plane-stress cantilever beam."""
+    return _elasticity(2, n, length, E, nu, load, jump=jump)
+
+
+def elasticity_3d(n: int = 4, length: int = 10, E=1e3, nu=0.3, load=1.0,
+                  jump: bool = False):
+    """3D cantilever beam 10x1x1."""
+    return _elasticity(3, n, length, E, nu, load, jump=jump)

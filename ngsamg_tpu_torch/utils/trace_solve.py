@@ -1,11 +1,14 @@
 """Device-time breakdown and busy share of one warm solve.
 
-    python3 -m ngsamg_tpu_torch.utils.trace_solve [headline|unstructured]
+    python3 -m ngsamg_tpu_torch.utils.trace_solve \
+        [headline|unstructured|elasticity]
 
 Needs one CUDA device. Sets up, with the Chebyshev smoother on ``cuda``,
-``fem.poisson_3d(216)`` (``headline``, the default: 9,938,375 DoF) or
+``fem.poisson_3d(216)`` (``headline``, the default: 9,938,375 DoF),
 ``fem.unstructured_poisson(55, dim=3, refine=1)`` (``unstructured``:
-1,411,632 DoF on tile-ELL levels), runs two warm-up solves and five
+1,411,632 DoF on tile-ELL levels) or ``fem.unstructured_elasticity(36,
+dim=3, refine=1)`` (``elasticity``: 1,250,196 DoF on block-ELL levels,
+solved by the mixed-precision PCG), runs two warm-up solves and five
 unprofiled warm solves (host wall clock, ending in
 ``torch.cuda.synchronize()``), then one solve under ``torch.profiler``. It
 prints the device time by kernel name and one JSON line with:
@@ -17,6 +20,10 @@ prints the device time by kernel name and one JSON line with:
   share of a real warm solve in which the device is busy;
 - ``busy_share_profiled``: ``busy_ms`` over the profiled solve's own wall
   clock, which the profiler inflates (a lower bound).
+
+``--setup-profile`` also runs ``setup()`` under ``cProfile`` and prints the
+package's own functions by cumulative host time (the profiler adds a few
+per cent to the setup it times).
 """
 
 from __future__ import annotations
@@ -52,10 +59,39 @@ def _union_us(intervals) -> float:
     return busy
 
 
+def _profiled_setup(pc, top: int = 25) -> None:
+    """``pc.setup()`` under cProfile; prints the port's own functions (and
+    numpy.linalg's) by cumulative time."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.enable()
+    pc.setup()
+    prof.disable()
+    print(f"[setup] host {pc.setup_time_host:.3f} s, staging "
+          f"{pc.setup_time_device:.3f} s", flush=True)
+    stats = pstats.Stats(prof).stats  # (file, line, name) -> (cc, nc, tt, ct, _)
+    rows = sorted(
+        ((ct, tt, nc, f"{fn.split('ngsamg_tpu_torch/')[-1]}:{name}")
+         for (fn, _ln, name), (_cc, nc, tt, ct, _c) in stats.items()
+         if "ngsamg_tpu_torch/" in fn or "numpy/linalg" in fn),
+        reverse=True,
+    )
+    for ct, tt, nc, label in rows[:top]:
+        print(f"[setup] {ct:9.3f} s cumulative {tt:9.3f} s own "
+              f"{nc:6d} calls  {label[-70:]}", flush=True)
+
+
 PROBLEMS = {
     "headline": lambda fem: fem.poisson_3d(216),
     "unstructured": lambda fem: fem.unstructured_poisson(55, dim=3, refine=1),
+    "elasticity": lambda fem: fem.unstructured_elasticity(
+        36, dim=3, refine=1),
 }
+# the front-end arguments and the solve of each problem beyond the defaults
+SETUP_KW = {"elasticity": {"energy": "elasticity", "block_size": 3}}
+SOLVE_KW = {"elasticity": {"maxiter": 120, "mixed": True}}
 
 
 def main(argv=None) -> int:
@@ -69,7 +105,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="trace_solve")
     ap.add_argument("problem", nargs="?", default="headline",
                     choices=sorted(PROBLEMS))
-    problem = ap.parse_args(argv).problem
+    ap.add_argument("--setup-profile", action="store_true",
+                    help="profile setup() on the host with cProfile")
+    args = ap.parse_args(argv)
+    problem = args.problem
     if not torch.cuda.is_available():
         raise RuntimeError("trace_solve needs a CUDA device")
     smi = subprocess.run(
@@ -80,11 +119,17 @@ def main(argv=None) -> int:
     p = PROBLEMS[problem](fem)
     opts = AMGOptions(smoother=SmootherOptions(type=SmootherType.CHEBYSHEV))
     pc = AMGPreconditioner(
-        p.A, coords=p.coords, options=opts, device="cuda"
-    ).setup()
+        p.A, coords=p.coords, options=opts, device="cuda",
+        **SETUP_KW.get(problem, {}),
+    )
+    if args.setup_profile:
+        _profiled_setup(pc)
+    else:
+        pc.setup()
 
     def solve():
-        return pc.solve(p.b, tol=1e-8, return_device=True)
+        return pc.solve(p.b, tol=1e-8, return_device=True,
+                        **SOLVE_KW.get(problem, {}))
 
     for _ in range(2):
         _wall(solve)

@@ -1,11 +1,12 @@
 """ngsamg_tpu_torch must run where JAX does not exist.
 
 In a fresh interpreter (this test process has already imported
-ngsamg_tpu and JAX via tests/conftest.py), import the package, run two
-small solves on the CPU — a lattice problem (structured setup) and an
-unstructured one (generic level loop, tile-ELL, cluster correction, host
-refinement) — and check that neither `jax` nor `ngsamg_tpu` (its native
-extension included) was ever imported.
+ngsamg_tpu and JAX via tests/conftest.py), import the package and every
+module in it, run three small solves on the CPU — a lattice problem
+(structured setup), an unstructured one (generic level loop, tile-ELL,
+cluster correction, host refinement) and a 3D elasticity one (block
+energies, block-ELL, the mixed-precision PCG) — and check that neither
+`jax` nor `ngsamg_tpu` (its native extension included) was ever imported.
 """
 
 import os
@@ -21,8 +22,22 @@ SCRIPT = textwrap.dedent(
     import numpy as np
     import torch
     torch.set_num_threads(2)
+    import importlib, pkgutil
     import ngsamg_tpu_torch
     from ngsamg_tpu_torch.utils import fem
+
+    mods = sorted(
+        m.name for m in pkgutil.walk_packages(
+            ngsamg_tpu_torch.__path__, "ngsamg_tpu_torch."
+        )
+    )
+    for name in mods:
+        importlib.import_module(name)
+    for name in ("apps.elasticity", "sparse.bell", "sparse.host",
+                 "coarsen.pairwise", "transfer.prolongation",
+                 "transfer.galerkin", "solve.pcg", "precond.convert",
+                 "utils.trace_solve"):
+        assert "ngsamg_tpu_torch." + name in mods, name
 
     p = fem.poisson_3d(34)  # 35,937 DoF: the uniform-stencil branches
     opts = ngsamg_tpu_torch.AMGOptions(
@@ -44,13 +59,22 @@ SCRIPT = textwrap.dedent(
     xu, infou = pcu.solve(q.b, tol=1e-8)
     relu = np.linalg.norm(q.b - q.A @ xu) / np.linalg.norm(q.b)
     assert infou.converged and relu <= 1e-8, (infou, relu)
+    e = fem.elasticity_3d(8)  # 19,440 DoF: a block-ELL finest level
+    pce = ngsamg_tpu_torch.AMGPreconditioner(
+        e.A, energy="elasticity", block_size=3, coords=e.coords,
+        options=opts, device="cpu",
+    ).setup()
+    assert type(pce.A_dev).__name__ == "BlockELL"
+    xe, infoe = pce.solve(e.b, tol=1e-8, mixed=True)
+    rele = np.linalg.norm(e.b - e.A @ xe) / np.linalg.norm(e.b)
+    assert infoe.converged and rele <= 1e-8, (infoe, rele)
     bad = sorted(
         m for m in sys.modules
         if m in ("jax", "jaxlib", "ngsamg_tpu")
         or m.startswith(("jax.", "jaxlib.", "ngsamg_tpu."))
     )
     assert not bad, bad
-    print("OK", info.iterations, infou.iterations)
+    print("OK", info.iterations, infou.iterations, infoe.iterations)
     """
 )
 

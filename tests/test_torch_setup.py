@@ -211,22 +211,36 @@ def test_f64_finest_stencil(pair):
 
 
 def test_unported_paths_raise():
-    """Unported algorithms raise instead of running another one: the plate
-    test coarsener (which declines the structured fast path and reaches
-    the generic loop), the GS smoother and the W-cycle."""
+    """The plate test coarsener (which declines the structured fast path
+    and reaches the generic loop) builds the JAX package's levels; the
+    algorithms still unported raise instead of running another one: the GS
+    smoother and the W-cycle (ROADMAP queue 1 item 4)."""
+    import ngsamg_tpu.factory.levels as jlevels
+
     p = tfem.poisson_3d(12)
     opts = _cheb(ngsamg_tpu_torch)
-    plate = opts.replace(coarsen=ngsamg_tpu_torch.config.CoarsenOptions(
-        algo=ngsamg_tpu_torch.config.CoarsenType.PLATE
-    ))
-    with pytest.raises(NotImplementedError, match="'plate'.*item 3"):
-        setup_levels(p.A, ngsamg_tpu_torch.precond.amg.H1Energy(), plate, None)
+    plates = []
+    for pkg, run in ((ngsamg_tpu_torch, setup_levels),
+                     (ngsamg_tpu, jlevels.setup_levels)):
+        plate = _cheb(pkg).replace(coarsen=pkg.config.CoarsenOptions(
+            algo=pkg.config.CoarsenType.PLATE
+        ))
+        plates.append(
+            run(p.A, pkg.precond.amg.H1Energy(), plate, p.coords)
+        )
+    (lt, logt), (lj, logj) = plates
+    assert logt.nvs == logj.nvs and logt.nnzs == logj.nnzs
+    assert logt.nvs[1] == 11 * 11  # one aggregate per (x, y) column
+    for a, b in zip(lt, lj):
+        if b.v2agg is not None:
+            np.testing.assert_array_equal(a.v2agg, b.v2agg)
+        assert abs(a.A - b.A).max() <= 1e-12 * abs(b.A).max()
     gs = ngsamg_tpu_torch.AMGOptions()  # default smoother: GS
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 4"):
         ngsamg_tpu_torch.AMGPreconditioner(
             p.A, coords=p.coords, options=gs, device="cpu"
         ).setup()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 4"):
         ngsamg_tpu_torch.AMGPreconditioner(
             p.A, coords=p.coords, device="cpu", options=opts.replace(
                 cycle=ngsamg_tpu_torch.CycleType.W
@@ -248,6 +262,48 @@ def test_unported_options_raise(field, value, item):
         ngsamg_tpu_torch.AMGPreconditioner(
             p.A, coords=p.coords, options=opts, device="cpu"
         )
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [{"freedofs": np.ones(1331, dtype=bool)},
+     {"elmat_data": (np.zeros((1, 4), int), np.zeros((1, 4, 4)))},
+     {"nodalp2": np.zeros((1, 3), int)},
+     {"dof_layout": "compound"}],
+    ids=["freedofs", "elmat_data", "nodalp2", "compound"],
+)
+def test_unported_arguments_raise(kw):
+    """Front-end inputs that are not ported name their ROADMAP item."""
+    p = tfem.poisson_3d(12)
+    with pytest.raises(NotImplementedError, match="item 4a"):
+        ngsamg_tpu_torch.AMGPreconditioner(
+            p.A, coords=p.coords, options=_cheb(ngsamg_tpu_torch),
+            device="cpu", **kw
+        )
+
+
+def test_energy_names():
+    """The energies the port knows by name, and the one it does not."""
+    from ngsamg_tpu_torch.apps.elasticity import ElasticityEnergy
+    from ngsamg_tpu_torch.apps.h1 import H1Energy
+
+    p = tfem.elasticity_2d(4, length=4)
+    for name in ("elasticity", "elast"):
+        pc = ngsamg_tpu_torch.AMGPreconditioner(
+            p.A, energy=name, block_size=2, coords=p.coords,
+            options=_cheb(ngsamg_tpu_torch), device="cpu",
+        )
+        assert isinstance(pc.energy, ElasticityEnergy) and pc.energy.dim == 2
+    pc = ngsamg_tpu_torch.AMGPreconditioner(
+        p.A, block_size=2, options=_cheb(ngsamg_tpu_torch), device="cpu"
+    )
+    assert isinstance(pc.energy, H1Energy) and pc.energy.dpv == 2
+    with pytest.raises(ValueError, match="requires coords"):
+        ngsamg_tpu_torch.AMGPreconditioner(
+            p.A, energy="elasticity", block_size=2, device="cpu"
+        )
+    with pytest.raises(ValueError, match="unknown energy"):
+        ngsamg_tpu_torch.AMGPreconditioner(p.A, energy="stokes", device="cpu")
 
 
 def test_device_is_required():
