@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py    # poisson_3d(216), 9,938,375 DoF,
                              # unstructured_poisson(55, 3, refine=1), 1,411,632,
-                             # unstructured_elasticity(36, 3, refine=1), 1,250,196
+                             # unstructured_elasticity(36, 3, refine=1), 1,250,196,
+                             # poisson_3d(101), 1,000,000 (GS and the cycles)
 
 Phases, each of which raises (nonzero exit) on failure:
 
@@ -81,6 +82,30 @@ Phases, each of which raises (nonzero exit) on failure:
    card and on the CPU, ``mixed=True`` and plain: iterations within one,
    solutions to 1e-6 relative; ``bell.spmv`` on the card against the CPU
    at block shapes (3,3), (6,6), (3,6), (6,3) to rtol 1e-5.
+12. gs — assembles ``fem.poisson_3d(101)`` (1,000,000 DoF, the GS leg of
+   the JAX package's bench) once and solves it on the card with
+   ``AMGOptions()`` unchanged (multicolor GS, V-cycle: block-ELL levels
+   sorted by color) and then with the Chebyshev smoother (lattice levels,
+   K1-K3); for each: levels, operator complexity, colors per level,
+   iterations, true relres, host setup, staging, first solve, the median
+   of 3 warm solves and the kernel launches of one warm solve counted by
+   ``torch.profiler``; and the ratio of the two warm solves. GS must give
+   the JAX package's 5 levels, operator complexity 2.076 (0.5%), colors
+   2, 16, 56, 199, at most 16 iterations and true relres <= 1e-8, with
+   every staged tensor on the card.
+13. cycles — the same problem on the lattice path with the W-cycle and
+   the BS cycle (Chebyshev), and Jacobi and l1-Jacobi V-cycles: iterations
+   within one of the JAX package's (9, 6, 23, 23), true relres <= 1e-8,
+   and K1, K2 and K3 each launched in one warm solve of every run (their
+   counts go into the kernels line as ``launches_W``/``launches_BS``).
+14. gs reference — card against CPU: ``poisson_3d(24)`` and
+   ``elasticity_3d(8)`` (mixed and plain) with the default options,
+   dyn-block GS on ``poisson_2d(32)`` in f64, and the stationary
+   ``amg_iteration`` on ``poisson_3d(24)`` in f64: iterations equal or
+   within one (the plain elasticity solve within 10%: its f32 defect
+   correction stalls at the f32 floor in every pass), solutions to 1e-6
+   relative; ``bell.spmv_rows`` and one GS
+   sweep at bs 1, 3 and 6 to rtol 1e-5.
 
 The last lines are the nvidia-smi line, one JSON object describing the
 kernels, and ``{"ok": true, "device": {...}}``.
@@ -1218,6 +1243,295 @@ def phase_elasticity_reference():
     return out
 
 
+GS_N = 101  # fem.poisson_3d(101): the GS leg of bench.py, 1,000,000 DoF
+GS_DOFS = 1000000
+# the JAX package's native run of this problem (CPU): levels, operator
+# complexity, colors per GS level
+GS_LEVELS = 5
+GS_OC = 2.076
+GS_COLORS = [2, 16, 56, 199]
+GS_MAX_IT = 16  # the JAX package takes 15
+# the JAX package's iterations on the lattice path of poisson_3d(101)
+CYCLE_RUNS = {  # label: (smoother, cycle, iterations)
+    "W": ("chebyshev", "W", 9),
+    "BS": ("chebyshev", "BS", 6),
+    "jacobi": ("jacobi", "V", 23),
+    "l1_jacobi": ("l1_jacobi", "V", 23),
+}
+
+
+def _options(smoother=None, cycle="V", **kw):
+    """AMGOptions(), with the smoother and cycle replaced where given."""
+    from ngsamg_tpu_torch import AMGOptions, CycleType
+    from ngsamg_tpu_torch.config import SmootherOptions, SmootherType
+
+    opts = AMGOptions(cycle=CycleType(cycle), **kw)
+    if smoother is not None:
+        opts.smoother = SmootherOptions(type=SmootherType(smoother))
+    return opts
+
+
+def _profiled_launches(fn) -> int:
+    """Device kernels one call of ``fn`` launches (copies and memsets
+    apart), counted by ``torch.profiler``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(
+        1 for e in prof.events()
+        if e.device_type == DeviceType.CUDA
+        and not e.name.lower().startswith(("memcpy", "memset"))
+    )
+
+
+def _colors(pc) -> list:
+    """Colors per level of the (block) GS smoothers."""
+    return [len(lev.smoother.color_bounds) - 1 for lev in pc.op.levels
+            if hasattr(lev.smoother, "color_bounds")]
+
+
+def _solve_run(p, opts, label, warm=3, profile=True):
+    """Set ``p`` up on the card with ``opts`` and solve it: first solve,
+    ``warm`` warm solves (the median; the launch counters read over the
+    first of them) and, with ``profile``, the kernels of one more warm
+    solve counted by the profiler. Returns (pc, out)."""
+    import torch
+
+    from ngsamg_tpu_torch import AMGPreconditioner
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    pc = AMGPreconditioner(p.A, coords=p.coords, options=opts,
+                           device="cuda").setup()
+    t1 = time.perf_counter()
+
+    def solve():
+        return pc.solve(p.b, tol=1e-8, return_device=True)
+
+    x, info = solve()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    walls = []
+    for k in range(warm):
+        if k == 0:
+            _reset_counts()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        solve()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t3)
+        if k == 0:
+            warm_launches = _counts()
+    xh = x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    if xh.shape != (p.n,) or not np.isfinite(xh).all():
+        raise AssertionError(f"{label}: solution shape {xh.shape} or not finite")
+    relres = float(np.linalg.norm(p.b - p.A @ xh) / np.linalg.norm(p.b))
+    off_card = [lab for lab, t in _operator_tensors(pc.op)
+                if t.device.type != "cuda"]
+    out = {
+        "dofs": int(p.n),
+        "num_levels": pc.num_levels,
+        "operator_complexity": pc.operator_complexity,
+        "level_sizes": [int(v) for v in pc.log_.nvs],
+        "level_formats": [type(lev.A).__name__ for lev in pc.op.levels],
+        "colors": _colors(pc),
+        "iterations": int(info.iterations),
+        "outer_iterations": int(info.outer_iterations),
+        "relres_true": relres,
+        "setup_host_s": pc.setup_time_host,
+        "setup_staging_s": pc.setup_time_device,
+        "staging_stages_s": pc._device_stage_times,
+        "first_solve_s": t2 - t1,
+        "warm_solves_s": walls,
+        "warm_solve_s": float(np.median(walls)),
+        "kernel_launches_warm": warm_launches,
+    }
+    if profile:
+        out["profiled_launches_warm"] = _profiled_launches(solve)
+    if off_card:
+        raise AssertionError(f"{label}: not on the card: {off_card[:5]}")
+    if not info.converged or relres > 1e-8:
+        raise AssertionError(
+            f"{label}: not converged: solver relres {info.relres}, true "
+            f"{relres}")
+    return pc, out
+
+
+def phase_gs(p):
+    """poisson_3d(101) with the JAX package's default options (multicolor
+    GS, V-cycle), then with Chebyshev, on the card."""
+    _pc, gs = _solve_run(p, _options(), "gs")
+    del _pc
+    _pc, cheb = _solve_run(p, _options("chebyshev"), "chebyshev")
+    on_path = sorted(_path_kernels(_pc))
+    del _pc
+    out = {"gs": gs, "chebyshev": cheb,
+           "solve_ratio_gs_over_cheb": gs["warm_solve_s"] / cheb["warm_solve_s"]}
+    print("[gs] " + json.dumps(out), flush=True)
+    for k in on_path:
+        if cheb["kernel_launches_warm"][k] <= 0:
+            raise AssertionError(f"kernel {k} never launched (Chebyshev)")
+    if int(p.n) != GS_DOFS:
+        raise AssertionError(f"{p.n} DoF != {GS_DOFS}")
+    if gs["num_levels"] != GS_LEVELS:
+        raise AssertionError(f"GS: {gs['num_levels']} levels != {GS_LEVELS}")
+    if abs(gs["operator_complexity"] / GS_OC - 1) > 0.005:
+        raise AssertionError(f"GS: operator complexity "
+                             f"{gs['operator_complexity']} != {GS_OC}")
+    if gs["colors"] != GS_COLORS:
+        raise AssertionError(f"GS: colors {gs['colors']} != {GS_COLORS}")
+    if gs["iterations"] > GS_MAX_IT:
+        raise AssertionError(f"GS: {gs['iterations']} iterations > {GS_MAX_IT}")
+    return out
+
+
+def phase_cycles(p):
+    """W and BS cycles (Chebyshev) and Jacobi / l1-Jacobi V-cycles on the
+    lattice path of ``p``: each launches K1, K2 and K3."""
+    out = {}
+    for label, (smoother, cycle, jax_it) in CYCLE_RUNS.items():
+        pc, run = _solve_run(p, _options(smoother, cycle), label, warm=1,
+                             profile=False)
+        run["jax_iterations"] = jax_it
+        out[label] = run
+        print(f"[cycles] {label} " + json.dumps(run), flush=True)
+        if abs(run["iterations"] - jax_it) > 1:
+            raise AssertionError(f"{label}: {run['iterations']} iterations, "
+                                 f"the JAX package's {jax_it}")
+        launches = run["kernel_launches_warm"]
+        k1 = [k for k in launches if k.startswith("stencil") and
+              k.endswith("f32") and launches[k] > 0]
+        for k, name in ((k1, "K1"), (launches["dia_matvec_f32"], "K2"),
+                        (launches["dia_sym_matvec_f32"], "K3")):
+            if not k:
+                raise AssertionError(f"{label}: {name} never launched")
+        del pc
+    return out
+
+
+def _random_spd_bsr(nb, bs, seed):
+    """A symmetric, block-diagonally dominant random BSR matrix."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    S = sp.random(nb, nb, density=8.0 / nb, random_state=seed, format="csr")
+    S = ((S + S.T) != 0).astype(float).tocsr()
+    S.setdiag(0)
+    S.eliminate_zeros()
+    S = (S + sp.eye(nb)).tocsr()
+    blocks = rng.standard_normal((S.nnz, bs, bs)) * 0.1
+    B = sp.bsr_matrix((blocks, S.indices, S.indptr), shape=(nb * bs, nb * bs))
+    return (B + B.T + 4.0 * bs * sp.eye(nb * bs)).tocsr()
+
+
+def phase_gs_reference():
+    """Card against CPU: default-option solves, dyn-block GS, the
+    stationary iteration; spmv_rows and one GS sweep at three block
+    sizes."""
+    import torch
+
+    from ngsamg_tpu_torch import AMGPreconditioner
+    from ngsamg_tpu_torch.smoothers import build, core
+    from ngsamg_tpu_torch.solve.pcg import amg_iteration
+    from ngsamg_tpu_torch.sparse import bell
+    from ngsamg_tpu_torch.utils import fem
+
+    out = {}
+
+    def card_vs_cpu(label, q, pcs, it_band=1, **solve_kw):
+        (xg, ig), (xc, ic) = (pcs[dev].solve(q.b, tol=1e-8, **solve_kw)
+                              for dev in ("cuda", "cpu"))
+        relg = float(np.linalg.norm(q.b - q.A @ xg) / np.linalg.norm(q.b))
+        diff = float(np.linalg.norm(xg - xc) / np.linalg.norm(xc))
+        out[label] = {"dofs": int(q.n), "colors": _colors(pcs["cuda"]),
+                      "card_iterations": int(ig.iterations),
+                      "cpu_iterations": int(ic.iterations),
+                      "card_relres_true": relg, "x_diff": diff}
+        if abs(ig.iterations - ic.iterations) > it_band or not ig.converged \
+                or relg > 1e-8 or diff > 1e-6:
+            raise AssertionError(f"{label}: card against CPU {out[label]}")
+
+    def both(q, opts, **kw):
+        return {dev: AMGPreconditioner(q.A, coords=q.coords, options=opts,
+                                       device=dev, **kw).setup()
+                for dev in ("cuda", "cpu")}
+
+    q = fem.poisson_3d(24)
+    card_vs_cpu("poisson_3d(24)", q, both(q, _options()))
+    q = fem.elasticity_3d(8)
+    pcs = both(q, _options(), energy="elasticity", block_size=3)
+    card_vs_cpu("elasticity_3d(8) mixed", q, pcs, mixed=True)
+    # plain f32 defect correction: each of its five passes stalls at the
+    # f32 floor, and where it stops follows the rounding (the JAX package
+    # itself takes 53 iterations native and 50 on its numpy branches on one
+    # CPU; an H100 56 against 54 on its host's CPU, the solutions within
+    # 1e-11 of each other): a 10% band
+    card_vs_cpu("elasticity_3d(8) plain", q, pcs, it_band=6)
+    q = fem.poisson_2d(32)
+    card_vs_cpu("dyn_bgs f64 poisson_2d(32)", q,
+                both(q, _options("dyn_bgs", dtype="float64")))
+    # the stationary AMG iteration, f64 hierarchy
+    q = fem.poisson_3d(24)
+    its = {}
+    for dev in ("cuda", "cpu"):
+        pc = AMGPreconditioner(q.A, coords=q.coords, device=dev,
+                               options=_options(dtype="float64")).setup()
+        res = amg_iteration(pc.op, pc.A_dev, pc._to_dev(q.b), tol=1e-8,
+                            maxiter=100)
+        its[dev] = (int(res.iterations), pc._from_dev(res.x))
+    diff = float(np.linalg.norm(its["cuda"][1] - its["cpu"][1])
+                 / np.linalg.norm(its["cpu"][1]))
+    out["amg_iteration f64 poisson_3d(24)"] = {
+        "card_iterations": its["cuda"][0], "cpu_iterations": its["cpu"][0],
+        "x_diff": diff}
+    if abs(its["cuda"][0] - its["cpu"][0]) > 1 or its["cuda"][0] >= 100 \
+            or diff > 1e-6:
+        raise AssertionError(f"amg_iteration: card against CPU "
+                             f"{out['amg_iteration f64 poisson_3d(24)']}")
+    # spmv_rows and one GS sweep (split storage, two steps) at bs 1, 3, 6
+    errs = {}
+    opts = _options().smoother
+    for bs in (1, 3, 6):
+        A = _random_spd_bsr(3001, bs, 20 + bs)
+        perm, cb = build.plan_row_order(A, bs, opts, 0)
+        sperm = (perm[:, None] * bs + np.arange(bs)).ravel()
+        A = A[sperm][:, sperm].tocsr()
+        data, cols, nb = bell.pack(A, bs, bs, np.float32, 8)
+        sm = build.build_smoother(A, bs, opts, 0, data.shape[0], np.float32,
+                                  color_bounds=cb, ell=(data, cols))
+        rng = np.random.default_rng(30 + bs)
+        b = np.zeros((data.shape[0], bs), np.float32)
+        b[:nb] = rng.standard_normal((nb, bs))
+        x0 = np.zeros_like(b)
+        x0[:nb] = rng.standard_normal((nb, bs))
+        rows = rng.integers(0, nb, 777)
+        ys = {}
+        for dev in ("cuda", "cpu"):
+            T = bell.from_packed(data, cols, nb, nb, device=dev)
+            smd = build.stage_smoother(sm, dev)
+            bt, xt = (torch.from_numpy(v).to(dev) for v in (b, x0))
+            ys[dev] = (
+                bell.spmv_rows(T, xt, torch.from_numpy(rows).to(dev)).cpu(),
+                core.smooth_back(smd, T, core.smooth(smd, T, xt, bt),
+                                 bt).cpu(),
+            )
+        for k, what in enumerate(("spmv_rows", "gs_sweep")):
+            a, c = ys["cuda"][k], ys["cpu"][k]
+            err = float((a - c).abs().max() / c.abs().max())
+            errs[f"{what} bs {bs}"] = err
+            if not np.isfinite(err) or err > 1e-5:
+                raise AssertionError(f"{what} bs {bs}: card against CPU {err}")
+    out["card_vs_cpu"] = errs
+    print("[gs-reference] " + json.dumps(out), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1240,6 +1554,17 @@ def main() -> int:
     phase_block_ell(epc)
     del _ep, epc
     phase_elasticity_reference()
+    from ngsamg_tpu_torch.utils import fem
+
+    gp = fem.poisson_3d(GS_N)
+    phase_gs(gp)
+    cycles = phase_cycles(gp)
+    del gp
+    phase_gs_reference()
+    for row in rows:  # one warm solve of poisson_3d(101), W and BS cycles
+        for label in ("W", "BS"):
+            row[f"launches_{label}"] = int(
+                cycles[label]["kernel_launches_warm"][row["name"]])
     for row in rows:  # fold in the checks at the small unstructured shapes
         err = unstruct_errs.get(row["name"])
         if err is not None:

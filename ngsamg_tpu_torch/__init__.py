@@ -7,7 +7,7 @@ torch tensors, with hand-written CUDA kernels (``csrc/``) for the matvecs
 the JAX package wrote in Pallas. It imports neither JAX nor ngsamg_tpu.
 
 Public API:
-    AMGPreconditioner — strict-algebraic-mode front-end
+    AMGPreconditioner / amg_preconditioner — strict-algebraic-mode front-end
     AMGOptions, options_from_flags, SpecOpt — configuration
     apps.h1.H1Energy, apps.elasticity.ElasticityEnergy — PDE energies
     utils.fem — problem generators
@@ -24,13 +24,14 @@ from .config import (
     SpecOpt,
     options_from_flags,
 )
-from .precond.amg import AMGPreconditioner
+from .precond.amg import AMGPreconditioner, amg_preconditioner
 
 __version__ = "0.1.0"
 
 __all__ = [
     "AMGOptions",
     "AMGPreconditioner",
+    "amg_preconditioner",
     "CoarsenType",
     "CoarseSolveType",
     "CycleType",

@@ -39,14 +39,12 @@ from ..apps.h1 import H1Energy
 from ..config import (
     AMGOptions,
     CoarseSolveType,
-    CycleType,
     SpecOpt,
     options_from_flags,
 )
 from ..factory.levels import setup_levels
-from ..smoothers.build import build_smoother
+from ..smoothers.build import build_smoother, plan_row_order, stage_smoother
 from ..smoothers.cluster_corr import detect_clusters
-from ..smoothers.core import ChebyshevSmoother
 from ..solve.cycle import AMGOperator, DeviceLevel, amg_apply
 from ..solve.pcg import pcg, pcg_mixed
 from ..sparse import bell, formats
@@ -198,11 +196,13 @@ class AMGPreconditioner:
     :class:`~ngsamg_tpu_torch.apps.base.Energy` instance.
     ``device``: where the hierarchy is staged and the solve runs, "cuda"
     (the default: the hand-written kernels) or "cpu" (their plain
-    versions, which callers ask for explicitly). Options and arguments of
-    the JAX package that this port does not run raise: ``shards != 1``,
+    versions, which callers ask for explicitly). The smoothers (multicolor
+    GS, the default; Jacobi, l1-Jacobi, Chebyshev, dyn-block GS) and the
+    V, W and BS cycles are those of the JAX package. Options and arguments
+    of the JAX package that this port does not run raise: ``shards != 1``,
     ``dist_setup > 1``, ``do_test``, ``freedofs``, ``elmat_data``,
-    ``nodalp2``, the compound dof layout, and every smoother and cycle but
-    Chebyshev and V. The local cluster correction
+    ``nodalp2``, the compound dof layout, the bfloat16 device dtype and
+    the Hiptmair smoother. The local cluster correction
     (``options.cluster_corr``) is staged on unstructured scalar finest
     levels, as in the JAX package.
     """
@@ -249,11 +249,6 @@ class AMGPreconditioner:
                 f"dof_layout {dof_layout!r}: not ported to ngsamg_tpu_torch "
                 "yet (ROADMAP queue 1 item 4a)"
             )
-        if self.options.cycle != CycleType.V:
-            raise NotImplementedError(
-                f"{self.options.cycle.value}-cycle: ngsamg_tpu_torch runs "
-                "V-cycles only (ROADMAP queue 1 item 4)"
-            )
         if not isinstance(A, sp.dia_matrix):
             # DIA input feeds the structured fast path without a CSR detour
             A = A.tocsr()
@@ -289,6 +284,11 @@ class AMGPreconditioner:
             co = copy.copy(self.options.coarsen)
             co.aaf = SpecOpt(float(default_aaf))
             self.options = self.options.replace(coarsen=co)
+        if self.options.dtype == "bfloat16":
+            raise NotImplementedError(
+                "device dtype 'bfloat16': not ported to ngsamg_tpu_torch "
+                "yet (ROADMAP queue 1 item 4a)"
+            )
         if self.options.dtype not in _DTYPES:
             raise ValueError(f"device dtype {self.options.dtype!r}")
         self.dtype = _DTYPES[self.options.dtype]
@@ -325,21 +325,42 @@ class AMGPreconditioner:
     def _compile_device(self):
         """Stage the hierarchy: row orders, symmetric scaling, formats,
         smoothers, transfers, coarse inverse, cluster correction and the
-        f64 finest stencil."""
+        f64 finest stencil. Host seconds per stage, under the JAX
+        package's stage names, go to ``_device_stage_times``."""
         opts = self.options
         levels = self.setup_levels_
         nlev = len(levels)
         dev, npdt = self.device, self.np_dtype
+        stages = self._device_stage_times = {}
+        t_last = time.perf_counter()
+
+        def _mark(name):
+            nonlocal t_last
+            t = time.perf_counter()
+            stages[name] = stages.get(name, 0.0) + (t - t_last)
+            t_last = t
+
+        def _need_smoother(i):
+            return i < nlev - 1 or opts.coarse_solve != CoarseSolveType.INV
 
         # 1) per-level row order: stencil levels stay in natural (lattice)
-        # order; unstructured levels headed to tile-ELL get RCM plus a
-        # tile sort, so the bucketed tile-ELL packs contiguous runs
-        perms = [
-            None
-            if lev.stencil is not None
-            else formats.plan_reorder(lev.A, lev.row_bs)
-            for lev in levels
-        ]
+        # order; GS levels are sorted by color so each color is a
+        # contiguous row slice (``bounds``: the color offsets; () marks a
+        # dyn-block GS level, which keeps its order but must stay
+        # block-ELL); every other level gets RCM plus a tile sort, so the
+        # bucketed tile-ELL packs contiguous runs
+        perms, bounds = [], []
+        for i, lev in enumerate(levels):
+            perm = cb = None
+            if lev.stencil is None:
+                if _need_smoother(i):
+                    perm, cb = plan_row_order(
+                        lev.A, lev.row_bs, opts.smoother, i
+                    )
+                if perm is None:
+                    perm = formats.plan_reorder(lev.A, lev.row_bs)
+            perms.append(perm)
+            bounds.append(cb)
         # scalar view of the finest level's block-row order
         bs0 = levels[0].row_bs
         self._perm0 = (
@@ -350,6 +371,7 @@ class AMGPreconditioner:
         self._iperm0 = (
             None if self._perm0 is None else np.argsort(self._perm0)
         )
+        _mark("row_order")
 
         # 2) per-level symmetric diagonal scaling for sub-f64 device dtypes
         # on fully explicit hierarchies: stage A'_l = S_l A_l S_l (unit
@@ -385,30 +407,45 @@ class AMGPreconditioner:
                 A = A[p][:, p].tocsr()
             if use_scaling:
                 A, svecs[i] = _sym_scale(A)
+            _mark("permute")
             A_perm.append(A)
+            gs_ell = None
             if lev.stencil is not None:
                 A_fmt = formats.format_from_stencil(
                     lev.stencil, npdt, ROW_ALIGN, device=dev
                 )
+            elif bounds[i] is not None:
+                # GS levels stay block-ELL whatever choose_format would
+                # pick: the colored sweep slices their rows. A GS level's
+                # smoother stores its rows split per color, cut from the
+                # same host arrays (scaled and permuted)
+                data, cols, nb = bell.pack(
+                    A, lev.row_bs, lev.row_bs, npdt, ROW_ALIGN
+                )
+                A_fmt = bell.from_packed(
+                    data, cols, nb, A.shape[1] // lev.row_bs, device=dev
+                )
+                if bounds[i]:
+                    gs_ell = (data, cols)
             else:
                 A_fmt = formats.choose_format(
                     A, lev.row_bs, npdt, ROW_ALIGN, device=dev
                 )
             A_fmts.append(A_fmt)
-            is_coarsest = i == nlev - 1
-            need_smoother = (not is_coarsest) or (
-                opts.coarse_solve != CoarseSolveType.INV
-            )
+            _mark("pack_A")
             sms.append(
-                self._stage_smoother(
+                stage_smoother(
                     build_smoother(
                         A, lev.row_bs, opts.smoother, i,
-                        A_fmt.nrows_pad, npdt, stencil=lev.stencil,
-                    )
+                        A_fmt.nrows_pad, npdt, color_bounds=bounds[i],
+                        stencil=lev.stencil, ell=gs_ell,
+                    ),
+                    dev,
                 )
-                if need_smoother
+                if _need_smoother(i)
                 else None
             )
+            _mark("smoothers")
 
         dev_levels = []
         for i, lev in enumerate(levels):
@@ -468,6 +505,7 @@ class AMGPreconditioner:
             dev_levels.append(
                 DeviceLevel(A=A_fmts[i], smoother=sms[i], P=P_fmt, R=R_fmt)
             )
+            _mark("pack_PR")
         self._scale0 = None
         if use_scaling:
             # solve-boundary scale in UNPERMUTED internal order:
@@ -485,6 +523,7 @@ class AMGPreconditioner:
                     A_fmts[-1], A_perm[-1], keep_f64=use_scaling
                 )
             ).to(dev)
+        _mark("coarse_inv")
         # local cluster correction (smoothers/cluster_corr.py): batched
         # exact solves on near-singular sliver clusters of the finest
         # level, in the permuted row order of the device operator. Skipped
@@ -501,6 +540,12 @@ class AMGPreconditioner:
                 A_perm[0], beta=cc.beta, eig_ratio=cc.eig_ratio,
                 max_size=cc.max_size, dtype=npdt, device=dev,
             )
+        _mark("cluster_corr")
+        if dev.type == "cuda":
+            # the tensors were made on the device as they were packed; this
+            # waits for the copies still in flight
+            torch.cuda.synchronize(dev)
+        _mark("device_put")
         self.op = AMGOperator(
             levels=tuple(dev_levels),
             coarse_inv=coarse_inv,
@@ -575,16 +620,6 @@ class AMGPreconditioner:
         )
         return LatticeProlongation(**common), LatticeRestriction(**common)
 
-    def _stage_smoother(self, sm: ChebyshevSmoother) -> ChebyshevSmoother:
-        """Host-built smoother -> device Dinv (scalars stay on the host)."""
-        return ChebyshevSmoother(
-            Dinv=torch.from_numpy(sm.Dinv).to(self.device),
-            lam_max=sm.lam_max,
-            lam_min=sm.lam_min,
-            order=sm.order,
-            steps=sm.steps,
-        )
-
     def _build_coarse_inv(
         self, fmt_coarsest, A_coarsest, keep_f64=False
     ) -> np.ndarray:
@@ -635,6 +670,11 @@ class AMGPreconditioner:
             out = out * self._scale0  # x = S_0 y
         return out
 
+    def matvec_free(self, p: np.ndarray) -> np.ndarray:
+        """A @ p in the external (free-dof) space. Without ``freedofs``
+        (ROADMAP queue 1 item 4a) that is the whole space."""
+        return self.A_host @ p
+
     def apply(self, r: np.ndarray) -> np.ndarray:
         """x = M^-1 r — one AMG cycle (the reference `Mult`)."""
         self._require_setup()
@@ -648,6 +688,7 @@ class AMGPreconditioner:
         *,
         tol: float = 1e-8,
         maxiter: int = 300,
+        use_refinement: bool | None = None,
         return_device: bool = False,
         mixed: bool | None = None,
     ) -> tuple[np.ndarray | torch.Tensor, SolveInfo]:
@@ -660,6 +701,11 @@ class AMGPreconditioner:
         returns the solution as a device tensor (f64, length n) on the
         device-residual path; the host path returns a host array, as the
         JAX package does.
+
+        ``use_refinement``: ``None`` or ``True`` verifies against the true
+        f64 residual with up to 8 defect-correction passes (4 in f64);
+        ``False`` runs one unverified inner PCG (on the host-residual path,
+        with no stagnation fallback).
 
         ``mixed=True`` goes straight to the mixed-precision PCG (f64 Krylov
         state and finest matvec, the f32 device cycle as M) instead of
@@ -681,22 +727,27 @@ class AMGPreconditioner:
         # inner accuracy floor of the device dtype (defect correction
         # bridges the gap to the requested tolerance)
         floor = 0.0 if self.dtype == torch.float64 else 2e-6
+        if use_refinement is None:
+            # always verify against the TRUE residual: PCG's recursive
+            # residual drifts on ill-conditioned problems even in f64
+            use_refinement = True
         inner_tol = max(tol, floor)
-        max_outer = 8 if floor > 0 else 4
+        max_outer = (8 if floor > 0 else 4) if use_refinement else 1
         with _full_f32():
             if mixed and self.dtype != torch.float64:
                 return self._solve_mixed(b, bnorm, tol, maxiter)
-            if device_path:
+            if device_path and use_refinement:
                 return self._solve_device_refined(
                     b, bnorm, tol, inner_tol, max_outer, maxiter,
                     return_device=return_device,
                 )
             return self._solve_host_refined(
-                b, bnorm, tol, inner_tol, max_outer, maxiter
+                b, bnorm, tol, inner_tol, max_outer, maxiter,
+                fallback=use_refinement,
             )
 
     def _solve_host_refined(self, b, bnorm, tol, inner_tol, max_outer,
-                            maxiter):
+                            maxiter, fallback: bool = True):
         """f64 defect correction with the residual computed on the host
         (scipy): one device PCG per outer pass, one solution read-back."""
         x = np.zeros(self.n)
@@ -726,7 +777,7 @@ class AMGPreconditioner:
         r = b - self.A_host @ x
         relres = float(np.linalg.norm(r) / bnorm)
         history.append(relres)
-        if stagnated and relres > tol:
+        if stagnated and relres > tol and fallback:
             # Defect correction is structurally dead when the f32 finest
             # matvec cannot resolve the residual (ill-scaled problems:
             # eps32 * ||A|| ||x|| >> ||b||, e.g. slender-beam elasticity,
@@ -967,3 +1018,8 @@ class AMGPreconditioner:
         if not self._is_setup:
             raise RuntimeError("call .setup() first")
 
+
+
+def amg_preconditioner(A, **kw) -> AMGPreconditioner:
+    """Convenience: construct + setup in one call."""
+    return AMGPreconditioner(A, **kw).setup()

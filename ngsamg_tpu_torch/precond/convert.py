@@ -6,8 +6,9 @@
 :class:`~ngsamg_tpu_torch.solve.cycle.AMGOperator`, so both packages can run
 one cycle on identical data: stencil, DIA, dense, tile-ELL and block-ELL
 levels, lattice, tile-ELL and block-ELL transfers (square or rectangular
-blocks), scalar or block ``Dinv``, the cluster correction and an f32 or f64
-coarse inverse. A ``SupernodeELL`` (what the JAX package stages for
+blocks), the Chebyshev, (l1-)Jacobi, multicolor GS (split or sliced) and
+block GS smoothers, the cluster correction and an f32 or f64 coarse
+inverse. A ``SupernodeELL`` (what the JAX package stages for
 tile-ELL when its native packer is not built) is rebuilt as a matrix from
 its blocks and packed with this package's tile-ELL packer. The JAX classes
 are recognised by name; this module imports neither JAX nor ngsamg_tpu.
@@ -20,7 +21,8 @@ import scipy.sparse as sp
 import torch
 
 from ..smoothers.cluster_corr import ClusterCorrection
-from ..smoothers.core import ChebyshevSmoother
+from ..smoothers.block import BlockGSSmoother
+from ..smoothers.core import ChebyshevSmoother, GSSmoother, JacobiSmoother
 from ..solve.cycle import AMGOperator, DeviceLevel
 from ..sparse import bell, formats
 from ..transfer.lattice_transfer import LatticeProlongation, LatticeRestriction
@@ -134,6 +136,28 @@ def _smoother(sm, device):
             lam_max=np.asarray(sm.lam_max),
             lam_min=np.asarray(sm.lam_min),
             order=int(sm.order),
+            steps=int(sm.steps),
+        )
+    if kind == "JacobiSmoother":
+        return JacobiSmoother(
+            Dinv=_t(sm.Dinv, device),
+            omega=float(sm.omega),
+            steps=int(sm.steps),
+        )
+    if kind == "GSSmoother":
+        return GSSmoother(
+            Dinv=_t(sm.Dinv, device),
+            color_bounds=tuple(int(v) for v in sm.color_bounds),
+            steps=int(sm.steps),
+            cdata=tuple(_t(a, device) for a in sm.cdata),
+            ccols=tuple(_index(a, device) for a in sm.ccols),
+            cdinv=tuple(_t(a, device) for a in sm.cdinv),
+        )
+    if kind == "BlockGSSmoother":
+        return BlockGSSmoother(
+            blocks=_index(sm.blocks, device),
+            Binv=_t(sm.Binv, device),
+            color_bounds=tuple(int(v) for v in sm.color_bounds),
             steps=int(sm.steps),
         )
     raise TypeError(f"smoother {kind} has no port")

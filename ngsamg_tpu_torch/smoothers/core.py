@@ -1,12 +1,18 @@
-"""Device-side smoothers: Chebyshev and damped Jacobi on torch tensors.
+"""Device-side smoothers: multicolor block GS, (l1-)Jacobi, Chebyshev.
 
 Port of ngsamg_tpu/smoothers/core.py. Contract as there:
 ``smooth(sm, A, x, b)`` performs the forward sweep(s), ``smooth_back`` the
-reverse; ``x=None`` means a zero initial guess. Both smoothers are
-polynomials in Dinv A, so the backward sweep is the forward one. The
-multicolor and block Gauss-Seidel smoothers are not ported yet (ROADMAP
-queue 1 item 4). Block levels (bs 3 and 6) run Chebyshev with a block
-Dinv, order 5 on the window [0.25, 1] lam_max (smoothers/build.py).
+reverse; ``x=None`` means a zero initial guess. Jacobi and Chebyshev are
+polynomials in Dinv A, so their backward sweep is the forward one; the
+multicolor GS runs its colors in reverse order backwards. Block levels
+(bs 3 and 6) run Chebyshev with a block Dinv, order 5 on the window
+[0.25, 1] lam_max (smoothers/build.py).
+
+The multicolor GS sweep is plain torch, as it is XLA in the JAX package:
+per color, one gather of x by the color's column indices, one block
+contraction, one block-Dinv product and one in-place update of the color's
+rows. It clones the caller's ``x`` once per call and never writes into
+it (the cycle keeps ``x`` alive across the sweep and the residual).
 
 The Chebyshev recurrence scalars (theta, delta, sigma, rho) are computed
 on the host in the level's dtype, as the JAX package computes them in its
@@ -20,6 +26,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..sparse.bell import rows_product
 from ..sparse.formats import matvec
 
 
@@ -46,6 +53,36 @@ class JacobiSmoother:
 
 
 @dataclass(frozen=True)
+class GSSmoother:
+    """Multicolor block Gauss-Seidel on *color-sorted* rows.
+
+    The level's rows are permuted at setup so each color occupies a
+    contiguous slice [bounds[c], bounds[c+1]); the sweep is then plain
+    slicing, with no gather of matrix rows and no scatter of updates.
+
+    Two storage modes, as in the JAX package:
+
+    * **split** (``cdata`` non-empty; the single-device path): the matrix
+      rows of every color are separate per-color tensors (``cdata[c]``:
+      (m_c, K_c, bs, bs), ``ccols[c]``: (m_c, K_c), ``cdinv[c]``:
+      (m_c, bs, bs)), each color's ELL width K_c trimmed to its last used
+      slot;
+    * **sliced** (``cdata == ()``; the row-sharded path of the JAX
+      package): the sweep slices the level's BlockELL ``A.data``/``A.cols``
+      per color.
+    """
+
+    Dinv: torch.Tensor  # (n_pad, bs, bs)
+    color_bounds: tuple  # (ncolors+1,) ints, ascending
+    steps: int = 1
+    cdata: tuple = ()  # per-color (m_c, K_c, bs, bs), or () for sliced mode
+    # per-color (m_c, K_c): int32 as built on the host, int64 once staged
+    # (torch converts an int32 index to int64 on every gather)
+    ccols: tuple = ()
+    cdinv: tuple = ()  # per-color (m_c, bs, bs)
+
+
+@dataclass(frozen=True)
 class ChebyshevSmoother:
     """Chebyshev polynomial smoother on the D^-1 A spectrum window.
 
@@ -60,22 +97,35 @@ class ChebyshevSmoother:
     steps: int = 1
 
 
-Smoother = JacobiSmoother | ChebyshevSmoother
+Smoother = JacobiSmoother | GSSmoother | ChebyshevSmoother
 
 
 def smooth(sm: Smoother, A, x: torch.Tensor | None, b: torch.Tensor):
-    if isinstance(sm, ChebyshevSmoother):
-        return _chebyshev(sm, A, x, b)
     if isinstance(sm, JacobiSmoother):
         return _jacobi(sm, A, x, b)
-    raise NotImplementedError(
-        f"smoother {type(sm).__name__} is not ported to ngsamg_tpu_torch "
-        "(ROADMAP queue 1 item 4)"
-    )
+    if isinstance(sm, GSSmoother):
+        return _gs(sm, A, x, b, reverse=False)
+    if isinstance(sm, ChebyshevSmoother):
+        return _chebyshev(sm, A, x, b)
+    from .block import BlockGSSmoother, block_gs_smooth
+
+    if isinstance(sm, BlockGSSmoother):
+        return block_gs_smooth(sm, A, x, b, reverse=False)
+    from ..solve.cycle import AMGSmoother
+
+    if isinstance(sm, AMGSmoother):
+        return sm.smooth(A, x, b)
+    raise TypeError(type(sm))
 
 
 def smooth_back(sm: Smoother, A, x: torch.Tensor | None, b: torch.Tensor):
-    # Jacobi and Chebyshev are symmetric: the backward sweep is the forward
+    if isinstance(sm, GSSmoother):
+        return _gs(sm, A, x, b, reverse=True)
+    from .block import BlockGSSmoother, block_gs_smooth
+
+    if isinstance(sm, BlockGSSmoother):
+        return block_gs_smooth(sm, A, x, b, reverse=True)
+    # Jacobi / Chebyshev / AMG-as-smoother are symmetric
     return smooth(sm, A, x, b)
 
 
@@ -87,6 +137,33 @@ def _jacobi(sm: JacobiSmoother, A, x, b):
     for _ in range(steps):
         r = b - matvec(A, x)
         x = x + sm.omega * _block_mul(sm.Dinv, r)
+    return x
+
+
+def _gs(sm: GSSmoother, A, x, b, *, reverse: bool):
+    zero_start = x is None
+    # one copy per call, updated in place color by color; the caller's x
+    # is never written
+    x = torch.zeros_like(b) if zero_start else x.clone()
+    bounds = sm.color_bounds
+    ncol = len(bounds) - 1
+    order = range(ncol - 1, -1, -1) if reverse else range(ncol)
+    split = bool(sm.cdata)
+    for step in range(sm.steps):
+        for ci, c in enumerate(order):
+            lo, hi = bounds[c], bounds[c + 1]
+            if hi == lo:
+                continue
+            if zero_start and step == 0 and ci == 0:
+                r = b[lo:hi]  # x == 0: skip the row product
+            elif split:
+                r = b[lo:hi] - rows_product(sm.cdata[c], x[sm.ccols[c]])
+            else:
+                r = b[lo:hi] - rows_product(
+                    A.data[lo:hi], x[A.cols[lo:hi]]
+                )
+            Dc = sm.cdinv[c] if split else sm.Dinv[lo:hi]
+            x[lo:hi] += _block_mul(Dc, r)
     return x
 
 

@@ -1,13 +1,15 @@
-"""Multigrid operator: the V-cycle over the level hierarchy.
+"""Multigrid operator: V, W and BS cycles over the level hierarchy.
 
-Port of ngsamg_tpu/solve/cycle.py: pre-smooth (zero start) -> restrict the
-residual -> coarse solve -> prolongate-add -> backward post-smooth. The
+Port of ngsamg_tpu/solve/cycle.py. The V-cycle: pre-smooth (zero start) ->
+restrict the residual -> coarse solve -> prolongate-add -> backward
+post-smooth; the W-cycle visits every level but the coarsest twice; the BS
+cycle cascades V-cycles rooted at successively coarser levels. The
 coarsest level applies a dense inverse with ``torch.matmul``, staged in the
 level dtype, or in f64 inside an f32 cycle (scaled unstructured
 hierarchies, scalar or block; vectors are (nrows_pad, bs) and change
 shape between levels of different block size). A cluster correction, when
 the hierarchy carries one, wraps the cycle multiplicatively and
-symmetrically. The W and BS cycles are not ported yet.
+symmetrically. ``AMGSmoother`` uses a multigrid operator as a smoother.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ class AMGOperator:
     levels: tuple  # tuple[DeviceLevel, ...]
     coarse_inv: torch.Tensor | None  # ((nc_pad*bs), (nc_pad*bs)) dense
     cluster_corr: ClusterCorrection | None = None
-    cycle: str = "V"
+    cycle: str = "V"  # V | W | BS
 
 
 def coarse_solve(op: AMGOperator, b: torch.Tensor) -> torch.Tensor:
@@ -66,25 +68,77 @@ def _cycle(op: AMGOperator, b: torch.Tensor, l: int) -> torch.Tensor:
     r = b - matvec(lev.A, x)
     bc = matvec(lev.R, r)
     xc = _cycle(op, bc, l + 1)
+    if op.cycle == "W" and l + 1 < len(levels) - 1:
+        rc = bc - matvec(levels[l + 1].A, xc)
+        xc = xc + _cycle(op, rc, l + 1)
     x = x + matvec(lev.P, xc)
     return smooth_back(lev.smoother, lev.A, x, b)
 
 
 def amg_apply(op: AMGOperator, b: torch.Tensor) -> torch.Tensor:
-    """One multigrid V-cycle with zero initial guess (`AMGMatrix::Mult`).
+    """One multigrid cycle with zero initial guess (`AMGMatrix::Mult`).
 
     With a cluster correction attached (near-singular sliver clusters on
     the finest level, see smoothers/cluster_corr.py) the cycle is wrapped
     multiplicatively and symmetrically: C, cycle, C.
     """
-    if op.cycle != "V":
-        raise NotImplementedError(
-            f"{op.cycle}-cycle: ngsamg_tpu_torch runs V-cycles only "
-            "(W/BS are ROADMAP queue 1 item 4)"
-        )
+    core = _bs_cycle if op.cycle == "BS" else _cycle_from
     if op.cluster_corr is None:
-        return _cycle(op, b, 0)
+        return core(op, b)
     A0 = op.levels[0].A
     z = cluster_apply(op.cluster_corr, b)
-    z = z + _cycle(op, b - matvec(A0, z), 0)
+    z = z + core(op, b - matvec(A0, z))
     return z + cluster_apply(op.cluster_corr, b - matvec(A0, z))
+
+
+@dataclass(frozen=True)
+class AMGSmoother:
+    """A multigrid operator used as a smoother (`AMGSmoother`,
+    amg_matrix.hpp:132-158): one sweep is ``steps`` stationary AMG
+    iterations."""
+
+    op: AMGOperator
+    steps: int = 1
+
+    def smooth(self, A, x, b):
+        if x is None:
+            x = torch.zeros_like(b)
+        for _ in range(self.steps):
+            x = x + amg_apply(self.op, b - matvec(A, x))
+        return x
+
+
+def _cycle_from(
+    op: AMGOperator, b: torch.Tensor, l: int = 0
+) -> torch.Tensor:
+    """Full cycle rooted at level ``l`` (`SmoothVFromLevel`), zero initial
+    guess."""
+    return _cycle(op, b, l)
+
+
+def _bs_cycle(op: AMGOperator, b: torch.Tensor) -> torch.Tensor:
+    """The BS cascade (`SmoothBS`).
+
+    Descending: each level runs a full V-cycle rooted there, then restricts
+    its updated residual. Coarsest: exact solve. Ascending: prolongate the
+    coarse correction and run another V-cycle rooted at each level (in
+    correction form).
+    """
+    levels = op.levels
+    L = len(levels)
+    if L == 1:
+        return coarse_solve(op, b)
+    xs, bs_ = [], []
+    bl = b
+    for l in range(L - 1):
+        xl = _cycle_from(op, bl, l)
+        rl = bl - matvec(levels[l].A, xl)
+        xs.append(xl)
+        bs_.append(bl)
+        bl = matvec(levels[l].R, rl)
+    xc = coarse_solve(op, bl)
+    for l in range(L - 2, -1, -1):
+        xl = xs[l] + matvec(levels[l].P, xc)
+        rl = bs_[l] - matvec(levels[l].A, xl)
+        xc = xl + _cycle_from(op, rl, l)
+    return xc

@@ -1,7 +1,8 @@
 """Preconditioned conjugate gradients on the device.
 
-Port of ngsamg_tpu/solve/pcg.py (`pcg`/`_pcg_chunk` and the mixed-precision
-`pcg_mixed`/`_pcg_mixed_chunk`) with a chunk of one iteration: all state stays on the device, each step is masked (once the
+Port of ngsamg_tpu/solve/pcg.py (`pcg`/`_pcg_chunk`, the mixed-precision
+`pcg_mixed`/`_pcg_mixed_chunk` and the stationary `amg_iteration`/
+`_si_chunk`) with a chunk of one iteration: all state stays on the device, each step is masked (once the
 residual drops below tolerance the state freezes and ``k`` counts accepted
 steps only, as in the JAX package), and the host reads the residual scalar
 after every step and stops early. A device-to-host read of one scalar
@@ -180,5 +181,52 @@ def pcg_mixed(
         if not np.isfinite(rn) or rn <= tol_abs2_host:
             break
     x, _r, _p, _rz, rn, k = state
+    relres = torch.sqrt(torch.clamp(rn, min=0.0) / bnorm2)
+    return SolveResult(x=x, iterations=k, relres=relres)
+
+
+def _si_step(op: AMGOperator, A, state, tol_abs2: torch.Tensor):
+    """One stationary AMG step; converged state is frozen."""
+    x, r, rn, k = state
+    active = rn > tol_abs2
+    x_new = x + amg_apply(op, r)
+    r_new = r - matvec(A, x_new - x)
+    x = torch.where(active, x_new, x)
+    r = torch.where(active, r_new, r)
+    rn = torch.where(active, _dot(r, r), rn)
+    k = k + active.to(torch.int32)
+    return (x, r, rn, k)
+
+
+def amg_iteration(
+    op: AMGOperator,
+    A,
+    b: torch.Tensor,
+    *,
+    tol: float = 1e-8,
+    maxiter: int = 200,
+) -> SolveResult:
+    """Stationary AMG iteration x <- x + M^-1 (b - A x) (the reference's
+    `AMGAsLinearSolver` simple iteration). Zero initial guess."""
+    bnorm2 = float(_dot(b, b))
+    if bnorm2 == 0.0:
+        z = torch.zeros_like(b)
+        return SolveResult(
+            z, torch.zeros((), dtype=torch.int32), b.new_zeros(())
+        )
+    tol_abs2 = torch.tensor(tol * tol * bnorm2, dtype=b.dtype, device=b.device)
+    tol_abs2_host = float(tol_abs2)
+    state = (
+        torch.zeros_like(b),
+        b,
+        torch.tensor(bnorm2, dtype=b.dtype, device=b.device),
+        torch.zeros((), dtype=torch.int32, device=b.device),
+    )
+    for _ in range(maxiter):
+        state = _si_step(op, A, state, tol_abs2)
+        rn = float(state[2])
+        if not np.isfinite(rn) or rn <= tol_abs2_host:
+            break
+    x, _r, rn, k = state
     relres = torch.sqrt(torch.clamp(rn, min=0.0) / bnorm2)
     return SolveResult(x=x, iterations=k, relres=relres)

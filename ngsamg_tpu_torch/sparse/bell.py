@@ -14,8 +14,8 @@ Pallas kernel): one gather of x rows by ``cols`` and one contraction
 (n, bc) tensors (``formats.block_vec`` / ``formats.flat_vec``). Row counts
 are padded to a multiple of ``row_align``; padded rows are entirely zero and
 stay zero through every operation. The host packing is numpy, bit for bit
-the JAX package's. ``spmv_rows`` (multicolor Gauss-Seidel) waits for the GS
-family (ROADMAP queue 1 item 4).
+the JAX package's. ``spmv_rows`` (the block rows the dyn-block GS sweep
+updates) and the multicolor GS sweep use the same contraction.
 """
 
 from __future__ import annotations
@@ -141,7 +141,7 @@ def _chunked_pack(A, bs_r: int, bs_c: int, C: int, dtype):
     return data.reshape(n, K, bs_r, C * bs_c), cols
 
 
-def from_scipy(
+def pack(
     A,
     bs_r: int = 1,
     bs_c: int = 1,
@@ -149,15 +149,9 @@ def from_scipy(
     row_align: int = 8,
     width: int | None = None,
     col_chunk: int = 1,
-    device="cpu",
-) -> BlockELL:
-    """Build a BlockELL on ``device`` from a host scipy matrix.
-
-    ``dtype`` is a numpy dtype (the packing is host code). ``width``
-    forces the ELL width K; ``col_chunk`` packs that many adjacent block
-    columns per slot (SQUARE operators only: the matvec reshapes x by the
-    chunk, so the vector pad must divide it — row_align does).
-    """
+) -> tuple[np.ndarray, np.ndarray, int]:
+    """The host arrays of a BlockELL: ``(data, cols, nrows)`` with the rows
+    padded to a multiple of ``row_align`` (see :func:`from_scipy`)."""
     if col_chunk > 1:
         data, cols = _chunked_pack(A, bs_r, bs_c, col_chunk, dtype)
     else:
@@ -176,26 +170,69 @@ def from_scipy(
         )
     data = np.ascontiguousarray(data, dtype=np.dtype(dtype))
     cols = np.ascontiguousarray(cols, dtype=np.int32)
+    return data, cols, n
+
+
+def from_packed(
+    data: np.ndarray, cols: np.ndarray, nrows: int, ncols: int,
+    col_chunk: int = 1, device="cpu",
+) -> BlockELL:
+    """A BlockELL on ``device`` from the host arrays of :func:`pack`."""
     return BlockELL(
         data=torch.from_numpy(data).to(device),
         cols=torch.from_numpy(cols).to(device),
-        nrows=n,
-        ncols=A.shape[1] // bs_c,
-        nrows_pad=n_pad,
+        nrows=nrows,
+        ncols=ncols,
+        nrows_pad=data.shape[0],
         col_chunk=col_chunk,
     )
+
+
+def from_scipy(
+    A,
+    bs_r: int = 1,
+    bs_c: int = 1,
+    dtype=np.float32,
+    row_align: int = 8,
+    width: int | None = None,
+    col_chunk: int = 1,
+    device="cpu",
+) -> BlockELL:
+    """Build a BlockELL on ``device`` from a host scipy matrix.
+
+    ``dtype`` is a numpy dtype (the packing is host code). ``width``
+    forces the ELL width K; ``col_chunk`` packs that many adjacent block
+    columns per slot (SQUARE operators only: the matvec reshapes x by the
+    chunk, so the vector pad must divide it — row_align does).
+    """
+    data, cols, n = pack(A, bs_r, bs_c, dtype, row_align, width, col_chunk)
+    return from_packed(
+        data, cols, n, A.shape[1] // bs_c, col_chunk, device=device
+    )
+
+
+def rows_product(data: torch.Tensor, xg: torch.Tensor) -> torch.Tensor:
+    """The contraction "mkij,mkj->mi" of block rows ``data`` (m, K, br, bc)
+    with gathered x rows ``xg`` (m, K, bc), as a broadcast product and one
+    sum, so that ``data`` is read where it lies (an einsum would first copy
+    it into (m, i, k*j) order)."""
+    return (data * xg.unsqueeze(2)).sum(dim=(1, 3))
 
 
 def spmv(A: BlockELL, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x for a block vector x of shape (ncols_pad?, bc).
 
     ``x`` may be longer than ``A.ncols`` (padded); gathered columns are
-    always < ncols so padding never contaminates the product. The
-    contraction is "nkij,nkj->ni" over the slot and the block column,
-    written as a broadcast product and one sum so that ``data`` is read
-    where it lies (an einsum would first copy it into (n, i, k*j) order).
+    always < ncols so padding never contaminates the product.
     """
     if A.col_chunk > 1:
         x = x.reshape(-1, A.col_chunk * x.shape[1])
-    xg = x[A.cols]  # (n, K, C*bc)
-    return (A.data * xg.unsqueeze(2)).sum(dim=(1, 3))
+    return rows_product(A.data, x[A.cols])  # x[A.cols]: (n, K, C*bc)
+
+
+def spmv_rows(A: BlockELL, x: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """(A @ x) restricted to the given block rows: (m, br)."""
+    c = A.cols[rows]  # (m, K)
+    if A.col_chunk > 1:
+        x = x.reshape(-1, A.col_chunk * x.shape[1])
+    return rows_product(A.data[rows], x[c])

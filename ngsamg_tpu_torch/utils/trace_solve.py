@@ -1,14 +1,17 @@
 """Device-time breakdown and busy share of one warm solve.
 
     python3 -m ngsamg_tpu_torch.utils.trace_solve \
-        [headline|unstructured|elasticity]
+        [headline|unstructured|elasticity|gs]
 
-Needs one CUDA device. Sets up, with the Chebyshev smoother on ``cuda``,
+Needs one CUDA device. Sets up on ``cuda``, with the Chebyshev smoother,
 ``fem.poisson_3d(216)`` (``headline``, the default: 9,938,375 DoF),
 ``fem.unstructured_poisson(55, dim=3, refine=1)`` (``unstructured``:
 1,411,632 DoF on tile-ELL levels) or ``fem.unstructured_elasticity(36,
 dim=3, refine=1)`` (``elasticity``: 1,250,196 DoF on block-ELL levels,
-solved by the mixed-precision PCG), runs two warm-up solves and five
+solved by the mixed-precision PCG); or, with ``AMGOptions()`` unchanged
+(multicolor GS, V-cycle), ``fem.poisson_3d(101)`` (``gs``: 1,000,000 DoF
+on block-ELL levels, one sweep a sequence of color steps). It runs two
+warm-up solves and five
 unprofiled warm solves (host wall clock, ending in
 ``torch.cuda.synchronize()``), then one solve under ``torch.profiler``. It
 prints the device time by kernel name and one JSON line with:
@@ -19,7 +22,9 @@ prints the device time by kernel name and one JSON line with:
   profiler slows the host's dispatch but not the kernels, so this is the
   share of a real warm solve in which the device is busy;
 - ``busy_share_profiled``: ``busy_ms`` over the profiled solve's own wall
-  clock, which the profiler inflates (a lower bound).
+  clock, which the profiler inflates (a lower bound);
+- ``kernel_launches``: the device kernels of the profiled solve (copies and
+  memsets apart).
 
 ``--setup-profile`` also runs ``setup()`` under ``cProfile`` and prints the
 package's own functions by cumulative host time (the profiler adds a few
@@ -88,7 +93,11 @@ PROBLEMS = {
     "unstructured": lambda fem: fem.unstructured_poisson(55, dim=3, refine=1),
     "elasticity": lambda fem: fem.unstructured_elasticity(
         36, dim=3, refine=1),
+    "gs": lambda fem: fem.poisson_3d(101),
 }
+# problems solved with the JAX package's default options (multicolor GS);
+# the others take the Chebyshev smoother
+DEFAULT_OPTIONS = {"gs"}
 # the front-end arguments and the solve of each problem beyond the defaults
 SETUP_KW = {"elasticity": {"energy": "elasticity", "block_size": 3}}
 SOLVE_KW = {"elasticity": {"maxiter": 120, "mixed": True}}
@@ -117,7 +126,8 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     print(f"[trace] {smi}", flush=True)
     p = PROBLEMS[problem](fem)
-    opts = AMGOptions(smoother=SmootherOptions(type=SmootherType.CHEBYSHEV))
+    opts = (AMGOptions() if problem in DEFAULT_OPTIONS else
+            AMGOptions(smoother=SmootherOptions(type=SmootherType.CHEBYSHEV)))
     pc = AMGPreconditioner(
         p.A, coords=p.coords, options=opts, device="cuda",
         **SETUP_KW.get(problem, {}),
@@ -166,6 +176,9 @@ def main(argv=None) -> int:
         "warm_solve_median_ms": warm * 1e3,
         "profiled_solve_ms": prof_wall * 1e3,
         "device_events": len(evs),
+        "kernel_launches": sum(
+            1 for e in evs if not e.name.lower().startswith(
+                ("memcpy", "memset"))),
         "device_time_sum_ms": total_us / 1e3,
         "busy_ms": busy_us / 1e3,
         "busy_share": busy_us / 1e6 / warm,

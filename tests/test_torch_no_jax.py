@@ -2,10 +2,11 @@
 
 In a fresh interpreter (this test process has already imported
 ngsamg_tpu and JAX via tests/conftest.py), import the package and every
-module in it, run three small solves on the CPU — a lattice problem
+module in it, run four small solves on the CPU — a lattice problem
 (structured setup), an unstructured one (generic level loop, tile-ELL,
-cluster correction, host refinement) and a 3D elasticity one (block
-energies, block-ELL, the mixed-precision PCG) — and check that neither
+cluster correction, host refinement), a lattice problem on the default
+options (multicolor GS) and a 3D elasticity one (block energies,
+block-ELL, the mixed-precision PCG) — and check that neither
 `jax` nor `ngsamg_tpu` (its native extension included) was ever imported.
 """
 
@@ -36,7 +37,8 @@ SCRIPT = textwrap.dedent(
     for name in ("apps.elasticity", "sparse.bell", "sparse.host",
                  "coarsen.pairwise", "transfer.prolongation",
                  "transfer.galerkin", "solve.pcg", "precond.convert",
-                 "utils.trace_solve"):
+                 "utils.trace_solve", "smoothers.coloring",
+                 "smoothers.block"):
         assert "ngsamg_tpu_torch." + name in mods, name
 
     p = fem.poisson_3d(34)  # 35,937 DoF: the uniform-stencil branches
@@ -59,6 +61,15 @@ SCRIPT = textwrap.dedent(
     xu, infou = pcu.solve(q.b, tol=1e-8)
     relu = np.linalg.norm(q.b - q.A @ xu) / np.linalg.norm(q.b)
     assert infou.converged and relu <= 1e-8, (infou, relu)
+    g = fem.poisson_3d(20)  # the JAX package's defaults: multicolor GS, V
+    pcg_ = ngsamg_tpu_torch.AMGPreconditioner(
+        g.A, coords=g.coords, options=ngsamg_tpu_torch.AMGOptions(),
+        device="cpu",
+    ).setup()
+    assert type(pcg_.op.levels[0].smoother).__name__ == "GSSmoother"
+    xg, infog = pcg_.solve(g.b, tol=1e-8)
+    relg = np.linalg.norm(g.b - g.A @ xg) / np.linalg.norm(g.b)
+    assert infog.converged and relg <= 1e-8, (infog, relg)
     e = fem.elasticity_3d(8)  # 19,440 DoF: a block-ELL finest level
     pce = ngsamg_tpu_torch.AMGPreconditioner(
         e.A, energy="elasticity", block_size=3, coords=e.coords,
@@ -74,7 +85,8 @@ SCRIPT = textwrap.dedent(
         or m.startswith(("jax.", "jaxlib.", "ngsamg_tpu."))
     )
     assert not bad, bad
-    print("OK", info.iterations, infou.iterations, infoe.iterations)
+    print("OK", info.iterations, infou.iterations, infog.iterations,
+          infoe.iterations)
     """
 )
 

@@ -213,8 +213,9 @@ def test_f64_finest_stencil(pair):
 def test_unported_paths_raise():
     """The plate test coarsener (which declines the structured fast path
     and reaches the generic loop) builds the JAX package's levels; the
-    algorithms still unported raise instead of running another one: the GS
-    smoother and the W-cycle (ROADMAP queue 1 item 4)."""
+    JAX package's default options (multicolor GS, V-cycle) and the W-cycle
+    set up and solve; the Hiptmair smoother (ROADMAP queue 1 item 5) still
+    raises instead of running another one."""
     import ngsamg_tpu.factory.levels as jlevels
 
     p = tfem.poisson_3d(12)
@@ -235,17 +236,82 @@ def test_unported_paths_raise():
         if b.v2agg is not None:
             np.testing.assert_array_equal(a.v2agg, b.v2agg)
         assert abs(a.A - b.A).max() <= 1e-12 * abs(b.A).max()
-    gs = ngsamg_tpu_torch.AMGOptions()  # default smoother: GS
-    with pytest.raises(NotImplementedError, match="item 4"):
-        ngsamg_tpu_torch.AMGPreconditioner(
-            p.A, coords=p.coords, options=gs, device="cpu"
+    for o in (ngsamg_tpu_torch.AMGOptions(),  # default smoother: GS
+              opts.replace(cycle=ngsamg_tpu_torch.CycleType.W)):
+        pc = ngsamg_tpu_torch.AMGPreconditioner(
+            p.A, coords=p.coords, options=o, device="cpu"
         ).setup()
-    with pytest.raises(NotImplementedError, match="item 4"):
-        ngsamg_tpu_torch.AMGPreconditioner(
-            p.A, coords=p.coords, device="cpu", options=opts.replace(
-                cycle=ngsamg_tpu_torch.CycleType.W
-            )
+        x, info = pc.solve(p.b, tol=1e-8)
+        rel = np.linalg.norm(p.b - p.A @ x) / np.linalg.norm(p.b)
+        assert info.converged and rel <= 1e-8 and info.iterations <= 15
+    hip = ngsamg_tpu_torch.AMGOptions(
+        smoother=ngsamg_tpu_torch.SmootherOptions(
+            type=ngsamg_tpu_torch.SmootherType.HIPTMAIR
         )
+    )
+    with pytest.raises(NotImplementedError, match="item 5"):
+        ngsamg_tpu_torch.AMGPreconditioner(
+            p.A, coords=p.coords, options=hip, device="cpu"
+        ).setup()
+
+
+def test_bf16_names_its_item():
+    """The bfloat16 device dtype is item 4a's (K1-K3 have no bf16 build)."""
+    p = tfem.poisson_3d(12)
+    with pytest.raises(NotImplementedError, match="bfloat16.*item 4a"):
+        ngsamg_tpu_torch.AMGPreconditioner(
+            p.A, coords=p.coords, device="cpu",
+            options=ngsamg_tpu_torch.AMGOptions(dtype="bfloat16"),
+        )
+
+
+@pytest.mark.parametrize("refine", [None, True, False])
+@pytest.mark.parametrize("path", ["device", "host"])
+def test_use_refinement_matches_jax(path, refine):
+    """``solve(use_refinement=...)`` on both residual paths (the f64 stencil
+    on the device: Chebyshev on ``poisson_3d(40)``; the host: the GS
+    block-ELL finest level of ``poisson_3d(12)``): the JAX package's
+    iterations and passes; without refinement one unverified pass, whose
+    true residual sits at the f32 inner tolerance in both packages."""
+    p = tfem.poisson_3d(40 if path == "device" else 12)
+    infos = []
+    for pkg, kw in ((ngsamg_tpu, {}), (ngsamg_tpu_torch, {"device": "cpu"})):
+        opts = _cheb(pkg) if path == "device" else pkg.AMGOptions()
+        pc = pkg.AMGPreconditioner(p.A, coords=p.coords, options=opts, **kw)
+        pc.setup()
+        x, info = pc.solve(p.b, tol=1e-8, use_refinement=refine)
+        infos.append((pc, np.asarray(x), info))
+    (pj, xj, ij), (pt, xt, it) = infos
+    assert (pt._A64_dev is not None) == (path == "device")
+    assert it.outer_iterations == ij.outer_iterations
+    assert it.iterations == ij.iterations
+    assert it.converged == ij.converged
+    assert len(it.history) == len(ij.history)
+    if refine is False:
+        assert it.outer_iterations == 1
+        assert it.relres == pytest.approx(ij.relres, rel=0.25)
+        assert 1e-8 < it.relres < 1e-4
+    else:
+        assert it.converged and it.relres <= 1e-8
+    assert np.linalg.norm(xt - xj) <= 1e-4 * np.linalg.norm(xj)
+
+
+def test_missing_names():
+    """``amg_preconditioner``, ``matvec_free`` and the staging times under
+    the JAX package's stage names."""
+    assert "amg_preconditioner" in ngsamg_tpu_torch.__all__
+    p = tfem.poisson_3d(12)
+    pcs = [
+        pkg.amg_preconditioner(p.A, coords=p.coords, **kw)
+        for pkg, kw in ((ngsamg_tpu, {}),
+                        (ngsamg_tpu_torch, {"device": "cpu"}))
+    ]
+    pj, pt = pcs
+    assert pt._is_setup
+    assert list(pt._device_stage_times) == list(pj._device_stage_times)
+    assert all(v >= 0 for v in pt._device_stage_times.values())
+    v = np.random.default_rng(1).standard_normal(p.n)
+    np.testing.assert_array_equal(pt.matvec_free(v), pj.matvec_free(v))
 
 
 @pytest.mark.parametrize(
