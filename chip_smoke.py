@@ -106,9 +106,39 @@ Phases, each of which raises (nonzero exit) on failure:
    correction stalls at the f32 floor in every pass), solutions to 1e-6
    relative; ``bell.spmv_rows`` and one GS
    sweep at bs 1, 3 and 6 to rtol 1e-5.
+15. selftest — ``test(60)``, ``test_levels(30)`` and ``test_smoothers(4)``
+   on the headline preconditioner of phase 3 (seconds and K1-K3 launches
+   of each): 0.05 < lmin <= lmax < 1.05, every level's bounds inside
+   (0.15, 1.3), every smoother rate below 1, K1, K2 and K3 launched.
+16. bf16 — the headline staged with ``dtype="bfloat16"`` (a second setup
+   of the same host problem): K1 (tiled and general), K3 and K2 at its
+   level shapes against their plain bf16 versions (max |err| / max |y| <=
+   1e-2, in bf16), two launches to the same bits, timed like phase 4
+   beside the f32 level's time (bytes at 2 per value); then the bf16 path:
+   a bf16 solve of the headline from counters at 0 (it stops unconverged,
+   as the JAX package's does on this lattice), which must launch the bf16
+   K1, K3 and K2; then ``poisson_3d(12)`` (default options, block-ELL)
+   and ``poisson_3d(24)`` (Chebyshev, DIA: K2) in bf16 on the card
+   against the CPU: iterations within 10% (or 2), true relres <= 1e-8;
+   and ``poisson_3d(40)`` (Chebyshev, K1 in bf16), whose pass history is
+   printed beside the CPU's (neither converges).
+17. frontend reference — card against CPU at small sizes: partial
+   Dirichlet ``freedofs`` on ``elasticity_2d(8, length=6)``, the compound
+   layout on ``vector_poisson(poisson_2d(32), 2)``, ``elmat_data`` on
+   ``poisson_2d_elmats(32)``, ``nodalp2`` on ``poisson_2d(32)`` and
+   ``do_test=True`` on ``poisson_3d(24)`` (Chebyshev): iterations within
+   one, true relres <= 1e-8 in the external space, ``test(30)`` bounds
+   within 1e-2 relative.
+18. device pencils (the end of phase 11) — ``elasticity_3d(8)`` set up on the
+   card by default and with ``DEVICE_SOC_MIN_EDGES = 1`` (the robust SOC
+   through ``batched_la.pencil_extreme_eig`` on the card): level sizes,
+   iterations, the share of aggregates that agree, the pencils whose f32
+   and f64 results differ, and the time of the largest pencil batch on
+   the card against the numpy branch.
 
-The last lines are the nvidia-smi line, one JSON object describing the
-kernels, and ``{"ok": true, "device": {...}}``.
+Every phase prints its seconds. The last lines are the nvidia-smi line,
+one JSON object describing the kernels, and ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -124,8 +154,10 @@ import numpy as np
 
 F32_TOL = 1e-6
 F64_TOL = 1e-13
+BF16_TOL = 1e-2  # bf16 kernels against their plain bf16 versions
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
-PEAK_FLOP_S = {"f32": 67e12, "f64": 34e12}  # H100 SXM, no tensor cores
+# H100 SXM, no tensor cores; the bf16 kernels do their arithmetic in f32
+PEAK_FLOP_S = {"f32": 67e12, "f64": 34e12}
 HEADLINE_LEVELS = [9938375, 1259712, 157464, 19683, 2744, 343]
 UNSTRUCT_DOFS = 1411632
 UNSTRUCT_LEVELS = 7
@@ -156,6 +188,12 @@ KERNELS = {
         "ngsamg_tpu_torch/csrc/dia_matvec.cu",
         "ngsamg_tpu/ops/dia_pallas.py:31",
     ),
+}
+# the bf16 path's kernels (phase 16)
+BF16_KERNELS = {
+    "stencil_tiled3d_bf16": KERNELS["stencil_tiled3d_f32"],
+    "dia_sym_matvec_bf16": KERNELS["dia_sym_matvec_f32"],
+    "dia_matvec_bf16": KERNELS["dia_matvec_f32"],
 }
 
 
@@ -188,7 +226,7 @@ def _bound_ms(nbytes: int, flops: int, dtype) -> tuple:
     import torch
 
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    peak = PEAK_FLOP_S["f32" if dtype == torch.float32 else "f64"]
+    peak = PEAK_FLOP_S["f64" if dtype == torch.float64 else "f32"]
     t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -504,11 +542,11 @@ def phase_main_path():
 
 def _stencil_key(A, dtype) -> str:
     """The launch counter of the K1 variant that A's plan picks."""
-    import torch
+    from ngsamg_tpu_torch.ops import cuda_lib
 
     kind = ("stencil_tiled3d" if A.launch.plan.variant == "tiled3d"
             else "stencil_matvec")
-    return f"{kind}_{'f32' if dtype == torch.float32 else 'f64'}"
+    return f"{kind}_{cuda_lib.suffix(dtype)}"
 
 
 def _path_kernels(pc) -> set:
@@ -537,7 +575,7 @@ def _level_cost(A, dtype) -> tuple:
     count: a matvec never reads the storage's out-of-range slots."""
     import torch
 
-    es = 4 if dtype == torch.float32 else 8
+    es = torch.empty((), dtype=dtype).element_size()
     vec = 2 * A.nrows_pad * es
     if hasattr(A, "dims"):
         nnz = sum(
@@ -1240,6 +1278,7 @@ def phase_elasticity_reference():
             raise AssertionError(f"bell.spmv {br}x{bc}: card vs CPU {err}")
     out["spmv_card_vs_cpu"] = errs
     print("[elasticity-reference] " + json.dumps(out), flush=True)
+    out["device_pencils"] = phase_device_pencils()
     return out
 
 
@@ -1532,6 +1571,384 @@ def phase_gs_reference():
     return out
 
 
+def phase_selftest(pc):
+    """The JAX package's self-tests on the headline preconditioner: the
+    bounds of M^-1 A, of every tail hierarchy and the smoother rates, with
+    the seconds and the kernel launches of each."""
+    import torch
+
+    out = {}
+    for name, run in (("test", lambda: pc.test(60)),
+                      ("test_levels", lambda: pc.test_levels(30)),
+                      ("test_smoothers", lambda: pc.test_smoothers(4))):
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        out[name] = {"s": time.perf_counter() - t0, "result": res,
+                     "launches": {k: v for k, v in _counts().items() if v}}
+    print("[selftest] " + json.dumps(out), flush=True)
+    print(f"[selftest] {sum(v['s'] for v in out.values()):.1f} s",
+          flush=True)
+    lmin, lmax = out["test"]["result"]
+    if not 0.05 < lmin <= lmax < 1.05:
+        raise AssertionError(f"selftest: bounds [{lmin}, {lmax}]")
+    for lvl, (lo, hi) in enumerate(out["test_levels"]["result"]):
+        if not 0.15 < lo <= hi < 1.3:
+            raise AssertionError(f"selftest: level {lvl} bounds [{lo}, {hi}]")
+    if not all(0 <= r < 1 for r in out["test_smoothers"]["result"]):
+        raise AssertionError(f"selftest: smoother rates "
+                             f"{out['test_smoothers']['result']}")
+    for name in ("test_levels", "test_smoothers"):
+        for k in KERNELS:
+            if k.endswith("_f32") and not out[name]["launches"].get(k):
+                raise AssertionError(f"selftest: {name} never launched {k}")
+    return out
+
+
+def _bf16_kernel_rows(pcb, f32_rows):
+    """K1 (tiled and general), K3 and K2 in bf16 at the headline's level
+    shapes: against their plain bf16 versions, two launches to the same
+    bits, device times beside the f32 level's, bounds at 2 bytes a value."""
+    import torch
+
+    from ngsamg_tpu_torch.ops import dia_cuda, stencil_cuda
+    from ngsamg_tpu_torch.sparse import formats
+    from ngsamg_tpu_torch.utils.timing import cold_ms, graph_ms
+
+    f32_ms = {(row["name"], e["level"]): e["device_ms"]
+              for row in f32_rows for e in row["levels"]}
+    bf = torch.bfloat16
+    per_kernel = {}
+    for lvl, lev in enumerate(pcb.op.levels):
+        A = lev.A
+        if isinstance(A, formats.StencilDia):
+            name = _stencil_key(A, bf)
+            kern, plain = stencil_cuda.stencil_matvec, \
+                stencil_cuda._stencil_matvec_plain
+            library = _conv3d_call
+        elif isinstance(A, formats.DiaMatrix):
+            name = "dia_sym_matvec_bf16" if A.sym_half else "dia_matvec_bf16"
+            kern, plain = dia_cuda.dia_matvec, dia_cuda._dia_matvec_plain
+            library = _csr_call
+        else:
+            continue
+        x = _rand_x(A.nrows, A.nrows_pad, bf, 200 + lvl)
+        err, rel = _check_kernel(A, x, kern, plain, BF16_TOL,
+                                 f"{name} level {lvl}")
+        _same_bits(kern, A, x, f"{name} level {lvl}")
+        nbytes, flops = _level_cost(A, bf)
+        bound_ms, bound_by = _bound_ms(nbytes, flops, bf)
+        lib = library(A, x)  # conv3d and cuSPARSE both take bf16
+        entry = {
+            "level": lvl, "rows": A.nrows, "variant": _variant(A),
+            "bytes": nbytes, "flops": flops, "max_abs_err": err,
+            "rel_err": rel,
+            "device_ms": graph_ms(lambda: kern(A, x)),
+            "cold_ms": cold_ms(lambda: kern(A, x)),
+            "plain_ms": graph_ms(lambda: plain(A, x), n=5),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None if lib is None else graph_ms(lib),
+            "f32_device_ms": f32_ms.get((name.replace("_bf16", "_f32"), lvl)),
+        }
+        entry["share_of_bound"] = bound_ms / entry["device_ms"]
+        if entry["variant"] == "tiled3d":
+            # the general K1 in bf16 on the same level
+            meta = stencil_cuda._device_meta(A.offs, A.dims, x.device)
+
+            def general():
+                return stencil_cuda._launch_general(A, x, meta)
+
+            entry["general_max_abs_err"], _ = _check_kernel(
+                A, x, lambda A_, x_: general(), plain, BF16_TOL,
+                f"{name} general kernel, level {lvl}")
+            y1, y2 = general(), general()
+            torch.cuda.synchronize()
+            if not torch.equal(y1, y2):
+                raise AssertionError("stencil_matvec_bf16: launches differ")
+            entry["general_ms"] = graph_ms(general)
+        print(f"[bf16] {name} " + json.dumps(entry), flush=True)
+        per_kernel.setdefault(name, []).append(entry)
+    if set(per_kernel) != set(BF16_KERNELS):
+        raise AssertionError(f"bf16 headline levels run {sorted(per_kernel)}")
+    return per_kernel
+
+
+def phase_bf16(p, f32_rows):
+    """The bf16 device dtype: kernels at the headline's shapes, the bf16
+    path's launches, and three solves on the card against the CPU."""
+    import torch
+
+    from ngsamg_tpu_torch import AMGPreconditioner
+    from ngsamg_tpu_torch.utils import fem
+
+    t0 = time.perf_counter()
+    bf_opts = _cheb_opts().replace(dtype="bfloat16")
+    pcb = AMGPreconditioner(p.A, coords=p.coords, options=bf_opts,
+                            device="cuda").setup()
+    per_kernel = _bf16_kernel_rows(pcb, f32_rows)
+    # the bf16 path: the headline solved in bf16 from counters at 0
+    _reset_counts()
+    _x, info = pcb.solve(p.b, tol=1e-8, return_device=True)
+    torch.cuda.synchronize()
+    launches = _counts()
+    path = {"iterations": int(info.iterations),
+            "outer_iterations": int(info.outer_iterations),
+            "converged": bool(info.converged), "history": info.history,
+            "launches": {k: v for k, v in launches.items() if v}}
+    print("[bf16] headline solve " + json.dumps(path), flush=True)
+    for k in BF16_KERNELS:
+        if launches[k] <= 0:
+            raise AssertionError(f"bf16 path: {k} never launched")
+    del pcb
+    solves = {}
+    for label, n, cheb in (("poisson_3d(12) default", 12, False),
+                           ("poisson_3d(24) chebyshev", 24, True),
+                           ("poisson_3d(40) chebyshev", 40, True)):
+        q = fem.poisson_3d(n)
+        opts = (_cheb_opts() if cheb else _options()).replace(
+            dtype="bfloat16")
+        res = {}
+        for dev in ("cuda", "cpu"):
+            _reset_counts()
+            pcs = AMGPreconditioner(q.A, coords=q.coords, options=opts,
+                                    device=dev).setup()
+            xs, inf = pcs.solve(q.b, tol=1e-8)
+            res[dev] = {
+                "iterations": int(inf.iterations),
+                "outer_iterations": int(inf.outer_iterations),
+                "converged": bool(inf.converged),
+                "relres_true": float(np.linalg.norm(q.b - q.A @ xs)
+                                     / np.linalg.norm(q.b)),
+                "history": inf.history,
+                "finest": type(pcs.op.levels[0].A).__name__,
+            }
+            if dev == "cuda":
+                res[dev]["launches"] = {k: v for k, v in _counts().items()
+                                        if v and k.endswith("bf16")}
+        solves[label] = res
+        print(f"[bf16] {label} " + json.dumps(res), flush=True)
+        g, c = res["cuda"], res["cpu"]
+        if n == 40:
+            if g["converged"] != c["converged"] or \
+                    not g["launches"].get("stencil_tiled3d_bf16"):
+                raise AssertionError(f"bf16 {label}: card against CPU {res}")
+            continue
+        band = max(2, 0.1 * c["iterations"])
+        if abs(g["iterations"] - c["iterations"]) > band or \
+                not g["converged"] or g["relres_true"] > 1e-8:
+            raise AssertionError(f"bf16 {label}: card against CPU {res}")
+        if n == 24 and not g["launches"].get("dia_matvec_bf16"):
+            raise AssertionError(f"bf16 {label}: K2 in bf16 never launched")
+    rows = []
+    for name, (src, replaces) in BF16_KERNELS.items():
+        levels = per_kernel[name]
+        big = max(levels, key=lambda e: e["rows"])
+        rows.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": int(launches[name]),
+            "max_abs_err": max(e["max_abs_err"] for e in levels),
+            "ms": big["device_ms"], "device_ms": big["device_ms"],
+            "cold_ms": big["cold_ms"], "plain_ms": big["plain_ms"],
+            "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
+            "library_ms": big["library_ms"], "variant": big["variant"],
+            "levels": [
+                {k: e[k] for k in ("level", "rows", "variant", "device_ms",
+                                   "cold_ms", "bound_ms", "share_of_bound",
+                                   "library_ms", "plain_ms",
+                                   "f32_device_ms", "general_ms")
+                 if k in e}
+                for e in levels
+            ],
+        })
+    print(f"[bf16] {time.perf_counter() - t0:.1f} s", flush=True)
+    return rows, solves
+
+
+def _nodalp2_problem():
+    """poisson_2d(32) viewed as P2 over the vertices at odd interior
+    coordinates: (problem, (midnode, parent, parent) triples, vertex
+    mask)."""
+    from ngsamg_tpu_torch.utils import fem
+
+    prob = fem.poisson_2d(32)
+    m = 31
+    idx = np.arange(m * m)
+    pi, pj = idx // m + 1, idx % m + 1
+    is_vert = (pi % 2 == 1) & (pj % 2 == 1)
+    trips = []
+    for t in np.flatnonzero(~is_vert):
+        ti, tj = pi[t], pj[t]
+        if ti % 2 == 0 and tj % 2:
+            a, b = (ti - 1, tj), (ti + 1, tj)
+        elif ti % 2:
+            a, b = (ti, tj - 1), (ti, tj + 1)
+        else:
+            a, b = (ti - 1, tj - 1), (ti + 1, tj + 1)
+        trips.append((t, (a[0] - 1) * m + a[1] - 1, (b[0] - 1) * m + b[1] - 1))
+    return prob, np.asarray(trips, dtype=np.int64), is_vert
+
+
+def phase_frontend_reference():
+    """The front-end inputs on the card against the CPU, small sizes."""
+    from ngsamg_tpu_torch import AMGPreconditioner
+    from ngsamg_tpu_torch.utils import fem
+
+    t0 = time.perf_counter()
+    cases = {}
+    e = fem.elasticity_2d(8, length=6)
+    fd = np.ones(e.n, dtype=bool)
+    fd[np.random.default_rng(0).choice(e.n // 2, 10, replace=False) * 2 + 1] \
+        = False
+    idx = np.flatnonzero(fd)
+    o = _options(dtype="float64")
+    o.levels.max_coarse_size = 60
+    cases["partial dirichlet"] = (e.A, e.A[idx][:, idx].tocsr(), e.b[idx], dict(
+        energy="elasticity", block_size=2, coords=e.coords, freedofs=fd,
+        options=o))
+    base = fem.poisson_2d(32)
+    vp = fem.vector_poisson(base, 2)
+    inv = np.argsort((np.arange(2)[None, :] * base.n
+                      + np.arange(base.n)[:, None]).ravel())
+    Ac = vp.A[inv][:, inv].tocsr()
+    cases["compound"] = (Ac, Ac, vp.b[inv], dict(
+        block_size=2, coords=vp.coords, dof_layout="compound",
+        options=_options()))
+    q, dnums, elmats = fem.poisson_2d_elmats(32)
+    cases["elmat"] = (q.A, q.A, q.b, dict(
+        coords=q.coords, elmat_data=(dnums, elmats), options=_options()))
+    q2, trips, is_vert = _nodalp2_problem()
+    cases["nodalp2"] = (q2.A, q2.A, q2.b, dict(
+        coords=q2.coords[is_vert], nodalp2=trips,
+        options=_options(dtype="float64")))
+    q3 = fem.poisson_3d(24)
+    cases["do_test"] = (q3.A, q3.A, q3.b, dict(
+        coords=q3.coords, options=_cheb_opts().replace(do_test=True)))
+    out = {}
+    for label, (A, A_ext, b_ext, kw) in cases.items():
+        res = {}
+        for dev in ("cuda", "cpu"):
+            pc = AMGPreconditioner(A, device=dev, **kw).setup()
+            x, info = pc.solve(b_ext, tol=1e-8)
+            res[dev] = {
+                "levels": [int(v) for v in pc.log_.nvs],
+                "iterations": int(info.iterations),
+                "relres_true": float(np.linalg.norm(b_ext - A_ext @ x)
+                                     / np.linalg.norm(b_ext)),
+                "bounds": list(pc.test(30)), "x": x,
+            }
+        g, c = res["cuda"], res["cpu"]
+        diff = float(np.linalg.norm(g.pop("x") - c.pop("x"))
+                     / np.linalg.norm(b_ext))
+        out[label] = {**res, "x_diff_over_b": diff}
+        bounds_ok = np.allclose(g["bounds"], c["bounds"], rtol=1e-2, atol=0)
+        if g["levels"] != c["levels"] or \
+                abs(g["iterations"] - c["iterations"]) > 1 or \
+                g["relres_true"] > 1e-8 or not bounds_ok:
+            raise AssertionError(f"frontend {label}: card against CPU "
+                                 f"{out[label]}")
+    print("[frontend-reference] " + json.dumps(out), flush=True)
+    print(f"[frontend-reference] {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out
+
+
+def _agg_labels(v2agg):
+    """Each vertex's aggregate named by its first vertex (-1: none), so
+    that two aggregations compare whatever their numbering."""
+    v2agg = np.asarray(v2agg)
+    ok = v2agg >= 0
+    first = np.full(int(v2agg.max(initial=-1)) + 1, len(v2agg))
+    np.minimum.at(first, v2agg[ok], np.flatnonzero(ok))
+    return np.where(ok, first[np.where(ok, v2agg, 0)], -1)
+
+
+def phase_device_pencils():
+    """elasticity_3d(8) with the robust SOC's pencils on the card
+    (``DEVICE_SOC_MIN_EDGES = 1``) against the default numpy branch."""
+    import torch
+
+    import ngsamg_tpu_torch.apps.elasticity as el
+    from ngsamg_tpu_torch import AMGPreconditioner
+    from ngsamg_tpu_torch.ops import batched_la
+    from ngsamg_tpu_torch.utils import fem
+
+    t0 = time.perf_counter()
+    q = fem.elasticity_3d(8)
+    numpy_branch = el._pencil_extreme_eig
+    batches = []
+
+    def recording(E, C, **kw):
+        batches.append((E, C, kw.get("reduction", "min")))
+        return numpy_branch(E, C, **kw)
+
+    runs, recorded = {}, {}
+    el._pencil_extreme_eig = recording
+    try:
+        for label, min_edges in (("default", el.DEVICE_SOC_MIN_EDGES),
+                                 ("device", 1)):
+            el.DEVICE_SOC_MIN_EDGES = min_edges
+            ts = time.perf_counter()
+            pc = AMGPreconditioner(q.A, energy="elasticity", block_size=3,
+                                   coords=q.coords, options=_cheb_opts(),
+                                   device="cuda").setup()
+            setup_s = time.perf_counter() - ts
+            x, info = pc.solve(q.b, tol=1e-8, mixed=True)
+            runs[label] = {
+                "setup_host_s": setup_s,
+                "level_sizes": [int(v) for v in pc.log_.nvs],
+                "iterations": int(info.iterations),
+                "relres_true": float(np.linalg.norm(q.b - q.A @ x)
+                                     / np.linalg.norm(q.b)),
+                "v2agg": [lev.v2agg for lev in pc.setup_levels_
+                          if lev.v2agg is not None],
+                "pencil_batches": len(batches),
+            }
+            recorded[label] = list(batches)
+            batches.clear()
+    finally:
+        el._pencil_extreme_eig = numpy_branch
+        el.DEVICE_SOC_MIN_EDGES = 10**9
+    d, g = runs["default"], runs["device"]
+    agree = [float(np.mean(_agg_labels(a) == _agg_labels(b)))
+             if a.shape == b.shape else 0.0
+             for a, b in zip(d.pop("v2agg"), g.pop("v2agg"))]
+    # the largest pencil batch of the default setup, both branches
+    E, C, red = max(recorded["default"], key=lambda b: len(b[0]))
+    t1 = time.perf_counter()
+    ref = numpy_branch(E, C, reduction=red)
+    numpy_s = time.perf_counter() - t1
+    el.DEVICE_SOC_MIN_EDGES = 1
+    try:
+        numpy_branch(E, C, reduction=red, device="cuda")  # warm-up
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        dev = numpy_branch(E, C, reduction=red, device="cuda")
+        device_s = time.perf_counter() - t2
+    finally:
+        el.DEVICE_SOC_MIN_EDGES = 10**9
+    Et = torch.as_tensor(E, dtype=torch.float32, device="cuda")
+    Ct = torch.as_tensor(C, dtype=torch.float32, device="cuda")
+    from ngsamg_tpu_torch.utils.timing import event_ms
+
+    compute_ms = event_ms(lambda: batched_la.pencil_extreme_eig(
+        Et, Ct, rel_tol=1e-6, reduction=red), reps=5)
+    scale = max(float(np.abs(ref).max()), 1e-30)
+    differ = int((np.abs(dev - ref) > 5e-3 * np.abs(ref) + 1e-4 * scale).sum())
+    out = {"default": d, "device": g, "aggregates_agree": agree,
+           "largest_batch": int(len(E)), "block": int(E.shape[-1]),
+           "reduction": red, "numpy_s": numpy_s,
+           "device_call_s": device_s, "device_compute_ms": compute_ms,
+           "pencils_differ": differ, "s": time.perf_counter() - t0}
+    print("[elasticity-reference] device pencils " + json.dumps(out),
+          flush=True)
+    if len(d["level_sizes"]) != len(g["level_sizes"]) or \
+            g["relres_true"] > 1e-8 or d["relres_true"] > 1e-8:
+        raise AssertionError(f"device pencils: {out}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1544,7 +1961,10 @@ def main() -> int:
     _warm, warm_launches = phase_reference(p, pc)
     for row in rows:
         row["launches_warm_solve"] = int(warm_launches[row["name"]])
-    del p, pc
+    phase_selftest(pc)
+    del pc
+    bf16_rows, _solves = phase_bf16(p, rows)
+    del p
     _up, upc, _uout = phase_unstructured()
     phase_tile_ell(upc)
     del _up, upc
@@ -1554,6 +1974,7 @@ def main() -> int:
     phase_block_ell(epc)
     del _ep, epc
     phase_elasticity_reference()
+    phase_frontend_reference()
     from ngsamg_tpu_torch.utils import fem
 
     gp = fem.poisson_3d(GS_N)
@@ -1570,7 +1991,7 @@ def main() -> int:
         if err is not None:
             row["max_abs_err"] = max(row["max_abs_err"], err)
     print(_nvidia_smi())
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": rows + bf16_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

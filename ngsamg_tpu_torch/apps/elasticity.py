@@ -4,9 +4,11 @@ Copied from ngsamg_tpu/apps/elasticity.py, numpy branches only: where the
 original first asks its native extension (``frob2_sym``, ``elast_ahat_bsr``,
 ``rigid_edge_blocks``, ``bsr_from_edge_blocks``, ``elast_rm_diag``,
 ``harmonic_mean_sym``, ``elast_soc_robust``, ``elast_map_edge_mats``,
-``pencil_extreme_eig``) this copy runs the numpy code beside it, and the
-device pencil solver of ``_pencil_extreme_eig`` (off by default there) is
-left out (ROADMAP queue 1 item 6).
+``pencil_extreme_eig``) this copy runs the numpy code beside it. The device
+pencil solver of ``_pencil_extreme_eig`` (ops/batched_la.py, behind
+``DEVICE_SOC_MIN_EDGES``, off by default as in the JAX package) runs on the
+energy's ``device``, which the preconditioner sets to its own; a failure
+there raises.
 
 The reference's `EpsEpsEnergy` (elasticity_energy.hpp:11-150) with DPV = 3
 (2D: 2 displacements + 1 rotation) / 6 (3D: 3 + 3), vertex data = position +
@@ -78,7 +80,8 @@ class ElasticityEnergy(Energy):
 
     default_robust = True  # ENABLE_ROBUST_ELASTICITY_COARSENING analog
 
-    def __init__(self, dim: int, rot_scale: float | str = "auto"):
+    def __init__(self, dim: int, rot_scale: float | str = "auto",
+                 device=None):
         # goal-driven coarsening default for 3D (reference per-app
         # factory flags): fixed 2-round pairs give oc ~5 at 1M DoF with
         # 3x3-block smoothed prolongations; aaf 0.08 -> aggregates ~12,
@@ -91,6 +94,9 @@ class ElasticityEnergy(Energy):
         self.dpv = 3 if dim == 2 else 6
         self.rot_scale = rot_scale
         self._s = 1.0 if rot_scale == "auto" else float(rot_scale)
+        # where the batched pencil solver runs (``_pencil_extreme_eig``);
+        # AMGPreconditioner sets its own device here
+        self.device = device
 
     # -- transport --------------------------------------------------------
     def transport(self, pos_from, pos_to) -> np.ndarray:
@@ -423,7 +429,8 @@ class ElasticityEnergy(Energy):
         dsum_inv = np.linalg.pinv(di + dj, rcond=1e-12, hermitian=True)
         C = di @ dsum_inv @ dj
         C = 0.5 * (C + np.transpose(C, (0, 2, 1)))
-        res = _pencil_extreme_eig(E, C, reduction=reduction)
+        res = _pencil_extreme_eig(E, C, reduction=reduction,
+                                  device=self.device)
         if edge_subset is None:
             return res
         out = np.zeros(ne_full)
@@ -503,14 +510,40 @@ class ElasticityEnergy(Energy):
         return cmesh
 
 
-def _pencil_extreme_eig(E, C, reduction="min", tol=1e-10):
+# batches at least this large go to the batched pencil solver
+# (ops/batched_la.pencil_extreme_eig) on the energy's device, in f32. Off
+# by default, as in the JAX package, whose hierarchies the port matches;
+# tests and chip_smoke.py set it to 1 to take the device branch.
+DEVICE_SOC_MIN_EDGES = 10**9
+
+
+def _pencil_extreme_eig(E, C, reduction="min", tol=1e-10, device=None):
     """Batched extreme eigenvalue of pencil (E, C) restricted to range(C).
 
     Vectorized version of `CalcRobustPairSOC`: eigendecompose C, scale the
     above-threshold eigvecs by 1/sqrt(lam), form W^T E W, and take the
     min (or max) eigenvalue; null directions of C get a +/-inf sentinel on
-    the diagonal so they never win.
+    the diagonal so they never win. Batches of ``DEVICE_SOC_MIN_EDGES`` or
+    more run in f32 on ``device`` (SOC scores only order candidates) and
+    raise there on failure; the rest in f64 numpy.
     """
+    if len(E) >= DEVICE_SOC_MIN_EDGES:
+        import torch
+
+        from ..ops import batched_la
+
+        if device is None:
+            raise ValueError(
+                "the batched pencil solver needs the energy's device "
+                "(ElasticityEnergy(device=...))"
+            )
+        out = batched_la.pencil_extreme_eig(
+            torch.as_tensor(E, dtype=torch.float32, device=device),
+            torch.as_tensor(C, dtype=torch.float32, device=device),
+            rel_tol=max(tol, 1e-6),
+            reduction=reduction,
+        )
+        return out.cpu().numpy().astype(np.float64)
     lam, V = np.linalg.eigh(C)
     lam_max = np.maximum(lam[:, -1:], 1e-300)
     ok = lam > tol * lam_max

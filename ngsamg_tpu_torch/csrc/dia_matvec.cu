@@ -74,11 +74,19 @@
 // The TPU kernels' K-tile data halo only staged data in VMEM and is not
 // carried over.
 //
+// Both kernels are built for f32, f64 and bf16 (the TPU kernels follow the
+// data's dtype, bf16 included). The bf16 builds load bfloat16 data and x,
+// sum in f32 and round once at the store (precision.cuh); their partial
+// sums in shared memory are f32, so the plans size them by the
+// accumulation type and x's window by the storage type.
+//
 // C interface (loaded with ctypes): each entry point launches on the given
 // stream and returns cudaGetLastError() as an int.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "precision.cuh"
 
 namespace {
 
@@ -87,7 +95,8 @@ constexpr int kSmemBudget = 48 * 1024;  // a block's shared memory, no opt-in
 constexpr int kSymRows = 2;  // consecutive rows of a K3 thread
 
 // Shared memory: offsets (ndiag int64), the groups' partial sums
-// (groups x 32), then x's window (window values; 0 on the ldg path).
+// (groups x 32, accumulation type), then x's window (window values; 0 on
+// the ldg path).
 template <typename T>
 __global__ void dia_tiled_kernel(const T* __restrict__ data,
                                  const long long* __restrict__ offs,
@@ -95,11 +104,12 @@ __global__ void dia_tiled_kernel(const T* __restrict__ data,
                                  int window, long long lo,
                                  const T* __restrict__ x,
                                  T* __restrict__ y) {
+  using Acc = typename AccOf<T>::type;
   extern __shared__ __align__(16) unsigned char smem[];
   long long* s_offs = reinterpret_cast<long long*>(smem);
-  T* s_part = reinterpret_cast<T*>(s_offs + ndiag);
+  Acc* s_part = reinterpret_cast<Acc*>(s_offs + ndiag);
   const int groups = blockDim.x / kTileRows;
-  T* s_x = s_part + groups * kTileRows;
+  T* s_x = reinterpret_cast<T*>(s_part + groups * kTileRows);
   const int lane = threadIdx.x % kTileRows, g = threadIdx.x / kTileRows;
   const long long r0 = (long long)blockIdx.x * kTileRows;
   for (int d = threadIdx.x; d < ndiag; d += blockDim.x) s_offs[d] = offs[d];
@@ -107,33 +117,34 @@ __global__ void dia_tiled_kernel(const T* __restrict__ data,
 #pragma unroll 4
   for (int k = threadIdx.x; k < window; k += blockDim.x) {
     const long long j = w0 + k;
-    s_x[k] = (j >= 0 && j < n_pad) ? x[j] : T(0);
+    s_x[k] = (j >= 0 && j < n_pad) ? x[j] : from_acc<T>(Acc(0));
   }
   __syncthreads();
   const long long row = r0 + lane;
   const int d0 = g * per_group, d1 = min(d0 + per_group, ndiag);
-  T acc = T(0);
+  Acc acc = Acc(0);
   if (row < n_pad) {
     const T* dp = data + row;
     if (window > 0) {
       const T* xw = s_x + (lane - lo);  // x[row + off] = xw[off]
 #pragma unroll 4
       for (int d = d0; d < d1; ++d)
-        acc += dp[(long long)d * n_pad] * xw[s_offs[d]];
+        acc += to_acc(dp[(long long)d * n_pad]) * to_acc(xw[s_offs[d]]);
     } else {
 #pragma unroll 4
       for (int d = d0; d < d1; ++d) {
         const long long j = row + s_offs[d];
-        if (j >= 0 && j < n_pad) acc += dp[(long long)d * n_pad] * __ldg(x + j);
+        if (j >= 0 && j < n_pad)
+          acc += to_acc(dp[(long long)d * n_pad]) * to_acc(__ldg(x + j));
       }
     }
   }
   s_part[g * kTileRows + lane] = acc;
   __syncthreads();
   if (g == 0 && row < n_pad) {
-    T sum = s_part[lane];
+    Acc sum = s_part[lane];
     for (int k = 1; k < groups; ++k) sum += s_part[k * kTileRows + lane];
-    y[row] = sum;
+    y[row] = from_acc<T>(sum);
   }
 }
 
@@ -155,8 +166,9 @@ template <typename T, int R, int U, bool CHECK>
 __device__ __forceinline__ void sym_terms(
     const T* __restrict__ data, const T* __restrict__ x,
     const long long* __restrict__ s_offs, int d, long long n_pad,
-    long long g0, T (&acc)[R]) {
-  T ap[U][R], xp[U][R], am[U][R], xm[U][R];
+    long long g0, typename AccOf<T>::type (&acc)[R]) {
+  using Acc = typename AccOf<T>::type;
+  Acc ap[U][R], xp[U][R], am[U][R], xm[U][R];
 #pragma unroll
   for (int u = 0; u < U; ++u) {
     const long long o = s_offs[d + u];
@@ -168,11 +180,11 @@ __device__ __forceinline__ void sym_terms(
       const bool okp = !CHECK || jp < n_pad;
       const bool okm = o > 0 && (!CHECK || jm >= 0);
       const long long cm = (CHECK && jm < 0) ? own : jm;
-      xp[u][i] = __ldg(x + (okp ? jp : own));
-      xm[u][i] = __ldg(x + cm);
-      const T m = __ldg(row + cm);
-      ap[u][i] = okp ? a.v[i] : T(0);
-      am[u][i] = okm ? m : T(0);
+      xp[u][i] = to_acc(__ldg(x + (okp ? jp : own)));
+      xm[u][i] = to_acc(__ldg(x + cm));
+      const Acc m = to_acc(__ldg(row + cm));
+      ap[u][i] = okp ? to_acc(a.v[i]) : Acc(0);
+      am[u][i] = okm ? m : Acc(0);
     }
   }
 #pragma unroll
@@ -190,7 +202,7 @@ template <typename T, int R, int U, bool CHECK>
 __device__ __forceinline__ void sym_accumulate(
     const T* __restrict__ data, const T* __restrict__ x,
     const long long* __restrict__ s_offs, int d0, int d1, long long n_pad,
-    long long g0, T (&acc)[R]) {
+    long long g0, typename AccOf<T>::type (&acc)[R]) {
   int d = d0;
   for (; d + U <= d1; d += U)
     sym_terms<T, R, U, CHECK>(data, x, s_offs, d, n_pad, g0, acc);
@@ -199,7 +211,8 @@ __device__ __forceinline__ void sym_accumulate(
 }
 
 // Shared memory: with more than one group the groups' partial sums
-// (groups x tile, a multiple of 16 bytes), then the offsets (ndiag int64).
+// (groups x tile in the accumulation type, a multiple of 16 bytes), then
+// the offsets (ndiag int64).
 template <typename T, int R, int U>
 __global__ void dia_sym_tiled_kernel(const T* __restrict__ data,
                                      const long long* __restrict__ offs,
@@ -207,11 +220,12 @@ __global__ void dia_sym_tiled_kernel(const T* __restrict__ data,
                                      int per_group, long long reach,
                                      const T* __restrict__ x,
                                      T* __restrict__ y) {
+  using Acc = typename AccOf<T>::type;
   extern __shared__ __align__(16) unsigned char smem[];
   const int groups = blockDim.x / tpg;
   const int t = threadIdx.x % tpg, g = threadIdx.x / tpg;
   const long long tile = (long long)tpg * R;
-  T* s_part = reinterpret_cast<T*>(smem);
+  Acc* s_part = reinterpret_cast<Acc*>(smem);
   long long* s_offs =
       reinterpret_cast<long long*>(s_part + (groups > 1 ? groups * tile : 0));
   const long long r0 = (long long)blockIdx.x * tile;
@@ -220,33 +234,34 @@ __global__ void dia_sym_tiled_kernel(const T* __restrict__ data,
   const long long g0 = r0 + (long long)t * R;
   const bool live = g0 < n_pad;  // n_pad is a multiple of R
   const int d0 = g * per_group, d1 = min(d0 + per_group, ndiag);
-  T acc[R];
+  Acc acc[R];
 #pragma unroll
-  for (int i = 0; i < R; ++i) acc[i] = T(0);
+  for (int i = 0; i < R; ++i) acc[i] = Acc(0);
   if (live) {
     if (r0 >= reach && r0 + tile + reach <= n_pad)
       sym_accumulate<T, R, U, false>(data, x, s_offs, d0, d1, n_pad, g0, acc);
     else
       sym_accumulate<T, R, U, true>(data, x, s_offs, d0, d1, n_pad, g0, acc);
   }
-  Pack<T, R> p;
   if (groups > 1) {
+    Pack<Acc, R> p;
 #pragma unroll
     for (int i = 0; i < R; ++i) p.v[i] = acc[i];
-    *reinterpret_cast<Pack<T, R>*>(s_part + (long long)g * tile + t * R) = p;
+    *reinterpret_cast<Pack<Acc, R>*>(s_part + (long long)g * tile + t * R) = p;
     __syncthreads();
     if (g != 0) return;
     for (int k = 1; k < groups; ++k) {
-      p = *reinterpret_cast<const Pack<T, R>*>(s_part + (long long)k * tile +
-                                               t * R);
+      p = *reinterpret_cast<const Pack<Acc, R>*>(s_part + (long long)k * tile +
+                                                 t * R);
 #pragma unroll
       for (int i = 0; i < R; ++i) acc[i] += p.v[i];
     }
   }
   if (live) {
+    Pack<T, R> out;
 #pragma unroll
-    for (int i = 0; i < R; ++i) p.v[i] = acc[i];
-    *reinterpret_cast<Pack<T, R>*>(y + g0) = p;
+    for (int i = 0; i < R; ++i) out.v[i] = from_acc<T>(acc[i]);
+    *reinterpret_cast<Pack<T, R>*>(y + g0) = out;
   }
 }
 
@@ -280,7 +295,9 @@ int launch_sym(const T* data, const long long* offs, int ndiag,
     return (int)cudaErrorInvalidValue;
   const long long smem =
       (long long)ndiag * sizeof(long long) +
-      (groups > 1 ? (long long)groups * tile * sizeof(T) : 0);
+      (groups > 1
+           ? (long long)groups * tile * sizeof(typename AccOf<T>::type)
+           : 0);
   if (smem != smem_bytes || smem > kSmemBudget ||
       blocks != (n_pad + tile - 1) / tile || blocks > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
@@ -300,8 +317,10 @@ int launch_tiled(const T* data, const long long* offs, int ndiag,
                  long long n_pad, int groups, int per_group, int window,
                  long long lo, const T* x, T* y, void* stream) {
   if (n_pad <= 0) return 0;
-  const long long smem = (long long)ndiag * sizeof(long long) +
-                         ((long long)groups * kTileRows + window) * sizeof(T);
+  const long long smem =
+      (long long)ndiag * sizeof(long long) +
+      (long long)groups * kTileRows * sizeof(typename AccOf<T>::type) +
+      (long long)window * sizeof(T);
   if (groups < 1 || groups > 32 || window < 0 || smem > kSmemBudget ||
       (long long)groups * per_group < ndiag)
     return (int)cudaErrorInvalidValue;
@@ -355,4 +374,27 @@ extern "C" int ngsamg_dia_sym_matvec_f64(const double* data,
   return launch_sym<double>(data, offs, ndiag, n_pad, batch, tpg, groups,
                             per_group, tile, reach, smem_bytes, blocks, x, y,
                             stream);
+}
+
+extern "C" int ngsamg_dia_matvec_bf16(const __nv_bfloat16* data,
+                                      const long long* offs, int ndiag,
+                                      long long n_pad, int groups,
+                                      int per_group, int window, long long lo,
+                                      const __nv_bfloat16* x,
+                                      __nv_bfloat16* y, void* stream) {
+  return launch_tiled<__nv_bfloat16>(data, offs, ndiag, n_pad, groups,
+                                     per_group, window, lo, x, y, stream);
+}
+
+extern "C" int ngsamg_dia_sym_matvec_bf16(const __nv_bfloat16* data,
+                                          const long long* offs, int ndiag,
+                                          long long n_pad, int batch, int tpg,
+                                          int groups, int per_group, int tile,
+                                          long long reach, int smem_bytes,
+                                          long long blocks,
+                                          const __nv_bfloat16* x,
+                                          __nv_bfloat16* y, void* stream) {
+  return launch_sym<__nv_bfloat16>(data, offs, ndiag, n_pad, batch, tpg,
+                                   groups, per_group, tile, reach, smem_bytes,
+                                   blocks, x, y, stream);
 }

@@ -47,11 +47,20 @@
 // The TPU kernel's three-tile x window and lane roll existed only to stage
 // x in VMEM and are not carried over.
 //
+// Both variants are built for f32, f64 and bf16 (the TPU kernel follows
+// x's dtype, bf16 included). The bf16 builds load bfloat16 values and x,
+// sum in f32 and round once at the store (precision.cuh); the tiled one
+// passes its weights as f32 (the bf16 values, exactly). cp.async copies 4,
+// 8 or 16 bytes, not 2, so the bf16 ring is filled by plain loads and
+// shared-memory stores instead, with the same slots and barriers.
+//
 // C interface (loaded with ctypes): each entry point launches on the given
 // stream and returns cudaGetLastError() as an int.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "precision.cuh"
 
 namespace {
 
@@ -103,6 +112,7 @@ __global__ void stencil_matvec_kernel(const T* __restrict__ vals,
                                       long long nrows_pad,
                                       const T* __restrict__ x,
                                       T* __restrict__ y) {
+  using Acc = typename AccOf<T>::type;
   long long stride[D], reach[D];
   stride[D - 1] = 1;
 #pragma unroll
@@ -114,7 +124,7 @@ __global__ void stencil_matvec_kernel(const T* __restrict__ vals,
   for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        g < nrows_pad; g += step) {
     if (g >= nrows) {
-      y[g] = T(0);
+      y[g] = from_acc<T>(Acc(0));
       continue;
     }
     long long c[D];
@@ -123,9 +133,10 @@ __global__ void stencil_matvec_kernel(const T* __restrict__ vals,
 #pragma unroll
     for (int k = 0; k < D; ++k)
       interior = interior && c[k] >= reach[k] && c[k] < dims.v[k] - reach[k];
-    T acc = T(0);
+    Acc acc = Acc(0);
     if (interior) {
-      for (int t = 0; t < m; ++t) acc += vals[t] * x[g + meta[t]];
+      for (int t = 0; t < m; ++t)
+        acc += to_acc(vals[t]) * to_acc(x[g + meta[t]]);
     } else {
       for (int t = 0; t < m; ++t) {
         const long long* off = meta + m + (long long)t * D;
@@ -135,10 +146,10 @@ __global__ void stencil_matvec_kernel(const T* __restrict__ vals,
           const long long ck = c[k] + off[k];
           inside = inside && ck >= 0 && ck < dims.v[k];
         }
-        if (inside) acc += vals[t] * x[g + meta[t]];
+        if (inside) acc += to_acc(vals[t]) * to_acc(x[g + meta[t]]);
       }
     }
-    y[g] = acc;
+    y[g] = from_acc<T>(acc);
   }
 }
 
@@ -192,13 +203,13 @@ constexpr int kSlots = 8;                 // ring planes: 3 in use, 5 in flight
 constexpr int kMirror = 2;                // slots 0, 1 repeated after the ring
 constexpr int kMaxTaps = 27;
 
-// w: the weights in A.offs order, zero-padded. off: each tap's offset in
-// the three-plane window [z - 1, z + 1] of the ring, relative to the
-// thread's cell: (dz + 1) * kPlane + (dy + 1) * kHX + (dx + 1) (launch3d
-// computes it).
-template <typename T>
+// w: the weights in A.offs order, zero-padded, in the accumulation type.
+// off: each tap's offset in the three-plane window [z - 1, z + 1] of the
+// ring, relative to the thread's cell: (dz + 1) * kPlane + (dy + 1) * kHX +
+// (dx + 1) (launch3d computes it).
+template <typename W>
 struct Taps {
-  T w[kMaxTaps];
+  W w[kMaxTaps];
   int off[kMaxTaps];
 };
 
@@ -231,7 +242,9 @@ struct Ring {
 
   // start copying this thread's cells of lattice plane z into a slot, and
   // into its mirror for slots 0 and 1 (zeros outside the lattice), as one
-  // commit group
+  // commit group. A 2-byte value has no cp.async: it is loaded and stored
+  // here, and the group stays empty (the slot is free when fetch is called
+  // and is read only after a later barrier either way).
   __device__ __forceinline__ void fetch(int z, int slot) const {
     const bool zin = z >= 0 && z < n0;
 #pragma unroll
@@ -239,11 +252,17 @@ struct Ring {
       if (soff[k] < 0) continue;
       const bool ok = zin && goff[k] >= 0;
       const T* src = ok ? x + (long long)z * plane + goff[k] : x;
-      const int bytes = ok ? (int)sizeof(T) : 0;
-      cp_async<sizeof(T)>(s + slot * kPlane + soff[k], src, bytes);
-      if (slot < kMirror)
-        cp_async<sizeof(T)>(s + (slot + kSlots) * kPlane + soff[k], src,
-                            bytes);
+      if constexpr (sizeof(T) >= 4) {
+        const int bytes = ok ? (int)sizeof(T) : 0;
+        cp_async<sizeof(T)>(s + slot * kPlane + soff[k], src, bytes);
+        if (slot < kMirror)
+          cp_async<sizeof(T)>(s + (slot + kSlots) * kPlane + soff[k], src,
+                              bytes);
+      } else {
+        const T v = ok ? *src : from_acc<T>(0.0f);
+        s[slot * kPlane + soff[k]] = v;
+        if (slot < kMirror) s[(slot + kSlots) * kPlane + soff[k]] = v;
+      }
     }
     cp_async_commit();
   }
@@ -251,10 +270,12 @@ struct Ring {
 
 template <typename T, int NT>
 __global__ void __launch_bounds__(kThreads3d, 4)
-    stencil3d_kernel(const Taps<T> taps, int n0, int n1, int n2,
+    stencil3d_kernel(const Taps<typename AccOf<T>::type> taps, int n0,
+                     int n1, int n2,
                      int tiles_x, int tiles_y, int chunk, long long nrows,
                      long long nrows_pad, const T* __restrict__ x,
                      T* __restrict__ y) {
+  using Acc = typename AccOf<T>::type;
   extern __shared__ __align__(16) unsigned char smem3d[];
   T* s = reinterpret_cast<T*>(smem3d);
   const int tid = threadIdx.x;
@@ -266,7 +287,7 @@ __global__ void __launch_bounds__(kThreads3d, 4)
   const int z1 = min(z0 + chunk, n0);
   if (blockIdx.x == 0)
     for (long long g = nrows + tid; g < nrows_pad; g += kThreads3d)
-      y[g] = T(0);
+      y[g] = from_acc<T>(Acc(0));
 
   Ring<T> ring;
   ring.s = s;
@@ -313,35 +334,37 @@ __global__ void __launch_bounds__(kThreads3d, 4)
     if (p <= z1) ring.fetch(p, (p - z0 + 1) % kSlots);
     else cp_async_commit();
     const T* win = cell + ((z - z0) % kSlots) * kPlane;
-    T acc[kRows];
+    Acc acc[kRows];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = T(0);
+    for (int r = 0; r < kRows; ++r) acc[r] = Acc(0);
 #pragma unroll
     for (int t = 0; t < NT; ++t) {
       const T* v = win + taps.off[t];
 #pragma unroll
       for (int r = 0; r < kRows; ++r)
-        acc[r] += taps.w[t] * v[r * kRowStep * kHX];
+        acc[r] += taps.w[t] * to_acc(v[r * kRowStep * kHX]);
     }
 #pragma unroll
     for (int r = 0; r < kRows; ++r)
-      if (out[r]) y[(long long)z * ring.plane + gout[r]] = acc[r];
+      if (out[r])
+        y[(long long)z * ring.plane + gout[r]] = from_acc<T>(acc[r]);
   }
   cp_async_wait<0>();
 }
 
-// w_host: kMaxTaps weights; taps_host: kMaxTaps (dz, dy, dx) shifts, in
-// A.offs order, padded with zero-weight taps. The rest is the wrapper's
+// w_host: kMaxTaps weights (in the accumulation type); taps_host: kMaxTaps
+// (dz, dy, dx) shifts, in A.offs order, padded with zero-weight taps. The rest is the wrapper's
 // plan (ops/stencil_cuda.py `stencil_plan`), passed whole and checked
 // against this kernel's geometry, so that the two cannot disagree: a plan
 // built for another tile, halo, ring or grid is refused, not run.
 template <typename T>
-int launch3d(const T* w_host, const int* taps_host, int ntaps, int n0, int n1,
+int launch3d(const typename AccOf<T>::type* w_host, const int* taps_host,
+             int ntaps, int n0, int n1,
              int n2, int tile_y, int tile_x, int halo, int tiles_y,
              int tiles_x, int chunk, long long blocks, long long smem_bytes,
              long long nrows, long long nrows_pad, const T* x, T* y,
              void* stream) {
-  // <= 48 KB in f32 and f64: no opt-in
+  // <= 48 KB in bf16, f32 and f64: no opt-in
   const long long smem = (long long)sizeof(T) * (kSlots + kMirror) * kPlane;
   if (n0 <= 0 || n1 <= 0 || n2 <= 0 || chunk <= 0 || tile_y != kTY ||
       tile_x != kTX || halo != kHalo || tiles_y != (n1 + kTY - 1) / kTY ||
@@ -349,7 +372,7 @@ int launch3d(const T* w_host, const int* taps_host, int ntaps, int n0, int n1,
       blocks != (long long)tiles_x * tiles_y * ((n0 + chunk - 1) / chunk) ||
       blocks > 0x7fffffffLL || smem_bytes != smem)
     return (int)cudaErrorInvalidValue;
-  Taps<T> taps;
+  Taps<typename AccOf<T>::type> taps;
   for (int t = 0; t < kMaxTaps; ++t) {
     const int* d = taps_host + 3 * t;
     for (int k = 0; k < 3; ++k)
@@ -423,4 +446,28 @@ extern "C" int ngsamg_stencil3d_f64(const double* w_host,
   return launch3d<double>(w_host, taps_host, ntaps, n0, n1, n2, tile_y,
                           tile_x, halo, tiles_y, tiles_x, chunk, blocks,
                           smem_bytes, nrows, nrows_pad, x, y, stream);
+}
+
+extern "C" int ngsamg_stencil_matvec_bf16(const __nv_bfloat16* vals,
+                                          const long long* meta, int m, int d,
+                                          long long d0, long long d1,
+                                          long long d2, long long d3,
+                                          long long nrows, long long nrows_pad,
+                                          const __nv_bfloat16* x,
+                                          __nv_bfloat16* y, void* stream) {
+  return launch<__nv_bfloat16>(vals, meta, m, d, d0, d1, d2, d3, nrows,
+                               nrows_pad, x, y, stream);
+}
+
+extern "C" int ngsamg_stencil3d_bf16(const float* w_host, const int* taps_host,
+                                     int ntaps, int n0, int n1, int n2,
+                                     int tile_y, int tile_x, int halo,
+                                     int tiles_y, int tiles_x, int chunk,
+                                     long long blocks, long long smem_bytes,
+                                     long long nrows, long long nrows_pad,
+                                     const __nv_bfloat16* x, __nv_bfloat16* y,
+                                     void* stream) {
+  return launch3d<__nv_bfloat16>(w_host, taps_host, ntaps, n0, n1, n2, tile_y,
+                                 tile_x, halo, tiles_y, tiles_x, chunk, blocks,
+                                 smem_bytes, nrows, nrows_pad, x, y, stream);
 }

@@ -489,25 +489,28 @@ def setup_levels(
     energy: Energy,
     opts: AMGOptions,
     coords: np.ndarray | None = None,
+    finest_mesh: AlgebraicMesh | None = None,
 ) -> tuple[list[SetupLevel], FactoryLog]:
     """Run the level loop; returns host levels (finest first) + log.
 
     Full-lattice problems take the structured fast path; everything else
     runs the generic loop on the matrix-extracted (ALG) energy mesh.
-    Element-matrix (ELMAT) meshes are not ported (the front-end rejects
-    ``elmat_data``).
+    ``finest_mesh`` overrides that mesh: the ELMAT mode, where the mesh
+    energies come from element matrices (apps/elmat.py), and which always
+    takes the generic loop.
     """
     lc = opts.levels
-    # the fast path accepts DIA input directly (no CSR conversion)
-    res = _stencil_setup(A, energy, opts, coords)
-    if res is not None:
-        return res
+    if finest_mesh is None:
+        # the fast path accepts DIA input directly (no CSR conversion)
+        res = _stencil_setup(A, energy, opts, coords)
+        if res is not None:
+            return res
     A = A.tocsr()
     if A.dtype != np.float64:
         A = A.astype(np.float64)
     log = FactoryLog()
 
-    mesh = energy.build_finest_mesh(A, coords)
+    mesh = finest_mesh or energy.build_finest_mesh(A, coords)
     row_bs = A.shape[0] // mesh.nv
     levels = [SetupLevel(index=0, A=A, row_bs=row_bs, mesh=mesh)]
     log.nvs.append(mesh.nv)

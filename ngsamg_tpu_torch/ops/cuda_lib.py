@@ -1,9 +1,11 @@
 """Build and load the port's CUDA kernels (nvcc -> shared library -> ctypes).
 
-The sources are ``ngsamg_tpu_torch/csrc/*.cu``; they expose a plain C
-interface, so one ``nvcc`` call builds them in seconds (no PyTorch headers).
-The library is built on first use into ``build/ngsamg_tpu_torch/<hash>/``
-beside the package, keyed by a hash of the sources and the flags, and
+The sources are ``ngsamg_tpu_torch/csrc/*.cu`` (and the headers they
+include, ``csrc/*.cuh``); they expose a plain C interface, so one ``nvcc``
+call builds them in seconds (no PyTorch headers). Each kernel has an f32,
+an f64 and a bf16 entry point. The library is built on first use into
+``build/ngsamg_tpu_torch/<hash>/`` beside the package, keyed by a hash of
+the sources, the headers and the flags, and
 loaded once per process. Nothing here runs at import time: a machine
 without ``nvcc`` or a GPU imports the package and uses the plain PyTorch
 versions on CPU tensors.
@@ -19,6 +21,8 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "ngsamg_tpu_torch"
@@ -36,26 +40,28 @@ build_log = ""  # nvcc's output of the build this process made (ptxas -v)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+DTYPE_SUFFIXES = ("f32", "f64", "bf16")
+_ARGS = {
+    "ngsamg_stencil_matvec": [_P, _P, _I, _I, _L, _L, _L, _L, _L, _L,
+                              _P, _P, _P],
+    "ngsamg_stencil3d": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _L, _L, _L, _L, _P, _P, _P],
+    "ngsamg_dia_matvec": [_P, _P, _I, _L, _I, _I, _I, _L, _P, _P, _P],
+    "ngsamg_dia_sym_matvec": [_P, _P, _I, _L, _I, _I, _I, _I, _I,
+                              _L, _I, _L, _P, _P, _P],
+}
 _SIGNATURES = {
-    "ngsamg_stencil_matvec_f32": [_P, _P, _I, _I, _L, _L, _L, _L, _L, _L,
-                                  _P, _P, _P],
-    "ngsamg_stencil_matvec_f64": [_P, _P, _I, _I, _L, _L, _L, _L, _L, _L,
-                                  _P, _P, _P],
-    "ngsamg_stencil3d_f32": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                             _I, _L, _L, _L, _L, _P, _P, _P],
-    "ngsamg_stencil3d_f64": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                             _I, _L, _L, _L, _L, _P, _P, _P],
-    "ngsamg_dia_matvec_f32": [_P, _P, _I, _L, _I, _I, _I, _L, _P, _P, _P],
-    "ngsamg_dia_matvec_f64": [_P, _P, _I, _L, _I, _I, _I, _L, _P, _P, _P],
-    "ngsamg_dia_sym_matvec_f32": [_P, _P, _I, _L, _I, _I, _I, _I, _I,
-                                  _L, _I, _L, _P, _P, _P],
-    "ngsamg_dia_sym_matvec_f64": [_P, _P, _I, _L, _I, _I, _I, _I, _I,
-                                  _L, _I, _L, _P, _P, _P],
+    f"{name}_{sfx}": args
+    for name, args in _ARGS.items() for sfx in DTYPE_SUFFIXES
 }
 
 
 def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
+
+
+def _headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -74,7 +80,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in _sources():
+    for src in _sources() + _headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -114,6 +120,22 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
     return _lib
+
+
+def suffix(dtype) -> str:
+    """The entry-point suffix of a tensor dtype; raises for one that no
+    kernel is built for."""
+    sfx = {torch.float32: "f32", torch.float64: "f64",
+           torch.bfloat16: "bf16"}.get(dtype)
+    if sfx is None:
+        raise TypeError(f"dtype {dtype}: the kernels take f32, f64 and bf16")
+    return sfx
+
+
+def acc_dtype(dtype):
+    """The dtype a kernel sums in: its own, f32 for bf16 (precision.cuh);
+    the plain versions sum in it too and round once."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
 
 
 def check(rc: int, name: str) -> None:

@@ -20,8 +20,11 @@ order (no atomics: the same input gives the same bits).
 :func:`dia_sym_plan` decides all of this from the level's shape alone, and
 the launch refuses a plan that does not match the kernel's layout.
 
-:func:`dia_matvec` launches the kernel for a CUDA tensor and raises if it
-cannot; for a CPU tensor it runs :func:`_dia_matvec_plain`.
+:func:`dia_matvec` launches the kernel for a CUDA tensor (f32, f64 or
+bf16) and raises if it cannot; for a CPU tensor it runs
+:func:`_dia_matvec_plain`, which sums bf16 in f32 and rounds once, as the
+bf16 kernels do. The plans size the partial sums in shared memory by the
+accumulation type (f32 for bf16) and x's window by the element size.
 """
 
 from __future__ import annotations
@@ -35,10 +38,9 @@ from . import cuda_lib
 
 # kernel launches per entry point (a plain count; see chip_smoke.py)
 LAUNCHES = {
-    "dia_matvec_f32": 0,
-    "dia_matvec_f64": 0,
-    "dia_sym_matvec_f32": 0,
-    "dia_sym_matvec_f64": 0,
+    f"{kind}_{sfx}": 0
+    for kind in ("dia_matvec", "dia_sym_matvec")
+    for sfx in cuda_lib.DTYPE_SUFFIXES
 }
 
 TILE_ROWS = 32  # rows of a K2 block: one per lane (kTileRows in the kernel)
@@ -58,6 +60,11 @@ SYM_TARGET_THREADS = 132 * 1024
 # data stays in the L2 (several groups) with 4; the kernel is built for
 # these two
 SYM_BATCH_STREAM, SYM_BATCH_SPLIT = 2, 4
+
+
+def _acc_bytes(itemsize: int) -> int:
+    """Bytes of a partial sum: the accumulation type's (f32 for bf16)."""
+    return max(itemsize, 4)
 
 
 @dataclass(frozen=True)
@@ -92,7 +99,7 @@ def dia_plan(offsets, n_pad: int, itemsize: int) -> DiaPlan:
     groups = max(1, -(-ndiag // per_group)) if per_group else 1
     lo = min(int(offsets[0]), 0) if ndiag else 0
     hi = max(int(offsets[-1]), 0) if ndiag else 0
-    base = ndiag * OFFSET_BYTES + groups * TILE_ROWS * itemsize
+    base = ndiag * OFFSET_BYTES + groups * TILE_ROWS * _acc_bytes(itemsize)
     if base > SMEM_BUDGET:
         raise ValueError(
             f"dia_matvec: {ndiag} diagonals need {base} B of shared memory "
@@ -159,7 +166,7 @@ def dia_sym_plan(offsets, n_pad: int, itemsize: int) -> DiaSymPlan:
     per_group = -(-ndiag // groups) if ndiag else 0
     tpg = SYM_THREADS // groups
     tile = tpg * SYM_ROWS
-    smem = ndiag * OFFSET_BYTES + (groups * tile * itemsize
+    smem = ndiag * OFFSET_BYTES + (groups * tile * _acc_bytes(itemsize)
                                    if groups > 1 else 0)
     if smem > SMEM_BUDGET:
         raise ValueError(
@@ -196,28 +203,31 @@ def stage(A) -> DiaLaunch:
 
 
 def _dia_matvec_plain(A, x: torch.Tensor) -> torch.Tensor:
-    """Shift-and-FMA form (ngsamg_tpu/sparse/formats.py `_dia_matvec_xla`)."""
+    """Shift-and-FMA form (ngsamg_tpu/sparse/formats.py `_dia_matvec_xla`),
+    summed in the kernels' accumulation type and rounded once."""
     n = A.nrows_pad
-    xf = x[:, 0]
+    acc = cuda_lib.acc_dtype(x.dtype)
+    data = A.data.to(acc)
+    xf = x[:, 0].to(acc)
     if A.sym_half:
         hi = max(A.offsets[-1], 0)
         xp = F.pad(xf, (hi, hi))
         y = torch.zeros_like(xf)
         for d, off in enumerate(A.offsets):
-            y = y + A.data[d] * xp[hi + off: hi + off + n]
+            y = y + data[d] * xp[hi + off: hi + off + n]
             if off > 0:
                 # A[i, i-o] = data[o][i-o]; the zero pad of the shifted
                 # data supplies the i < o mask
-                dp = F.pad(A.data[d], (hi, hi))
+                dp = F.pad(data[d], (hi, hi))
                 y = y + dp[hi - off: hi - off + n] * xp[hi - off: hi - off + n]
-        return y[:, None]
+        return y.to(x.dtype)[:, None]
     lo = -min(A.offsets[0], 0)
     hi = max(A.offsets[-1], 0)
     xp = F.pad(xf, (lo, hi))
     y = torch.zeros_like(xf)
     for d, off in enumerate(A.offsets):
-        y = y + A.data[d] * xp[lo + off: lo + off + n]
-    return y[:, None]
+        y = y + data[d] * xp[lo + off: lo + off + n]
+    return y.to(x.dtype)[:, None]
 
 
 def dia_matvec(A, x: torch.Tensor) -> torch.Tensor:
@@ -226,8 +236,7 @@ def dia_matvec(A, x: torch.Tensor) -> torch.Tensor:
         return _dia_matvec_plain(A, x)
     if x.device.type != "cuda":
         raise ValueError(f"dia_matvec: unsupported device {x.device}")
-    if x.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"dia_matvec: dtype {x.dtype} (f32/f64 only)")
+    sfx = cuda_lib.suffix(x.dtype)  # raises for a dtype without a kernel
     if A.data.dtype != x.dtype or A.data.device != x.device:
         raise ValueError(
             f"dia_matvec: data {A.data.dtype}@{A.data.device} vs "
@@ -246,9 +255,7 @@ def dia_matvec(A, x: torch.Tensor) -> torch.Tensor:
         )
     launch = A.launch
     y = torch.empty_like(x)
-    key = ("dia_sym_matvec" if A.sym_half else "dia_matvec") + (
-        "_f32" if x.dtype == torch.float32 else "_f64"
-    )
+    key = ("dia_sym_matvec" if A.sym_half else "dia_matvec") + f"_{sfx}"
     sym = f"ngsamg_{key}"
     fn = getattr(cuda_lib.library(), sym)
     stream = torch.cuda.current_stream(x.device).cuda_stream

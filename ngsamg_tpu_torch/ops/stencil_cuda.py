@@ -6,9 +6,10 @@ Replaces the Pallas TPU kernel ngsamg_tpu/ops/stencil_pallas.py
 ``vals``, ``offs``, ``dims``, ``nrows``, ``nrows_pad``, and ``launch``, the
 :class:`StencilLaunch` that :func:`stage` made when the level was built).
 
-:func:`stencil_matvec` launches a kernel for a CUDA tensor (f32 for the
-cycle, f64 for the defect-correction residual) and raises if it cannot;
-for a CPU tensor it runs :func:`_stencil_matvec_plain`. The variant comes
+:func:`stencil_matvec` launches a kernel for a CUDA tensor (f32 or bf16
+for the cycle, f64 for the defect-correction residual) and raises if it
+cannot; for a CPU tensor it runs :func:`_stencil_matvec_plain`, which sums
+bf16 in f32 and rounds once, as the bf16 kernels do. The variant comes
 from the shape alone (:func:`stencil_plan`): the tiled kernel for a 3-d
 lattice whose stencil reaches at most one cell along each axis (the
 headline's), the general kernel for every other shape.
@@ -28,10 +29,9 @@ MAX_DIM = 4
 
 # kernel launches per entry point (a plain count; see chip_smoke.py)
 LAUNCHES = {
-    "stencil_tiled3d_f32": 0,
-    "stencil_tiled3d_f64": 0,
-    "stencil_matvec_f32": 0,
-    "stencil_matvec_f64": 0,
+    f"{kind}_{sfx}": 0
+    for kind in ("stencil_tiled3d", "stencil_matvec")
+    for sfx in cuda_lib.DTYPE_SUFFIXES
 }
 
 # the tiled kernel's geometry (kTX, kTY, kHalo, kSlots, kMirror, kMaxTaps
@@ -55,7 +55,8 @@ class StencilPlan:
     two fast axes and marches over ``chunk`` planes of the slow axis,
     keeping a ring of RING_SLOTS halo-padded x planes (three in use, the
     rest in flight; RING_MIRROR slots mirrored) in ``smem_bytes`` of
-    shared memory; the grid is tiles_y * tiles_x * ceil(dims[0] / chunk)
+    shared memory (the ring holds the storage type: bf16 planes take half
+    the f32 bytes); the grid is tiles_y * tiles_x * ceil(dims[0] / chunk)
     blocks.
     ``general``: one thread per row, grid-stride (``tile`` and ``chunk``
     unused). ``ntaps``: the compiled tap-loop length (zero-weight taps pad
@@ -135,9 +136,11 @@ def stage(A) -> StencilLaunch:
     if plan.variant == "general":
         return StencilLaunch(plan=plan,
                              meta=_device_meta(offs, dims, A.vals.device))
-    ctype = ctypes.c_float if A.vals.dtype == torch.float32 else ctypes.c_double
+    # the weights in the accumulation type (bf16 values exactly, as f32)
+    acc = cuda_lib.acc_dtype(A.vals.dtype)
+    ctype = ctypes.c_double if acc == torch.float64 else ctypes.c_float
     pad = MAX_TAPS - len(offs)
-    w = A.vals.tolist() + [0.0] * pad
+    w = A.vals.to(acc).tolist() + [0.0] * pad
     taps = [v for o in offs for v in o] + [0, 0, 0] * pad
     return StencilLaunch(
         plan=plan,
@@ -147,9 +150,12 @@ def stage(A) -> StencilLaunch:
 
 
 def _stencil_matvec_plain(A, x: torch.Tensor) -> torch.Tensor:
-    """Pad-and-shift form (ngsamg_tpu/sparse/formats.py XLA path)."""
+    """Pad-and-shift form (ngsamg_tpu/sparse/formats.py XLA path), summed
+    in the kernels' accumulation type and rounded once."""
     d = len(A.dims)
-    xf = x[: A.nrows, 0].reshape(A.dims)
+    acc = cuda_lib.acc_dtype(x.dtype)
+    vals = A.vals.to(acc)
+    xf = x[: A.nrows, 0].to(acc).reshape(A.dims)
     r = [max(abs(int(o[k])) for o in A.offs) for k in range(d)]
     pads = []
     for k in reversed(range(d)):  # F.pad lists the last axis first
@@ -161,15 +167,14 @@ def _stencil_matvec_plain(A, x: torch.Tensor) -> torch.Tensor:
             slice(r[k] + int(off[k]), r[k] + int(off[k]) + A.dims[k])
             for k in range(d)
         )
-        y = y + A.vals[t] * xp[sl]
-    return F.pad(y.reshape(-1), (0, A.nrows_pad - A.nrows))[:, None]
+        y = y + vals[t] * xp[sl]
+    y = y.reshape(-1).to(x.dtype)
+    return F.pad(y, (0, A.nrows_pad - A.nrows))[:, None]
 
 
 def _check(A, x: torch.Tensor) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"stencil_matvec: unsupported device {x.device}")
-    if x.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"stencil_matvec: dtype {x.dtype} (f32/f64 only)")
     if A.vals.dtype != x.dtype or A.vals.device != x.device:
         raise ValueError(
             f"stencil_matvec: vals {A.vals.dtype}@{A.vals.device} vs "
@@ -182,17 +187,14 @@ def _check(A, x: torch.Tensor) -> None:
         )
 
 
-def _suffix(x: torch.Tensor) -> str:
-    return "f32" if x.dtype == torch.float32 else "f64"
-
-
 def _launch_tiled(A, x: torch.Tensor) -> torch.Tensor:
     launch = A.launch
     p = launch.plan
     n0, n1, n2 = A.dims
     y = torch.empty_like(x)
-    key = f"stencil_tiled3d_{_suffix(x)}"
-    sym = f"ngsamg_stencil3d_{_suffix(x)}"
+    sfx = cuda_lib.suffix(x.dtype)
+    key = f"stencil_tiled3d_{sfx}"
+    sym = f"ngsamg_stencil3d_{sfx}"
     rc = getattr(cuda_lib.library(), sym)(
         ctypes.addressof(launch.weights), ctypes.addressof(launch.taps),
         p.ntaps, n0, n1, n2, *p.tile, p.halo, *p.tiles, p.chunk, p.blocks,
@@ -212,7 +214,7 @@ def _launch_general(A, x: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:
         raise ValueError("stencil_matvec: vals must be contiguous")
     dims4 = list(A.dims) + [1] * (MAX_DIM - d)
     y = torch.empty_like(x)
-    key = f"stencil_matvec_{_suffix(x)}"
+    key = f"stencil_matvec_{cuda_lib.suffix(x.dtype)}"
     sym = f"ngsamg_{key}"
     rc = getattr(cuda_lib.library(), sym)(
         A.vals.data_ptr(), meta.data_ptr(), len(A.offs), d, *dims4,

@@ -7,7 +7,13 @@ elasticity problems:
       -> .setup()
       host level loop -> row orders + scaling -> formats, smoothers,
       transfers, coarse inverse, cluster correction -> device staging
-      -> .solve(b) / .apply(r)
+      -> .solve(b) / .apply(r) / .test() / .test_levels() / .test_smoothers()
+
+The front-end inputs are the JAX package's: ``freedofs`` (a DOF subset, or
+partial Dirichlet constraints projected on the kept vertices, with ``b``,
+``x`` and ``apply`` in the external free-DOF space), the compound
+(component-major) DOF layout, element matrices (``elmat_data``, the ELMAT
+energy mesh) and nodal-P2 midnode embeddings (``nodalp2``).
 
 Setup runs on the host in numpy/scipy (factory/levels.py): the stencil
 domain for full lattices, the generic (unstructured) level loop otherwise.
@@ -27,6 +33,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import time
 from dataclasses import dataclass, field
 
@@ -42,10 +49,12 @@ from ..config import (
     SpecOpt,
     options_from_flags,
 )
-from ..factory.levels import setup_levels
+from ..factory.levels import SetupLevel, setup_levels
+from ..mesh.topo import AlgebraicMesh
 from ..smoothers.build import build_smoother, plan_row_order, stage_smoother
 from ..smoothers.cluster_corr import detect_clusters
-from ..solve.cycle import AMGOperator, DeviceLevel, amg_apply
+from ..smoothers.core import smooth, smooth_back
+from ..solve.cycle import AMGOperator, DeviceLevel, _cycle, amg_apply
 from ..solve.pcg import pcg, pcg_mixed
 from ..sparse import bell, formats
 from ..sparse.host import bsr_permute, to_bsr
@@ -53,7 +62,40 @@ from ..transfer.lattice_transfer import LatticeProlongation, LatticeRestriction
 
 ROW_ALIGN = 8
 
-_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+# device dtypes; bfloat16 levels are staged through f32 numpy (numpy has no
+# bfloat16) and cast once on the device (``_cast_floats``)
+_DTYPES = {
+    "float32": torch.float32,
+    "float64": torch.float64,
+    "bfloat16": torch.bfloat16,
+}
+# inner accuracy floor of the device dtype: the inner PCG asks for no less,
+# and f64 defect correction bridges the gap to the requested tolerance
+_FLOORS = {torch.float64: 0.0, torch.float32: 2e-6, torch.bfloat16: 3e-2}
+
+
+def _cast_floats(obj, dtype: torch.dtype, memo: dict):
+    """A staged operator tree with every float32 tensor cast to ``dtype``
+    on its device. Objects shared in the tree (a level's operator and its
+    lattice transfers) stay shared; the formats make their launch plans
+    anew for the new element size. f64 tensors (an f64 coarse inverse)
+    and index tensors are kept."""
+    key = id(obj)
+    if key in memo:
+        return memo[key]
+    if isinstance(obj, torch.Tensor):
+        out = obj.to(dtype) if obj.dtype == torch.float32 else obj
+    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        out = dataclasses.replace(obj, **{
+            f.name: _cast_floats(getattr(obj, f.name), dtype, memo)
+            for f in dataclasses.fields(obj) if f.init
+        })
+    elif isinstance(obj, tuple):
+        out = tuple(_cast_floats(v, dtype, memo) for v in obj)
+    else:
+        out = obj
+    memo[key] = out
+    return out
 
 
 def _scalar_pad(fmt, bs: int) -> int:
@@ -196,15 +238,15 @@ class AMGPreconditioner:
     :class:`~ngsamg_tpu_torch.apps.base.Energy` instance.
     ``device``: where the hierarchy is staged and the solve runs, "cuda"
     (the default: the hand-written kernels) or "cpu" (their plain
-    versions, which callers ask for explicitly). The smoothers (multicolor
-    GS, the default; Jacobi, l1-Jacobi, Chebyshev, dyn-block GS) and the
-    V, W and BS cycles are those of the JAX package. Options and arguments
-    of the JAX package that this port does not run raise: ``shards != 1``,
-    ``dist_setup > 1``, ``do_test``, ``freedofs``, ``elmat_data``,
-    ``nodalp2``, the compound dof layout, the bfloat16 device dtype and
-    the Hiptmair smoother. The local cluster correction
-    (``options.cluster_corr``) is staged on unstructured scalar finest
-    levels, as in the JAX package.
+    versions, which callers ask for explicitly); an elasticity energy's
+    batched pencil solver runs there too. The smoothers (multicolor GS,
+    the default; Jacobi, l1-Jacobi, Chebyshev, dyn-block GS), the V, W and
+    BS cycles and the device dtypes (float32, float64, bfloat16) are those
+    of the JAX package. Options of the JAX package that this port does not
+    run raise and name their ROADMAP item: ``shards != 1``,
+    ``dist_setup > 1`` and the Hiptmair smoother. The local cluster
+    correction (``options.cluster_corr``) is staged on unstructured scalar
+    finest levels, as in the JAX package.
     """
 
     def __init__(
@@ -228,28 +270,33 @@ class AMGPreconditioner:
         for unported, item in (
             (options.shards != 1, "shards: ROADMAP queue 1 item 8"),
             (options.dist_setup > 1, "dist_setup: ROADMAP queue 1 item 8"),
-            (options.do_test, "do_test: ROADMAP queue 1 item 7"),
         ):
             if unported:
                 raise NotImplementedError(
                     f"{item} (not ported to ngsamg_tpu_torch yet)"
                 )
-        for name, val in (
-            ("freedofs", freedofs),
-            ("elmat_data", elmat_data),
-            ("nodalp2", nodalp2),
-        ):
-            if val is not None:
-                raise NotImplementedError(
-                    f"{name}: not ported to ngsamg_tpu_torch yet (ROADMAP "
-                    "queue 1 item 4a)"
-                )
-        if dof_layout != "interleaved":
-            raise NotImplementedError(
-                f"dof_layout {dof_layout!r}: not ported to ngsamg_tpu_torch "
-                "yet (ROADMAP queue 1 item 4a)"
-            )
-        if not isinstance(A, sp.dia_matrix):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"device {self.device}: CUDA is not available")
+        self.freedofs = None if freedofs is None else np.asarray(freedofs, bool)
+        self._ext_free = None  # external -> internal dof map (perm/subset)
+        if dof_layout == "compound":
+            # component-major user layout [x0..xn, y0..yn, ...] permuted to
+            # the interleaved internal layout (the reference's compound
+            # FESpace tests)
+            if self.freedofs is not None:
+                raise ValueError("compound layout: pre-eliminate freedofs")
+            A = A.tocsr()
+            nv = A.shape[0] // block_size
+            p = (
+                np.arange(block_size)[None, :] * nv
+                + np.arange(nv)[:, None]
+            ).ravel()  # internal = external[p]
+            A = A[p][:, p].tocsr()
+            self._ext_free = np.argsort(p)
+        elif dof_layout != "interleaved":
+            raise ValueError(f"unknown dof_layout {dof_layout!r}")
+        if not (isinstance(A, sp.dia_matrix) and self.freedofs is None):
             # DIA input feeds the structured fast path without a CSR detour
             A = A.tocsr()
         if A.shape[0] != A.shape[1]:
@@ -259,6 +306,43 @@ class AMGPreconditioner:
                 f"matrix size {A.shape[0]} not divisible by "
                 f"block_size {block_size}"
             )
+        if self.freedofs is not None:
+            fd = self.freedofs
+            vany = fd.reshape(-1, block_size).any(axis=1)
+            vall = fd.reshape(-1, block_size).all(axis=1)
+            if block_size > 1 and (vany & ~vall).any():
+                # partial Dirichlet (some components of a vertex fixed):
+                # keep ALL dofs of touched vertices and project the
+                # constrained components, rows and columns zeroed and the
+                # diagonal kept (the reference's scalFreeRows projection).
+                # Externally the preconditioner exposes only the free dofs.
+                kept = np.flatnonzero(np.repeat(vany, block_size))
+                A = A[kept][:, kept].tocsr()
+                sub_free = fd[kept]
+                coo = A.tocoo()
+                keep_e = (sub_free[coo.row] & sub_free[coo.col]) | (
+                    coo.row == coo.col
+                )
+                A = sp.coo_matrix(
+                    (coo.data[keep_e], (coo.row[keep_e], coo.col[keep_e])),
+                    shape=A.shape,
+                ).tocsr()
+                self._ext_free = np.flatnonzero(sub_free)
+            else:
+                # subset selection (DOF subsets): b and x have the free size
+                idx = np.flatnonzero(self.freedofs)
+                A = A[idx][:, idx].tocsr()
+            if coords is not None:
+                coords = np.asarray(coords)[vany]
+        # nodal-P2 two-parent embedding: AMG coarsens the vertex subset;
+        # midnodes embed as the average of their two parents. ``nodalp2``:
+        # (m, 3) int (midnode, parent1, parent2) in BLOCK-node numbering;
+        # ``coords`` then holds the VERTEX (parent) coordinates only
+        self._nodalp2 = None
+        if nodalp2 is not None:
+            if self.freedofs is not None:
+                raise ValueError("nodalp2 with freedofs: eliminate first")
+            self._nodalp2 = np.asarray(nodalp2, dtype=np.int64)
         self.A_host = A if A.dtype == np.float64 else A.astype(np.float64)
         self.n = A.shape[0]
         self.coords = None if coords is None else np.asarray(coords, float)
@@ -268,9 +352,13 @@ class AMGPreconditioner:
             elif energy in ("elasticity", "elast"):
                 if self.coords is None:
                     raise ValueError("elasticity energy requires coords")
-                energy = ElasticityEnergy(dim=self.coords.shape[1])
+                energy = ElasticityEnergy(
+                    dim=self.coords.shape[1], device=self.device
+                )
             else:
                 raise ValueError(f"unknown energy '{energy}'")
+        elif getattr(energy, "device", False) is None:
+            energy.device = self.device  # an energy made without one
         self.energy = energy
         # energy-specific coarsening default: block energies need
         # goal-driven aggregate sizes (fixed 2-round pairs give an operator
@@ -284,18 +372,24 @@ class AMGPreconditioner:
             co = copy.copy(self.options.coarsen)
             co.aaf = SpecOpt(float(default_aaf))
             self.options = self.options.replace(coarsen=co)
-        if self.options.dtype == "bfloat16":
-            raise NotImplementedError(
-                "device dtype 'bfloat16': not ported to ngsamg_tpu_torch "
-                "yet (ROADMAP queue 1 item 4a)"
-            )
         if self.options.dtype not in _DTYPES:
             raise ValueError(f"device dtype {self.options.dtype!r}")
         self.dtype = _DTYPES[self.options.dtype]
-        self.np_dtype = np.dtype(self.options.dtype)
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"device {self.device}: CUDA is not available")
+        # the numpy dtype the levels are packed in (bf16 through f32)
+        self.np_dtype = (
+            np.dtype(np.float32) if self.dtype == torch.bfloat16
+            else np.dtype(self.options.dtype)
+        )
+        # ELMAT energy mode: the finest mesh from element matrices
+        # (the reference's AddElementMatrix)
+        self._finest_mesh = None
+        if elmat_data is not None:
+            from ..apps.elmat import ElmatAccumulator
+
+            dnums, elmats = elmat_data
+            acc = ElmatAccumulator(self.n // self.energy.dpv)
+            acc.add_batch(np.asarray(dnums), np.asarray(elmats))
+            self._finest_mesh = acc.finalize(self.coords)
         self._is_setup = False
 
     # ------------------------------------------------------------------
@@ -303,9 +397,13 @@ class AMGPreconditioner:
     # ------------------------------------------------------------------
     def setup(self) -> "AMGPreconditioner":
         t0 = time.perf_counter()
-        self.setup_levels_, self.log_ = setup_levels(
-            self.A_host, self.energy, self.options, self.coords
-        )
+        if self._nodalp2 is not None:
+            self._setup_nodalp2_levels()
+        else:
+            self.setup_levels_, self.log_ = setup_levels(
+                self.A_host, self.energy, self.options, self.coords,
+                finest_mesh=self._finest_mesh,
+            )
         t1 = time.perf_counter()
         self._compile_device()
         if self.device.type == "cuda":
@@ -320,7 +418,84 @@ class AMGPreconditioner:
                 f"setup: host {self.setup_time_host:.3f}s, "
                 f"device staging {self.setup_time_device:.3f}s"
             )
+        if self.options.do_test:
+            lmin, lmax = self.test()
+            print(f"eigenvalue bounds of M^-1 A: [{lmin:.4g}, {lmax:.4g}]")
         return self
+
+    def _setup_nodalp2_levels(self):
+        """Nodal-P2 hierarchy: midnodes embed into their parent vertices.
+
+        The full matrix stays the finest (smoothed) level; the AMG runs on
+        the vertex-subspace operator E^T A E with the two-parent embedding
+        E as the level-0 transfer (the reference's nodalp2 subset and
+        smooth_lo_only pattern). Level 0 has a mesh without edges and
+        ``P = E`` as BSR."""
+        bs = self._bs_guess()
+        A_full = self.A_host.tocsr()
+        E = self._nodalp2_embedding(bs)
+        A1 = (E.T @ A_full @ E).tocsr()
+        A1 = ((A1 + A1.T) * 0.5).tocsr()
+        levels1, log1 = setup_levels(
+            A1, self.energy, self.options, self.coords
+        )
+        for lev in levels1:
+            lev.index += 1
+        n_nodes = self.n // bs
+        lev0 = SetupLevel(
+            index=0,
+            A=A_full,
+            row_bs=bs,
+            mesh=AlgebraicMesh(
+                nv=n_nodes, edges=np.zeros((0, 2), dtype=np.int64)
+            ),
+            P=E.tobsr(blocksize=(bs, bs)),
+        )
+        self.setup_levels_ = [lev0] + levels1
+        log1.nvs.insert(0, n_nodes)
+        log1.nnzs.insert(0, int(A_full.nnz))
+        self.log_ = log1
+
+    def _bs_guess(self) -> int:
+        dpv = getattr(self.energy, "bs", None)
+        if dpv is not None:
+            return int(dpv)  # H1 scalar/vector
+        return int(getattr(self.energy, "dim", 1))  # elasticity: disp dofs
+
+    def _nodalp2_embedding(self, bs: int) -> sp.csr_matrix:
+        """E: vertex-space dofs -> full dofs; midnode = mean of parents."""
+        n_nodes = self.n // bs
+        trip = self._nodalp2
+        is_mid = np.zeros(n_nodes, dtype=bool)
+        is_mid[trip[:, 0]] = True
+        vnum = np.full(n_nodes, -1, dtype=np.int64)
+        verts = np.flatnonzero(~is_mid)
+        vnum[verts] = np.arange(len(verts))
+        if (vnum[trip[:, 1]] < 0).any() or (vnum[trip[:, 2]] < 0).any():
+            raise ValueError("nodalp2 parents must be vertex nodes")
+        k = np.arange(bs)
+        rows = [
+            (verts[:, None] * bs + k).ravel(),
+            (trip[:, :1] * bs + k).ravel(),
+            (trip[:, :1] * bs + k).ravel(),
+        ]
+        cols = [
+            (vnum[verts][:, None] * bs + k).ravel(),
+            (vnum[trip[:, 1]][:, None] * bs + k).ravel(),
+            (vnum[trip[:, 2]][:, None] * bs + k).ravel(),
+        ]
+        vals = [
+            np.ones(len(verts) * bs),
+            np.full(len(trip) * bs, 0.5),
+            np.full(len(trip) * bs, 0.5),
+        ]
+        return sp.coo_matrix(
+            (
+                np.concatenate(vals),
+                (np.concatenate(rows), np.concatenate(cols)),
+            ),
+            shape=(self.n, len(verts) * bs),
+        ).tocsr()
 
     def _compile_device(self):
         """Stage the hierarchy: row orders, symmetric scaling, formats,
@@ -541,17 +716,21 @@ class AMGPreconditioner:
                 max_size=cc.max_size, dtype=npdt, device=dev,
             )
         _mark("cluster_corr")
-        if dev.type == "cuda":
-            # the tensors were made on the device as they were packed; this
-            # waits for the copies still in flight
-            torch.cuda.synchronize(dev)
-        _mark("device_put")
-        self.op = AMGOperator(
+        op = AMGOperator(
             levels=tuple(dev_levels),
             coarse_inv=coarse_inv,
             cluster_corr=cluster_corr,
             cycle=opts.cycle.value,
         )
+        if self.dtype == torch.bfloat16:
+            # staged in f32 (numpy has no bfloat16): one cast on the device
+            op = _cast_floats(op, self.dtype, {})
+        if dev.type == "cuda":
+            # the tensors were made on the device as they were packed; this
+            # waits for the copies and casts still in flight
+            torch.cuda.synchronize(dev)
+        _mark("device_put")
+        self.op = op
         self.A_dev = self.op.levels[0].A
         # f64 device twin of the finest operator for the mixed-precision
         # PCG (built lazily on the first mixed solve); _A0_perm keeps the
@@ -660,9 +839,9 @@ class AMGPreconditioner:
     def _from_dev(self, v: torch.Tensor) -> np.ndarray:
         out = (
             formats.flat_vec(v, self.A_dev.nrows)
+            .to(torch.float64)
             .cpu()
             .numpy()
-            .astype(np.float64)
         )
         if self._iperm0 is not None:
             out = out[self._iperm0]
@@ -670,17 +849,29 @@ class AMGPreconditioner:
             out = out * self._scale0  # x = S_0 y
         return out
 
+    # external <-> internal vector views (partial Dirichlet, compound)
+    def _expand_ext(self, b: np.ndarray) -> np.ndarray:
+        if self._ext_free is None:
+            return b
+        out = np.zeros(self.n, dtype=np.float64)
+        out[self._ext_free] = b
+        return out
+
+    def _contract_ext(self, x: np.ndarray) -> np.ndarray:
+        return x if self._ext_free is None else x[self._ext_free]
+
     def matvec_free(self, p: np.ndarray) -> np.ndarray:
-        """A @ p in the external (free-dof) space. Without ``freedofs``
-        (ROADMAP queue 1 item 4a) that is the whole space."""
-        return self.A_host @ p
+        """A @ p in the external (free-dof) space."""
+        return self._contract_ext(self.A_host @ self._expand_ext(p))
 
     def apply(self, r: np.ndarray) -> np.ndarray:
-        """x = M^-1 r — one AMG cycle (the reference `Mult`)."""
+        """x = M^-1 r — one AMG cycle (the reference `Mult`), in the
+        external space."""
         self._require_setup()
-        r = np.asarray(r, dtype=np.float64)
+        r = self._expand_ext(np.asarray(r, dtype=np.float64))
         with _full_f32():
-            return self._from_dev(amg_apply(self.op, self._to_dev(r)))
+            out = self._from_dev(amg_apply(self.op, self._to_dev(r)))
+        return self._contract_ext(out)
 
     def solve(
         self,
@@ -699,8 +890,10 @@ class AMGPreconditioner:
         computed on the device when the finest level is a uniform stencil,
         and on the host with scipy otherwise. ``return_device=True``
         returns the solution as a device tensor (f64, length n) on the
-        device-residual path; the host path returns a host array, as the
-        JAX package does.
+        device-residual path without an external DOF map (``freedofs``
+        with partial constraints, the compound layout); otherwise a host
+        array, as the JAX package does. ``b`` and the solution are in the
+        external space.
 
         ``use_refinement``: ``None`` or ``True`` verifies against the true
         f64 residual with up to 8 defect-correction passes (4 in f64);
@@ -716,35 +909,42 @@ class AMGPreconditioner:
         fallback when it stagnates).
         """
         self._require_setup()
-        b = np.asarray(b, dtype=np.float64)
+        b = self._expand_ext(np.asarray(b, dtype=np.float64))
         bnorm = np.linalg.norm(b)
         device_path = self._A64_dev is not None
+        on_device = return_device and self._ext_free is None
         if bnorm == 0:
-            x = np.zeros_like(b)
-            if return_device and device_path:
+            x = self._contract_ext(np.zeros_like(b))
+            if on_device and device_path:
                 x = torch.zeros(self.n, dtype=torch.float64, device=self.device)
             return x, SolveInfo(0, 0.0)
-        # inner accuracy floor of the device dtype (defect correction
-        # bridges the gap to the requested tolerance)
-        floor = 0.0 if self.dtype == torch.float64 else 2e-6
+        floor = _FLOORS[self.dtype]
         if use_refinement is None:
             # always verify against the TRUE residual: PCG's recursive
             # residual drifts on ill-conditioned problems even in f64
             use_refinement = True
         inner_tol = max(tol, floor)
-        max_outer = (8 if floor > 0 else 4) if use_refinement else 1
+        max_outer = (
+            (30 if floor > 1e-3 else (8 if floor > 0 else 4))
+            if use_refinement
+            else 1
+        )
         with _full_f32():
             if mixed and self.dtype != torch.float64:
-                return self._solve_mixed(b, bnorm, tol, maxiter)
-            if device_path and use_refinement:
-                return self._solve_device_refined(
+                x, info = self._solve_mixed(b, bnorm, tol, maxiter)
+            elif device_path and use_refinement:
+                x, info = self._solve_device_refined(
                     b, bnorm, tol, inner_tol, max_outer, maxiter,
-                    return_device=return_device,
+                    return_device=on_device,
                 )
-            return self._solve_host_refined(
-                b, bnorm, tol, inner_tol, max_outer, maxiter,
-                fallback=use_refinement,
-            )
+                if on_device:
+                    return x, info
+            else:
+                x, info = self._solve_host_refined(
+                    b, bnorm, tol, inner_tol, max_outer, maxiter,
+                    fallback=use_refinement,
+                )
+        return self._contract_ext(x), info
 
     def _solve_host_refined(self, b, bnorm, tol, inner_tol, max_outer,
                             maxiter, fallback: bool = True):
@@ -934,7 +1134,7 @@ class AMGPreconditioner:
         x = np.zeros(self.n)
         r = b.copy()
         history = []
-        z = self.apply(r)
+        z = self._expand_ext(self.apply(self._contract_ext(r)))
         p = z.copy()
         rz = float(r @ z)
         it = 0
@@ -952,7 +1152,7 @@ class AMGPreconditioner:
             history.append(relres)
             if relres <= tol:
                 break
-            z = self.apply(r)
+            z = self._expand_ext(self.apply(self._contract_ext(r)))
             rz2 = float(r @ z)
             p = z + (rz2 / rz) * p
             rz = rz2
@@ -1014,9 +1214,147 @@ class AMGPreconditioner:
         )
         return x, info
 
+    # ------------------------------------------------------------------
+    # self-tests (the reference's `Preconditioner::Test`, ngs_amg_do_test)
+    # ------------------------------------------------------------------
+    def test(self, iters: int = 60) -> tuple[float, float]:
+        """Eigenvalue bounds of M^-1 A by preconditioned Lanczos (host
+        loop): the extreme Ritz values of a CG recurrence through ``apply``
+        and ``matvec_free``, so in the external space."""
+        self._require_setup()
+        rng = np.random.default_rng(0)
+        n_ext = self.n if self._ext_free is None else len(self._ext_free)
+        r = rng.standard_normal(n_ext)
+        alphas, betas = [], []
+        z = self.apply(r)
+        rz = r @ z
+        p = z.copy()
+        for _ in range(min(iters, self.n)):
+            q = self.matvec_free(p)
+            pq = p @ q
+            if pq <= 0 or rz == 0:
+                break
+            alpha = rz / pq
+            r = r - alpha * q
+            z = self.apply(r)
+            rz_new = r @ z
+            beta = rz_new / rz
+            alphas.append(alpha)
+            betas.append(beta)
+            if np.sqrt(abs(rz_new)) < 1e-14:
+                break
+            p = z + beta * p
+            rz = rz_new
+        return _lanczos_bounds(alphas, betas)
+
+    def test_levels(self, iters: int = 30) -> list[tuple[float, float]]:
+        """Per-level hierarchy self-test (the reference's `test_levels` /
+        `test_2level`): eigenvalue bounds of every TAIL hierarchy, level
+        l's operator preconditioned by the cycle rooted at l, through the
+        level's own device matvec. A bad level pair shows up as a collapsed
+        lambda_min at its index. Returns (lo, hi) per level (the coarsest
+        level solves exactly: bounds ~(1, 1))."""
+        self._require_setup()
+        out = []
+        for l, lev in enumerate(self.op.levels):
+            bs = self.setup_levels_[l].row_bs
+            nb = lev.A.nrows_pad
+            bsv = _scalar_pad(lev.A, bs) // nb
+            nreal = lev.A.nrows * (bsv if bs == 1 else 1)
+
+            def apply_l(r, l=l):
+                with _full_f32():
+                    return self._host(_cycle(self.op, self._dev(r), l))
+
+            def matvec_l(p, lev=lev):
+                with _full_f32():
+                    return self._host(formats.matvec(lev.A, self._dev(p)))
+
+            rng = np.random.default_rng(l)
+            r = np.zeros((nb, bsv))
+            r[: lev.A.nrows] = rng.standard_normal((lev.A.nrows, bsv))
+            alphas, betas = [], []
+            z = apply_l(r)
+            rz = float((r * z).sum())
+            p = z.copy()
+            for _ in range(min(iters, max(nreal, 1))):
+                q = matvec_l(p)
+                pq = float((p * q).sum())
+                if pq <= 0 or rz == 0:
+                    break
+                alpha = rz / pq
+                r = r - alpha * q
+                z = apply_l(r)
+                rz_new = float((r * z).sum())
+                alphas.append(alpha)
+                betas.append(rz_new / rz)
+                if np.sqrt(abs(rz_new)) < 1e-14:
+                    break
+                p = z + (rz_new / rz) * p
+                rz = rz_new
+            out.append(_lanczos_bounds(alphas, betas))
+        return out
+
+    def test_smoothers(self, sweeps: int = 4) -> list[float]:
+        """Per-level smoother check (the reference's `test_smoothers`):
+        ``sweeps`` symmetric sweeps on the homogeneous system must reduce
+        the energy of a random start on every smoothed level. Returns the
+        energy reduction factor per smoothed level."""
+        self._require_setup()
+        rates = []
+        with _full_f32():
+            for i, lev in enumerate(self.op.levels):
+                if lev.smoother is None:
+                    continue
+                A = lev.A
+                bs = self.setup_levels_[i].row_bs
+                nb = A.nrows_pad
+                bsv = _scalar_pad(A, bs) // nb
+                rng = np.random.default_rng(i)
+                x = self._dev(rng.standard_normal((nb, bsv)))
+                e0 = float(torch.dot(x.reshape(-1),
+                                     formats.matvec(A, x).reshape(-1)))
+                b0 = torch.zeros_like(x)
+                for _ in range(sweeps):
+                    x = smooth(lev.smoother, A, x, b0)
+                    x = smooth_back(lev.smoother, A, x, b0)
+                e1 = float(torch.dot(x.reshape(-1),
+                                     formats.matvec(A, x).reshape(-1)))
+                rates.append(e1 / max(e0, 1e-300))
+        return rates
+
+    def _dev(self, v: np.ndarray) -> torch.Tensor:
+        """A host (n, bs) array as a device tensor in the level dtype."""
+        return torch.as_tensor(v, dtype=self.dtype, device=self.device)
+
+    @staticmethod
+    def _host(v: torch.Tensor) -> np.ndarray:
+        return v.to(torch.float64).cpu().numpy()
+
     def _require_setup(self):
         if not self._is_setup:
             raise RuntimeError("call .setup() first")
+
+
+def _lanczos_bounds(alphas: list, betas: list) -> tuple[float, float]:
+    """Extreme eigenvalues of the Lanczos tridiagonal of a CG run (the
+    standard CG -> Lanczos relations); (1, 1) when no step was taken."""
+    k = len(alphas)
+    if k == 0:
+        return 1.0, 1.0
+    diag = np.zeros(k)
+    off = np.zeros(max(k - 1, 0))
+    for i in range(k):
+        diag[i] = 1.0 / alphas[i]
+        if i > 0:
+            diag[i] += betas[i - 1] / alphas[i - 1]
+        if i < k - 1:
+            off[i] = np.sqrt(max(betas[i], 0.0)) / alphas[i]
+    T = np.diag(diag)
+    if k > 1:
+        T += np.diag(off, 1) + np.diag(off, -1)
+    ev = np.linalg.eigvalsh(T)
+    return float(ev[0]), float(ev[-1])
 
 
 

@@ -2,7 +2,9 @@
 
 Copied from ngsamg_tpu/utils/fem.py: ``Problem``, the structured 2D and
 the 3D Kuhn-tet P1 Poisson assembly with their helpers (``poisson_3d`` is
-the headline problem of the benchmark), the unstructured P1 Poisson
+the headline problem of the benchmark), 2D P1 Poisson with its element
+matrices (``poisson_2d_elmats``, the ELMAT mode's input) and 2D anisotropic
+diffusion (``anisotropic_poisson_2d``), the unstructured P1 Poisson
 generator (perturbed Delaunay meshes with optional uniform red refinement,
 ``unstructured_poisson``), and P1 linear elasticity: cantilever beams
 (``elasticity_2d/3d``), a thin plate, the unstructured generator
@@ -144,6 +146,32 @@ def _eliminate_dirichlet(A, b, coords, fixed_mask, block_size=1):
     return A, b[free], coords[free_v]
 
 
+def poisson_2d_elmats(n: int = 32, jump: bool = False):
+    """P1 Poisson + its element matrices in FREE-DOF numbering.
+
+    Returns (Problem, dnums (ne, 3) with -1 for Dirichlet vertices,
+    elmats (ne, 3, 3)) — the input of the ELMAT energy mode.
+    """
+    verts, tris = _grid_2d(n, n)
+    centers = verts[tris].mean(axis=1)
+    coeff = (
+        np.where(_in_inclusions_2d(centers), 1e4, 1.0)
+        if jump
+        else np.ones(len(tris))
+    )
+    Ke, vol = _p1_stiffness(verts, tris, coeff)
+    A = _assemble(len(verts), tris, Ke)
+    b = np.zeros(len(verts))
+    np.add.at(b, tris.ravel(), np.repeat(vol / 3.0, 3))
+    x, y = verts[:, 0], verts[:, 1]
+    fixed = (x == 0) | (x == 1) | (y == 0) | (y == 1)
+    A2, b2, coords = _eliminate_dirichlet(A, b, verts, fixed)
+    prob = Problem(A=A2, b=b2, coords=coords, dim=2, block_size=1)
+    renum = np.full(len(verts), -1, dtype=np.int64)
+    renum[~fixed] = np.arange((~fixed).sum())
+    return prob, renum[tris], Ke
+
+
 def poisson_2d(n: int = 32, jump: bool = False, f=1.0) -> Problem:
     """P1 Poisson on the unit square, Dirichlet on the whole boundary.
 
@@ -164,6 +192,37 @@ def poisson_2d(n: int = 32, jump: bool = False, f=1.0) -> Problem:
     x, y = verts[:, 0], verts[:, 1]
     fixed = (x == 0) | (x == 1) | (y == 0) | (y == 1)
     A, b, coords = _eliminate_dirichlet(A, b, verts, fixed)
+    return Problem(A=A, b=b, coords=coords, dim=2, block_size=1)
+
+
+def anisotropic_poisson_2d(
+    n: int = 64, eps: float = 1e-2, angle: float = 0.0, f=1.0
+) -> Problem:
+    """P1 anisotropic diffusion K = R(angle) diag(1, eps) R(angle)^T.
+
+    The regime the reference's prolongation-refinement machinery
+    (`ImproveSProlRow`, vertex_factory_impl.hpp:1834-2433) exists for:
+    grid-aligned (angle 0) and rotated (e.g. pi/4 — non-M-matrix with
+    strong positive off-diagonals) anisotropy.
+    """
+    verts, tris = _grid_2d(n, n)
+    c, s = np.cos(angle), np.sin(angle)
+    R = np.array([[c, -s], [s, c]])
+    K = R @ np.diag([1.0, eps]) @ R.T
+    X = verts[tris]
+    D = X[:, 1:, :] - X[:, :1, :]
+    det = D[:, 0, 0] * D[:, 1, 1] - D[:, 0, 1] * D[:, 1, 0]
+    vol = np.abs(det) / 2.0
+    Dinv = np.linalg.inv(D)
+    G = np.empty((len(tris), 3, 2))
+    G[:, 1:, :] = np.transpose(Dinv, (0, 2, 1))
+    G[:, 0, :] = -G[:, 1:, :].sum(axis=1)
+    Ke = vol[:, None, None] * np.einsum("eid,dk,ejk->eij", G, K, G)
+    A = _assemble(len(verts), tris, Ke)
+    b = np.zeros(len(verts))
+    np.add.at(b, tris.ravel(), np.repeat(f * vol / 3.0, 3))
+    fixed = np.any((verts == 0) | (verts == 1), axis=1)
+    A, b, coords = _eliminate_dirichlet(A.tocsr(), b, verts, fixed)
     return Problem(A=A, b=b, coords=coords, dim=2, block_size=1)
 
 

@@ -12,6 +12,10 @@ A numpy walk of the same tiles, halos, plane ring, diagonal groups and
 load batches computes y as the kernels do. It is held, at rtol 1e-5, to the plain
 PyTorch version and to the JAX package's Pallas kernels run in interpret
 mode (as tests/test_pallas_interpret.py runs them), on seeded odd shapes.
+The bf16 plans are walked too: the walk sums the bf16 values in f32 and
+rounds once, as the bf16 kernels do, and is held to the plain bf16
+version at 1e-2 of max |y| (a bf16 ulp is 2^-8 relative; the two sum in
+different orders before that one rounding).
 """
 
 import jax.numpy as jnp
@@ -45,6 +49,52 @@ SHUFFLED_CUBE = tuple(CUBE[i] for i in np.random.default_rng(7).permutation(27))
 # the headline's DIA levels 3 and 4 (poisson_3d(216) on one H100):
 # (rows, nrows_pad, diagonals, min offset, max offset)
 HEADLINE_DIA = [(19683, 19688, 81, -1486, 1486), (2744, 2744, 251, -617, 617)]
+
+BF16 = "bfloat16"  # the dtype parameter of the bf16 cases (numpy has none)
+DTYPES = [np.float32, np.float64, BF16]
+
+
+def _itemsize(dtype) -> int:
+    return 2 if dtype == BF16 else np.dtype(dtype).itemsize
+
+
+def _acc_bytes(itemsize: int) -> int:
+    """A partial sum's bytes: the kernels sum bf16 in f32."""
+    return max(itemsize, 4)
+
+
+def _bf16_round(a) -> np.ndarray:
+    """f32 values rounded to bf16 (round to nearest even), as f32."""
+    return torch.from_numpy(np.asarray(a, np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+def _host_values(a, dtype) -> np.ndarray:
+    """Seeded values in the case's dtype; bf16 ones as f32 numpy."""
+    if dtype == BF16:
+        return _bf16_round(a)
+    return np.asarray(a).astype(dtype)
+
+
+def _tensor(a, dtype) -> torch.Tensor:
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.to(torch.bfloat16) if dtype == BF16 else t
+
+
+def _values(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values as numpy (bf16 exactly, as f32)."""
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _check_against_plain(y, y_plain, dtype):
+    """The walk against the plain version: rtol 1e-5 in f32 and f64; in
+    bf16 the walk's f32 sum rounded once, to 1e-2 of max |y|."""
+    if dtype == BF16:
+        np.testing.assert_allclose(
+            _bf16_round(y), y_plain, rtol=0,
+            atol=1e-2 * np.abs(y_plain).max())
+    else:
+        np.testing.assert_allclose(y, y_plain, rtol=1e-5, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -84,10 +134,10 @@ def walk_stencil(A, x, plan):
     hy, hx = th + 2 * plan.halo, tw + 2 * plan.halo
     psz = hy * hx
     slots, mirror = stencil_cuda.RING_SLOTS, stencil_cuda.RING_MIRROR
-    assert plan.smem_bytes == (slots + mirror) * psz * x.itemsize
+    assert plan.smem_bytes == (slots + mirror) * psz * A.vals.element_size()
     off = kernel_tap_offsets(A.launch.taps, plan)
     w = np.zeros(stencil_cuda.MAX_TAPS, dtype=x.dtype)
-    w[: len(A.offs)] = A.vals.numpy()
+    w[: len(A.offs)] = _values(A.vals)
     xl = x[: A.nrows].reshape(A.dims)
     y = np.full(A.nrows_pad, np.nan, dtype=x.dtype)
     writes = np.zeros(A.nrows_pad, dtype=int)
@@ -136,7 +186,7 @@ def walk_dia(A, x, plan):
     group, reduced in group order. Returns y, the writes per row and how
     often each block visits each diagonal."""
     n_pad = A.nrows_pad
-    data = A.data.numpy()
+    data = _values(A.data)
     offs = np.asarray(A.offsets)
     ndiag = len(offs)
     y = np.full(n_pad, np.nan, dtype=x.dtype)
@@ -183,7 +233,7 @@ def walk_dia_sym(A, x, plan):
     order. Returns y, the writes per row, and how often each stored entry
     was used in the plus and in the minus direction."""
     n_pad = A.nrows_pad
-    data = A.data.numpy()
+    data = _values(A.data)
     offs = np.asarray(A.offsets)
     ndiag = len(offs)
     y = np.full(n_pad, np.nan, dtype=x.dtype)
@@ -237,16 +287,16 @@ def walk_dia_sym(A, x, plan):
 def _stencil_case(dims, offs, dtype=np.float32, seed=0):
     rng = np.random.default_rng(seed)
     n = int(np.prod(dims))
-    vals = rng.standard_normal(len(offs)).astype(dtype)
+    vals = _host_values(rng.standard_normal(len(offs)), dtype)
     offs = tuple(tuple(int(v) for v in o) for o in offs)
     dims = tuple(int(d) for d in dims)
     n_pad = -(-n // 8) * 8
-    A_t = tf.StencilDia(vals=torch.from_numpy(vals), offs=offs, dims=dims,
+    A_t = tf.StencilDia(vals=_tensor(vals, dtype), offs=offs, dims=dims,
                         nrows=n, nrows_pad=n_pad)
     A_j = jf.StencilDia(vals=jnp.asarray(vals), offs=offs, dims=dims,
                         nrows=n, nrows_pad=n_pad)
-    x = np.zeros(n_pad, dtype=dtype)
-    x[:n] = rng.standard_normal(n).astype(dtype)
+    x = np.zeros(n_pad, dtype=vals.dtype)
+    x[:n] = _host_values(rng.standard_normal(n), dtype)
     return A_t, A_j, x
 
 
@@ -267,9 +317,10 @@ def _check_stencil_plan(plan, dims, m):
         assert (_axis_cover(extent, tile, ntiles) == 1).all()
 
 
-@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("itemsize", [2, 4, 8])
 def test_headline_stencil_plan(itemsize):
-    """Level 0 of poisson_3d(216): the tiled variant, 15 taps."""
+    """Level 0 of poisson_3d(216): the tiled variant, 15 taps; the bf16
+    ring takes half the f32 bytes."""
     dims = (215, 215, 215)
     plan = stencil_cuda.stencil_plan(HEADLINE_STENCIL, dims, itemsize)
     _check_stencil_plan(plan, dims, 15)
@@ -342,21 +393,22 @@ def test_tap_offsets_address_the_right_cell():
         ((21, 9, 40), SHUFFLED_CUBE, 8),
     ],
 )
-@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_stencil_walk_matches_plain_and_jax(dims, offs, target, dtype,
                                             monkeypatch):
     if target is not None:
         monkeypatch.setattr(stencil_cuda, "TARGET_BLOCKS", target)
     A_t, A_j, x = _stencil_case(dims, offs, dtype, seed=sum(dims))
-    plan = stencil_cuda.stencil_plan(A_t.offs, A_t.dims, x.itemsize)
+    plan = stencil_cuda.stencil_plan(A_t.offs, A_t.dims, _itemsize(dtype))
+    assert plan == A_t.launch.plan
     if target is not None:
         assert 1 < plan.chunk < dims[0]
     _check_stencil_plan(plan, dims, len(offs))
     y, writes = walk_stencil(A_t, x, plan)
     assert (writes == 1).all()
-    y_plain = stencil_cuda._stencil_matvec_plain(
-        A_t, torch.from_numpy(x)[:, None]).numpy()[:, 0]
-    np.testing.assert_allclose(y, y_plain, rtol=1e-5, atol=1e-5)
+    y_plain = _values(stencil_cuda._stencil_matvec_plain(
+        A_t, _tensor(x, dtype)[:, None]))[:, 0]
+    _check_against_plain(y, y_plain, dtype)
     if dtype == np.float32:
         y_pl = np.asarray(stencil_matvec_pallas(
             A_j, jnp.asarray(x)[:, None], interpret=True))[:, 0]
@@ -378,7 +430,7 @@ def _check_dia_plan(plan, offsets, n_pad, itemsize):
     assert plan.groups * plan.per_group >= ndiag
     # every row in exactly one tile
     assert plan.blocks * plan.tile >= n_pad > (plan.blocks - 1) * plan.tile
-    part = ndiag * 8 + plan.groups * plan.tile * itemsize
+    part = ndiag * 8 + plan.groups * plan.tile * _acc_bytes(itemsize)
     if plan.path == "smem":
         assert plan.window == plan.tile + max(offsets[-1], 0) \
             - min(offsets[0], 0)
@@ -391,7 +443,7 @@ def _check_dia_plan(plan, offsets, n_pad, itemsize):
 
 
 @pytest.mark.parametrize("rows,n_pad,ndiag,lo,hi", HEADLINE_DIA)
-@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("itemsize", [2, 4, 8])
 def test_headline_dia_plans(rows, n_pad, ndiag, lo, hi, itemsize):
     """Levels 3 and 4 of poisson_3d(216): the smem path, with the
     diagonals split over up to 16 warps."""
@@ -433,17 +485,18 @@ def test_unstructured_dia_level_plan():
 def _dia_case(offsets, n, dtype=np.float32, seed=0):
     n_pad = -(-n // TILE) * TILE
     rng = np.random.default_rng(seed)
-    data = np.zeros((len(offsets), n_pad), dtype=dtype)
+    data = np.zeros((len(offsets), n_pad),
+                    dtype=np.float32 if dtype == BF16 else dtype)
     for d, off in enumerate(offsets):
         lo, hi = max(0, -off), min(n, n - off)
-        data[d, lo:hi] = rng.standard_normal(hi - lo).astype(dtype)
+        data[d, lo:hi] = _host_values(rng.standard_normal(hi - lo), dtype)
     offsets = tuple(int(o) for o in offsets)
-    A_t = tf.DiaMatrix(data=torch.from_numpy(data), offsets=offsets,
+    A_t = tf.DiaMatrix(data=_tensor(data, dtype), offsets=offsets,
                        nrows=n, nrows_pad=n_pad)
     A_j = jf.DiaMatrix(data=jnp.asarray(data), offsets=offsets, nrows=n,
                        nrows_pad=n_pad, use_pallas=False)
-    x = np.zeros(n_pad, dtype=dtype)
-    x[:n] = rng.standard_normal(n).astype(dtype)
+    x = np.zeros(n_pad, dtype=data.dtype)
+    x[:n] = _host_values(rng.standard_normal(n), dtype)
     return A_t, A_j, x
 
 
@@ -458,18 +511,19 @@ def _dia_case(offsets, n, dtype=np.float32, seed=0):
         ((-40000, -1, 0, 1, 40000), 5 * TILE - 3, "ldg"),
     ],
 )
-@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_dia_walk_matches_plain_and_jax(offsets, n, path, dtype):
     A_t, A_j, x = _dia_case(offsets, n, dtype, seed=len(offsets))
     plan = A_t.launch.plan
-    assert plan == dia_cuda.dia_plan(offsets, A_t.nrows_pad, x.itemsize)
-    _check_dia_plan(plan, A_t.offsets, A_t.nrows_pad, x.itemsize)
+    size = _itemsize(dtype)
+    assert plan == dia_cuda.dia_plan(offsets, A_t.nrows_pad, size)
+    _check_dia_plan(plan, A_t.offsets, A_t.nrows_pad, size)
     assert plan.path == path
     y, writes, visits = walk_dia(A_t, x, plan)
     assert (writes == 1).all() and (visits == 1).all()
-    y_plain = dia_cuda._dia_matvec_plain(
-        A_t, torch.from_numpy(x)[:, None]).numpy()[:, 0]
-    np.testing.assert_allclose(y, y_plain, rtol=1e-5, atol=1e-5)
+    y_plain = _values(dia_cuda._dia_matvec_plain(
+        A_t, _tensor(x, dtype)[:, None]))[:, 0]
+    _check_against_plain(y, y_plain, dtype)
     if dtype == np.float32:
         y_pl = np.asarray(dia_matvec_pallas(
             A_j, jnp.asarray(x)[:, None], interpret=True))[:, 0]
@@ -477,18 +531,18 @@ def test_dia_walk_matches_plain_and_jax(offsets, n, path, dtype):
     np.testing.assert_array_equal(y[n:], 0.0)
 
 
-@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("itemsize", [2, 4, 8])
 def test_dia_plan_refuses_too_many_diagonals(itemsize):
     """K2 keeps every offset and the groups' partial sums in shared memory:
     a level whose offsets alone pass the budget is refused when its plan
     is made (at staging), and one diagonal fewer still fits."""
-    part = dia_cuda.MAX_GROUPS * dia_cuda.TILE_ROWS * itemsize
+    part = dia_cuda.MAX_GROUPS * dia_cuda.TILE_ROWS * _acc_bytes(itemsize)
     fits = (dia_cuda.SMEM_BUDGET - part) // dia_cuda.OFFSET_BYTES
     plan = dia_cuda.dia_plan(tuple(range(fits)), 2 * fits, itemsize)
     assert plan.path == "ldg" and plan.smem_bytes <= dia_cuda.SMEM_BUDGET
     with pytest.raises(ValueError, match="shared memory"):
         dia_cuda.dia_plan(tuple(range(fits + 1)), 2 * fits, itemsize)
-    dtype = torch.float32 if itemsize == 4 else torch.float64
+    dtype = {2: torch.bfloat16, 4: torch.float32, 8: torch.float64}[itemsize]
     with pytest.raises(ValueError, match="shared memory"):
         tf.DiaMatrix(data=torch.zeros((fits + 1, 8), dtype=dtype),
                      offsets=tuple(range(fits + 1)), nrows=8, nrows_pad=8)
@@ -536,12 +590,13 @@ def _check_dia_sym_plan(plan, offsets, n_pad, itemsize):
     # every row in exactly one tile
     assert plan.blocks * plan.tile >= n_pad > (plan.blocks - 1) * plan.tile
     assert plan.reach == max(offsets)
-    part = plan.groups * plan.tile * itemsize if plan.groups > 1 else 0
+    part = (plan.groups * plan.tile * _acc_bytes(itemsize)
+            if plan.groups > 1 else 0)
     assert plan.smem_bytes == part + 8 * ndiag
 
 
 @pytest.mark.parametrize("L,stencil", HEADLINE_SYM)
-@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("itemsize", [2, 4, 8])
 def test_headline_dia_sym_plans(L, stencil, itemsize):
     """Levels 1 and 2 of poisson_3d(216): the offsets are the ones the
     hierarchy stages, the large level runs one group, the small one
@@ -568,19 +623,20 @@ def _dia_sym_case(offsets, n, n_pad=None, dtype=np.float32, seed=0):
     if n_pad is None:
         n_pad = -(-n // TILE) * TILE
     rng = np.random.default_rng(seed)
-    data = np.zeros((len(offsets), n_pad), dtype=dtype)
+    data = np.zeros((len(offsets), n_pad),
+                    dtype=np.float32 if dtype == BF16 else dtype)
     for d, off in enumerate(offsets):
-        data[d, : max(n - off, 0)] = rng.standard_normal(
-            max(n - off, 0)).astype(dtype)
+        data[d, : max(n - off, 0)] = _host_values(
+            rng.standard_normal(max(n - off, 0)), dtype)
     offsets = tuple(int(o) for o in offsets)
-    A_t = tf.DiaMatrix(data=torch.from_numpy(data), offsets=offsets,
+    A_t = tf.DiaMatrix(data=_tensor(data, dtype), offsets=offsets,
                        nrows=n, nrows_pad=n_pad, sym_half=True)
     A_j = None
     if n_pad % TILE == 0:  # the JAX kernel's row tile
         A_j = jf.DiaMatrix(data=jnp.asarray(data), offsets=offsets, nrows=n,
                            nrows_pad=n_pad, use_pallas=False, sym_half=True)
-    x = np.zeros(n_pad, dtype=dtype)
-    x[:n] = rng.standard_normal(n).astype(dtype)
+    x = np.zeros(n_pad, dtype=data.dtype)
+    x[:n] = _host_values(rng.standard_normal(n), dtype)
     return A_t, A_j, x
 
 
@@ -605,13 +661,14 @@ SYM_CASES = {
 
 
 @pytest.mark.parametrize("case", sorted(SYM_CASES))
-@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_dia_sym_walk_matches_plain_and_jax(case, dtype):
     offsets, n, n_pad = SYM_CASES[case]
     A_t, A_j, x = _dia_sym_case(offsets, n, n_pad, dtype, seed=len(offsets))
     plan = A_t.launch.plan
-    assert plan == dia_cuda.dia_sym_plan(offsets, A_t.nrows_pad, x.itemsize)
-    _check_dia_sym_plan(plan, A_t.offsets, A_t.nrows_pad, x.itemsize)
+    size = _itemsize(dtype)
+    assert plan == dia_cuda.dia_sym_plan(offsets, A_t.nrows_pad, size)
+    _check_dia_sym_plan(plan, A_t.offsets, A_t.nrows_pad, size)
     y, writes, used = walk_dia_sym(A_t, x, plan)
     assert (writes == 1).all()
     # every stored entry (row g of offset o with g + o inside) is used
@@ -621,9 +678,9 @@ def test_dia_sym_walk_matches_plain_and_jax(case, dtype):
         np.testing.assert_array_equal(used[0, d], stored.astype(int))
         np.testing.assert_array_equal(
             used[1, d], (stored & (o > 0)).astype(int))
-    y_plain = dia_cuda._dia_matvec_plain(
-        A_t, torch.from_numpy(x)[:, None]).numpy()[:, 0]
-    np.testing.assert_allclose(y, y_plain, rtol=1e-5, atol=1e-5)
+    y_plain = _values(dia_cuda._dia_matvec_plain(
+        A_t, _tensor(x, dtype)[:, None]))[:, 0]
+    _check_against_plain(y, y_plain, dtype)
     if dtype == np.float32 and A_j is not None:
         y_pl = np.asarray(dia_matvec_pallas(
             A_j, jnp.asarray(x)[:, None], interpret=True))[:, 0]
@@ -633,9 +690,10 @@ def test_dia_sym_walk_matches_plain_and_jax(case, dtype):
 
 def test_dia_sym_plan_follows_the_shape():
     """The plan reads the shape alone: groups from the rows and the
-    diagonal count, the batch from the groups; the same for f32 and f64."""
+    diagonal count, the batch from the groups; the same for bf16, f32 and
+    f64."""
     offs = _lattice_offsets(SYM_STENCIL_2, 54)
-    for itemsize in (4, 8):
+    for itemsize in (2, 4, 8):
         big = dia_cuda.dia_sym_plan(offs, 10 ** 7, itemsize)
         assert big.variant == "tile-r2-u2-g1"
         mid = dia_cuda.dia_sym_plan(offs, 100008, itemsize)
@@ -647,7 +705,7 @@ def test_dia_sym_plan_follows_the_shape():
         assert few.groups == 1  # too few diagonals to split
 
 
-@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("itemsize", [2, 4, 8])
 def test_dia_sym_plan_refuses_too_many_diagonals(itemsize):
     """K3 keeps every offset in shared memory: a level whose offsets pass
     the budget is refused when it is staged; negative offsets are refused
@@ -668,13 +726,13 @@ def test_dia_sym_plan_refuses_too_many_diagonals(itemsize):
                      sym_half=True)
 
 
-@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("itemsize", [2, 4, 8])
 def test_dia_sym_plan_refuses_odd_padding(itemsize):
     """A K3 thread owns two rows: an odd padded row count is refused when
     the level is staged (the levels' padding is a multiple of 8)."""
     with pytest.raises(ValueError, match="multiple of 2"):
         dia_cuda.dia_sym_plan((0, 1, 64), 4097, itemsize)
-    dtype = torch.float32 if itemsize == 4 else torch.float64
+    dtype = {2: torch.bfloat16, 4: torch.float32, 8: torch.float64}[itemsize]
     with pytest.raises(ValueError, match="multiple of 2"):
         tf.DiaMatrix(data=torch.zeros((2, 63), dtype=dtype), offsets=(0, 5),
                      nrows=60, nrows_pad=63, sym_half=True)

@@ -38,7 +38,7 @@ SCRIPT = textwrap.dedent(
                  "coarsen.pairwise", "transfer.prolongation",
                  "transfer.galerkin", "solve.pcg", "precond.convert",
                  "utils.trace_solve", "smoothers.coloring",
-                 "smoothers.block"):
+                 "smoothers.block", "apps.elmat", "ops.batched_la"):
         assert "ngsamg_tpu_torch." + name in mods, name
 
     p = fem.poisson_3d(34)  # 35,937 DoF: the uniform-stencil branches

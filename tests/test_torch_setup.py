@@ -255,16 +255,6 @@ def test_unported_paths_raise():
         ).setup()
 
 
-def test_bf16_names_its_item():
-    """The bfloat16 device dtype is item 4a's (K1-K3 have no bf16 build)."""
-    p = tfem.poisson_3d(12)
-    with pytest.raises(NotImplementedError, match="bfloat16.*item 4a"):
-        ngsamg_tpu_torch.AMGPreconditioner(
-            p.A, coords=p.coords, device="cpu",
-            options=ngsamg_tpu_torch.AMGOptions(dtype="bfloat16"),
-        )
-
-
 @pytest.mark.parametrize("refine", [None, True, False])
 @pytest.mark.parametrize("path", ["device", "host"])
 def test_use_refinement_matches_jax(path, refine):
@@ -316,35 +306,16 @@ def test_missing_names():
 
 @pytest.mark.parametrize(
     "field, value, item",
-    [("shards", 4, "item 8"), ("dist_setup", 4, "item 8"),
-     ("do_test", True, "item 7")],
+    [("shards", 4, "item 8"), ("dist_setup", 4, "item 8")],
 )
 def test_unported_options_raise(field, value, item):
-    """Sharding, distributed setup and the self-test are not ported: asking
-    for them raises instead of running a plain single-device setup."""
+    """Sharding and the distributed setup are not ported: asking for them
+    raises instead of running a plain single-device setup."""
     p = tfem.poisson_3d(12)
     opts = _cheb(ngsamg_tpu_torch).replace(**{field: value})
     with pytest.raises(NotImplementedError, match=f"{field}: .*{item}"):
         ngsamg_tpu_torch.AMGPreconditioner(
             p.A, coords=p.coords, options=opts, device="cpu"
-        )
-
-
-@pytest.mark.parametrize(
-    "kw",
-    [{"freedofs": np.ones(1331, dtype=bool)},
-     {"elmat_data": (np.zeros((1, 4), int), np.zeros((1, 4, 4)))},
-     {"nodalp2": np.zeros((1, 3), int)},
-     {"dof_layout": "compound"}],
-    ids=["freedofs", "elmat_data", "nodalp2", "compound"],
-)
-def test_unported_arguments_raise(kw):
-    """Front-end inputs that are not ported name their ROADMAP item."""
-    p = tfem.poisson_3d(12)
-    with pytest.raises(NotImplementedError, match="item 4a"):
-        ngsamg_tpu_torch.AMGPreconditioner(
-            p.A, coords=p.coords, options=_cheb(ngsamg_tpu_torch),
-            device="cpu", **kw
         )
 
 
