@@ -5,6 +5,8 @@
                              # unstructured_poisson(55, 3, refine=1), 1,411,632,
                              # unstructured_elasticity(36, 3, refine=1), 1,250,196,
                              # poisson_3d(101), 1,000,000 (GS and the cycles)
+                             # stokes_tri(20, 3), 104,738 (Stokes bench leg)
+                             # stokes_mac_2d(512), 523,264 (Stokes, MAC)
 
 Phases, each of which raises (nonzero exit) on failure:
 
@@ -136,9 +138,37 @@ Phases, each of which raises (nonzero exit) on failure:
    and f64 results differ, and the time of the largest pencil batch on
    the card against the numpy branch.
 
+19. stokes — the JAX package's Stokes bench leg: ``stokes_tri(20, dim=3,
+   alpha=10)`` (104,738 facet DoF) through ``StokesAMG`` with the primal
+   facet -> vertex incidence (short geometric loops) and
+   ``max_coarse_size`` 80 on the default device (Hiptmair smoothing on
+   tile-ELL and dense levels; no hand-written kernel on this path): the
+   assembly, host setup, staging, the ``maxiter=8`` warm-up, the first and
+   3 warm solves and the device kernels of one warm solve
+   (``torch.profiler``); must give the level sizes 104,738 / 46,814 /
+   19,494 / 6,461 / 1,848 / 475 / 90 / 10, at most 19 iterations (the JAX
+   package takes 18), true relres <= 1e-8, every staged tensor on the
+   card.
+20. stokes-mac — ``stokes_mac_2d(512)`` (523,264 DoF, tree loops): its
+   Hiptmair potential-space operators are DIA on five levels (13 to 65
+   diagonals, offsets up to +-1,022), so K2 runs there; one warm solve
+   from counters at 0 (8 levels, iterations within 5% of the JAX
+   package's 409, true relres <= 1e-8, K2 launched, every staged tensor
+   on the card), the device kernels of one cycle, then K2 against its
+   plain version on every DIA potential-space level (max |err| / max |y|
+   <= 1e-6, two launches to the same bits), timed like phase 4. Its row
+   joins the kernels line (``"path": "stokes-mac"``, ``launches`` from
+   the warm solve).
+21. stokes reference — card against CPU: ``StokesHDivAMG`` on
+   ``stokes_tri_hdiv(14)`` and ``stokes_tri_hdiv(5, dim=3)``,
+   ``StokesHDGEmbeddedAMG`` on ``stokes_hdg_p1(12)``, ``StokesAMG`` on
+   ``stokes_cr(10)``: the same level count, iterations within one,
+   solutions to 1e-6 relative, true relres <= 1e-8.
+
 Every phase prints its seconds. The last lines are the nvidia-smi line,
-one JSON object describing the kernels, and ``{"ok": true, "device":
-{...}}``.
+one JSON object describing the kernels (each row names the path its
+``launches`` were counted on: ``main``, ``bf16`` or ``stokes-mac``), and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -729,7 +759,7 @@ def phase_kernels(p, pc, launches):
         levels = per_kernel[name]
         big = max(levels, key=lambda e: e["rows"])
         rows.append({
-            "name": name, "route": "cuda", "source": src,
+            "name": name, "path": "main", "route": "cuda", "source": src,
             "replaces": replaces, "launches": int(launches[name]),
             "max_abs_err": max(e["max_abs_err"] for e in levels),
             "ms": big["device_ms"], "device_ms": big["device_ms"],
@@ -1746,7 +1776,7 @@ def phase_bf16(p, f32_rows):
         levels = per_kernel[name]
         big = max(levels, key=lambda e: e["rows"])
         rows.append({
-            "name": name, "route": "cuda", "source": src,
+            "name": name, "path": "bf16", "route": "cuda", "source": src,
             "replaces": replaces, "launches": int(launches[name]),
             "max_abs_err": max(e["max_abs_err"] for e in levels),
             "ms": big["device_ms"], "device_ms": big["device_ms"],
@@ -1949,6 +1979,299 @@ def phase_device_pencils():
     return out
 
 
+# the bench leg of the JAX package (bench.py:432-471): stokes_tri(20, dim=3,
+# alpha=10) with geometric loops, max_coarse_size 80; its level sizes and
+# iterations on the CPU, 18 in BENCH_r05.json too
+STOKES_LEVELS = [104738, 46814, 19494, 6461, 1848, 475, 90, 10]
+STOKES_MAX_IT = 19
+STOKES_MAC_N = 512  # stokes_mac_2d(512): tree loops, Hiptmair on DIA A_pot
+STOKES_MAC_DOFS = 523264
+STOKES_MAC_LEVELS = 8
+STOKES_MAC_JAX_IT = 409  # the JAX package's count on the CPU (3 passes)
+
+
+def _stokes_amg(prob, mcs, device="cuda", geometric=True):
+    """A StokesAMG of a stokes_fem problem with ``max_coarse_size`` mcs
+    (not set up); ``geometric`` passes the primal facet -> vertex
+    incidence (short loops) where the problem has one."""
+    from ngsamg_tpu_torch import AMGOptions
+    from ngsamg_tpu_torch.precond.stokes import StokesAMG
+
+    opts = AMGOptions()
+    opts.levels.max_coarse_size = mcs
+    kw = {}
+    if geometric and prob.facet_verts is not None:
+        kw = dict(facet_verts=prob.facet_verts, vert_pos=prob.vert_pos,
+                  bnd_facet_verts=prob.bnd_facet_verts)
+    return StokesAMG(
+        prob.A, cell_pos=prob.cell_pos, cell_vol=prob.cell_vol,
+        facet_cells=prob.facet_cells, facet_flow=prob.facet_flow,
+        options=opts, device=device, **kw,
+    )
+
+
+def _true_relres(A, b, x) -> float:
+    x = np.asarray(x)
+    if x.shape != (A.shape[0],) or not np.isfinite(x).all():
+        raise AssertionError(f"solution shape {x.shape} or not finite")
+    return float(np.linalg.norm(b - A @ x) / np.linalg.norm(b))
+
+
+def _stokes_solves(pc, prob, maxiter, warm, first=True):
+    """A first solve (unless ``first`` is false: the port compiles nothing
+    at run time, so on a card that earlier phases have used the first
+    solve is a warm one) and ``warm`` warm solves, the launch counters read
+    over the first warm one; the wall clocks end in a synchronize."""
+    import torch
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, info = pc.solve(prob.b, tol=1e-8, maxiter=maxiter)
+        torch.cuda.synchronize()
+        return x, info, time.perf_counter() - t0
+
+    first_s = run()[2] if first else None
+    walls = []
+    for k in range(warm):
+        if k == 0:
+            _reset_counts()
+        x, info, w = run()
+        walls.append(w)
+        if k == 0:
+            launches = _counts()
+    relres = _true_relres(prob.A, prob.b, x)
+    out = {
+        "iterations": int(info.iterations),
+        "outer_iterations": int(info.outer_iterations),
+        "relres_true": relres,
+        "first_solve_s": first_s,
+        "warm_solves_s": walls,
+        "warm_solve_s": float(np.median(walls)),
+        "kernel_launches_warm": {k: v for k, v in launches.items() if v},
+    }
+    if not info.converged or relres > 1e-8:
+        raise AssertionError(f"not converged: solver relres {info.relres}, "
+                             f"true {relres}")
+    off_card = [lab for lab, t in _operator_tensors(pc.op)
+                if t.device.type != "cuda"]
+    if off_card:
+        raise AssertionError(f"not on the card: {off_card[:5]}")
+    return out
+
+
+def phase_stokes():
+    """The JAX package's Stokes bench leg on the card: assembly, host
+    setup, staging, the maxiter=8 warm-up, first and warm solves, and the
+    device kernels of one warm solve (torch.profiler)."""
+    from ngsamg_tpu_torch.utils.stokes_fem import stokes_tri
+
+    t0 = time.perf_counter()
+    prob, _normals = stokes_tri(20, dim=3, alpha=10.0)
+    t1 = time.perf_counter()
+    pc = _stokes_amg(prob, 80).setup()
+    t2 = time.perf_counter()
+    pc.solve(prob.b, tol=1e-8, maxiter=8)  # the bench's warm-up
+    t3 = time.perf_counter()
+    out = {
+        "dofs": int(prob.n),
+        "level_sizes": [int(c.A.shape[0]) for c in pc.setup_levels_],
+        "level_formats": [type(lev.A).__name__ for lev in pc.op.levels],
+        "smoothers": [type(lev.smoother).__name__ for lev in pc.op.levels],
+        "assembly_s": t1 - t0,
+        "setup_host_s": pc.setup_time_host,
+        "setup_staging_s": pc.setup_time_device,
+        "warmup_maxiter8_s": t3 - t2,
+    }
+    out.update(_stokes_solves(pc, prob, 150, warm=3))
+    out["profiled_launches_warm"] = _profiled_launches(
+        lambda: pc.solve(prob.b, tol=1e-8, maxiter=150))
+    print("[stokes] " + json.dumps(out), flush=True)
+    if out["level_sizes"] != STOKES_LEVELS:
+        raise AssertionError(f"stokes: levels {out['level_sizes']} != "
+                             f"{STOKES_LEVELS}")
+    if out["iterations"] > STOKES_MAX_IT:
+        raise AssertionError(f"stokes: {out['iterations']} iterations > "
+                             f"{STOKES_MAX_IT}")
+    return out
+
+
+def _stokes_k2_levels(pc, launches):
+    """K2 against its plain version on every DIA potential-space operator
+    of a Stokes hierarchy, timed like phase 4; returns the kernels-line
+    row of this path."""
+    import torch
+
+    from ngsamg_tpu_torch.ops import dia_cuda
+    from ngsamg_tpu_torch.sparse import formats
+    from ngsamg_tpu_torch.utils.timing import cold_ms, event_ms, graph_ms
+
+    kern, plain = dia_cuda.dia_matvec, dia_cuda._dia_matvec_plain
+    levels = []
+    for lvl, lev in enumerate(pc.op.levels):
+        A = getattr(lev.smoother, "A_pot", None)
+        if not isinstance(A, formats.DiaMatrix) or A.sym_half:
+            continue
+        label = f"dia_matvec_f32 stokes-mac A_pot level {lvl}"
+        x = _rand_x(A.nrows, A.nrows_pad, torch.float32, 300 + lvl)
+        err, rel = _check_kernel(A, x, kern, plain, F32_TOL, label)
+        _same_bits(kern, A, x, label)
+        nbytes, flops = _level_cost(A, torch.float32)
+        bound_ms, bound_by = _bound_ms(nbytes, flops, torch.float32)
+        lib = _csr_call(A, x)
+        entry = {
+            "level": lvl, "rows": A.nrows, "terms": len(A.offsets),
+            "reach": max(abs(int(o)) for o in A.offsets),
+            "variant": _variant(A), "window": A.launch.plan.window,
+            "bytes": nbytes, "flops": flops, "max_abs_err": err,
+            "rel_err": rel,
+            "device_ms": graph_ms(lambda: kern(A, x)),
+            "cold_ms": cold_ms(lambda: kern(A, x)),
+            "call_ms": event_ms(lambda: kern(A, x)),
+            "plain_ms": graph_ms(lambda: plain(A, x), n=5),
+            "library_ms": graph_ms(lib),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        del lib
+        entry["share_of_bound"] = bound_ms / entry["device_ms"]
+        print("[stokes-mac] K2 " + json.dumps(entry), flush=True)
+        levels.append(entry)
+    if not levels:
+        raise AssertionError("stokes-mac: no DIA potential-space operator")
+    big = max(levels, key=lambda e: e["rows"])
+    src, replaces = KERNELS["dia_matvec_f32"]
+    return {
+        "name": "dia_matvec_f32", "path": "stokes-mac", "route": "cuda",
+        "source": src, "replaces": replaces,
+        "launches": int(launches["dia_matvec_f32"]),
+        "max_abs_err": max(e["max_abs_err"] for e in levels),
+        "ms": big["device_ms"], "device_ms": big["device_ms"],
+        "cold_ms": big["cold_ms"], "call_ms": big["call_ms"],
+        "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
+        "bound_by": big["bound_by"], "library_ms": big["library_ms"],
+        "variant": big["variant"],
+        "levels": [
+            {k: e[k] for k in ("level", "rows", "terms", "reach", "variant",
+                               "device_ms", "cold_ms", "call_ms",
+                               "bound_ms", "share_of_bound", "library_ms",
+                               "plain_ms")}
+            for e in levels
+        ],
+    }
+
+
+def phase_stokes_mac():
+    """stokes_mac_2d(512) on the card: tree loops and Hiptmair smoothing
+    whose potential-space operators are DIA (K2 at offsets up to
+    +-1,022); one warm solve from counters at 0 (its time and K2
+    launches), the device kernels of one cycle (torch.profiler), and K2
+    against its plain version on every DIA potential-space level."""
+    import torch
+
+    from ngsamg_tpu_torch.precond.amg import _full_f32
+    from ngsamg_tpu_torch.solve.cycle import amg_apply
+    from ngsamg_tpu_torch.utils.stokes_fem import stokes_mac_2d
+
+    t0 = time.perf_counter()
+    prob = stokes_mac_2d(STOKES_MAC_N)
+    t1 = time.perf_counter()
+    pc = _stokes_amg(prob, 80).setup()
+    out = {
+        "dofs": int(prob.n),
+        "level_sizes": [int(c.A.shape[0]) for c in pc.setup_levels_],
+        "level_formats": [type(lev.A).__name__ for lev in pc.op.levels],
+        "a_pot": [
+            [type(lev.smoother.A_pot).__name__, int(lev.smoother.A_pot.nrows),
+             len(getattr(lev.smoother.A_pot, "offsets", ()))]
+            for lev in pc.op.levels if hasattr(lev.smoother, "A_pot")
+        ],
+        "assembly_s": t1 - t0,
+        "setup_host_s": pc.setup_time_host,
+        "setup_staging_s": pc.setup_time_device,
+    }
+    out.update(_stokes_solves(pc, prob, 1000, warm=1, first=False))
+    r = pc._to_dev(prob.b)
+    with _full_f32():
+        out["profiled_launches_one_cycle"] = _profiled_launches(
+            lambda: amg_apply(pc.op, r))
+    torch.cuda.synchronize()
+    print("[stokes-mac] " + json.dumps(out), flush=True)
+    if out["dofs"] != STOKES_MAC_DOFS or pc.num_levels != STOKES_MAC_LEVELS:
+        raise AssertionError(f"stokes-mac: {out['dofs']} DoF in "
+                             f"{pc.num_levels} levels")
+    if abs(out["iterations"] - STOKES_MAC_JAX_IT) > 0.05 * STOKES_MAC_JAX_IT:
+        raise AssertionError(f"stokes-mac: {out['iterations']} iterations, "
+                             f"the JAX package's {STOKES_MAC_JAX_IT}")
+    if out["kernel_launches_warm"].get("dia_matvec_f32", 0) <= 0:
+        raise AssertionError("stokes-mac: K2 never launched")
+    row = _stokes_k2_levels(pc, out["kernel_launches_warm"])
+    return out, row
+
+
+def _stokes_reference_problems():
+    """(label, maker) of the card-against-CPU problems: HDiv 2D and 3D,
+    HDG-embedded 2D and the vector CR facet space (StokesAMG)."""
+    from ngsamg_tpu_torch import AMGOptions
+    from ngsamg_tpu_torch.precond.stokes import (
+        StokesHDGEmbeddedAMG, StokesHDivAMG)
+    from ngsamg_tpu_torch.utils import stokes_fem as sf
+
+    def opts(mcs):
+        o = AMGOptions()
+        o.levels.max_coarse_size = mcs
+        return o
+
+    def hdiv(n, dim, mcs):
+        def build(device):
+            prob, counts, V = sf.stokes_tri_hdiv(n, dim=dim)
+            pc = StokesHDivAMG(
+                prob.A, cell_pos=prob.cell_pos, cell_vol=prob.cell_vol,
+                facet_cells=prob.facet_cells, facet_flow=prob.facet_flow,
+                facet_dof_counts=counts, preserved=V, options=opts(mcs),
+                device=device)
+            return pc, prob.A, prob.b
+        return build
+
+    def hdg(device):
+        S, b, E, geo = sf.stokes_hdg_p1(12)
+        return StokesHDGEmbeddedAMG(S, E, **geo, options=opts(150),
+                                    device=device), S, b
+
+    def cr(device):
+        prob, _normals = sf.stokes_cr(10, dim=2)
+        return _stokes_amg(prob, 150, device, geometric=False), prob.A, prob.b
+
+    return [("hdiv_2d", hdiv(14, 2, 120)), ("hdiv_3d", hdiv(5, 3, 250)),
+            ("hdg_2d", hdg), ("cr_2d", cr)]
+
+
+def phase_stokes_reference():
+    """Card against CPU on the small HDiv, HDG and CR problems: iterations
+    within one, solutions to 1e-6 relative, true relres <= 1e-8."""
+    t0 = time.perf_counter()
+    out = {}
+    for label, build in _stokes_reference_problems():
+        res = {}
+        for dev in ("cuda", "cpu"):
+            pc, A, b = build(dev)
+            pc.setup()
+            x, info = pc.solve(b, tol=1e-8, maxiter=500)
+            res[dev] = (x, info, _true_relres(A, b, x), pc.num_levels)
+        (xg, ig, relg, lg), (xc, ic, _relc, lc) = res["cuda"], res["cpu"]
+        diff = float(np.linalg.norm(xg - xc) / np.linalg.norm(xc))
+        out[label] = {"dofs": int(A.shape[0]), "levels": lg,
+                      "card_iterations": int(ig.iterations),
+                      "cpu_iterations": int(ic.iterations),
+                      "card_relres_true": relg, "x_diff": diff}
+        if (abs(ig.iterations - ic.iterations) > 1 or not ig.converged
+                or relg > 1e-8 or lg != lc or diff > 1e-6):
+            raise AssertionError(f"stokes-reference {label}: the card "
+                                 f"disagrees with the CPU: {out[label]}")
+    print("[stokes-reference] " + json.dumps(out), flush=True)
+    print(f"[stokes-reference] {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1982,6 +2305,9 @@ def main() -> int:
     cycles = phase_cycles(gp)
     del gp
     phase_gs_reference()
+    phase_stokes()
+    _mac, stokes_row = phase_stokes_mac()
+    phase_stokes_reference()
     for row in rows:  # one warm solve of poisson_3d(101), W and BS cycles
         for label in ("W", "BS"):
             row[f"launches_{label}"] = int(
@@ -1991,7 +2317,7 @@ def main() -> int:
         if err is not None:
             row["max_abs_err"] = max(row["max_abs_err"], err)
     print(_nvidia_smi())
-    print(json.dumps({"kernels": rows + bf16_rows}))
+    print(json.dumps({"kernels": rows + bf16_rows + [stokes_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,9 @@ Public API:
     AMGPreconditioner / amg_preconditioner — strict-algebraic-mode front-end
     AMGOptions, options_from_flags, SpecOpt — configuration
     apps.h1.H1Energy, apps.elasticity.ElasticityEnergy — PDE energies
-    utils.fem — problem generators
+    precond.stokes.StokesAMG / StokesHDivAMG / StokesHDGEmbeddedAMG —
+        Stokes facet AMG (imported from there, as in the JAX package)
+    utils.fem, utils.stokes_fem — problem generators
 """
 
 from .config import (

@@ -243,8 +243,10 @@ class AMGPreconditioner:
     the default; Jacobi, l1-Jacobi, Chebyshev, dyn-block GS), the V, W and
     BS cycles and the device dtypes (float32, float64, bfloat16) are those
     of the JAX package. Options of the JAX package that this port does not
-    run raise and name their ROADMAP item: ``shards != 1``,
-    ``dist_setup > 1`` and the Hiptmair smoother. The local cluster
+    run raise and name their ROADMAP item: ``shards != 1`` and
+    ``dist_setup > 1``; the Hiptmair smoother raises the JAX package's
+    ``ValueError`` (only the Stokes preconditioners, precond/stokes.py,
+    build it). The local cluster
     correction (``options.cluster_corr``) is staged on unstructured scalar
     finest levels, as in the JAX package.
     """

@@ -6,8 +6,9 @@
 :class:`~ngsamg_tpu_torch.solve.cycle.AMGOperator`, so both packages can run
 one cycle on identical data: stencil, DIA, dense, tile-ELL and block-ELL
 levels, lattice, tile-ELL and block-ELL transfers (square or rectangular
-blocks), the Chebyshev, (l1-)Jacobi, multicolor GS (split or sliced) and
-block GS smoothers, the cluster correction and an f32 or f64 coarse
+blocks), the Chebyshev, (l1-)Jacobi, multicolor GS (split or sliced),
+block GS and Hiptmair smoothers (the Stokes hierarchies), the cluster
+correction and an f32 or f64 coarse
 inverse. A ``SupernodeELL`` (what the JAX package stages for
 tile-ELL when its native packer is not built) is rebuilt as a matrix from
 its blocks and packed with this package's tile-ELL packer. The JAX classes
@@ -23,6 +24,7 @@ import torch
 from ..smoothers.cluster_corr import ClusterCorrection
 from ..smoothers.block import BlockGSSmoother
 from ..smoothers.core import ChebyshevSmoother, GSSmoother, JacobiSmoother
+from ..smoothers.hiptmair import HiptmairSmoother
 from ..solve.cycle import AMGOperator, DeviceLevel
 from ..sparse import bell, formats
 from ..transfer.lattice_transfer import LatticeProlongation, LatticeRestriction
@@ -159,6 +161,14 @@ def _smoother(sm, device):
             Binv=_t(sm.Binv, device),
             color_bounds=tuple(int(v) for v in sm.color_bounds),
             steps=int(sm.steps),
+        )
+    if kind == "HiptmairSmoother":
+        return HiptmairSmoother(
+            range_sm=_smoother(sm.range_sm, device),
+            pot_sm=_smoother(sm.pot_sm, device),
+            A_pot=_format(sm.A_pot, device),
+            C=_format(sm.C, device),
+            CT=_format(sm.CT, device),
         )
     raise TypeError(f"smoother {kind} has no port")
 

@@ -2,12 +2,14 @@
 
 Copied from ngsamg_tpu/smoothers/build.py: the color-sorted row order of
 GS levels (``plan_row_order``), the l1 diagonal modification, and every
-branch of ``build_smoother`` but the Hiptmair smoother (ROADMAP queue 1
-item 5): Jacobi and l1-Jacobi (broadcast-scalar on uniform stencil
-levels), Chebyshev (with the host power iteration for lambda_max),
-multicolor GS with its per-color split storage, and dyn-block GS. The
-result holds numpy arrays (the block GS of ``smoothers/block.py`` holds
-CPU tensors); precond/amg.py moves them to the device.
+branch of ``build_smoother``: Jacobi and l1-Jacobi (broadcast-scalar on
+uniform stencil levels), Chebyshev (with the host power iteration for
+lambda_max), multicolor GS with its per-color split storage, and dyn-block
+GS. As there, the Hiptmair smoother is not a ``build_smoother`` kind (the
+Stokes preconditioners build it, precond/stokes.py): asking for it raises
+``ValueError``. The result holds numpy arrays (the block GS of
+``smoothers/block.py`` holds CPU tensors); ``stage_smoother`` moves them to
+the device.
 """
 
 from __future__ import annotations
@@ -130,11 +132,6 @@ def build_smoother(
     """
     kind = SmootherType(opts.type.get(level))
     steps = int(opts.steps.get(level))
-    if kind == SmootherType.HIPTMAIR:
-        raise NotImplementedError(
-            "smoother 'hiptmair': not ported to ngsamg_tpu_torch yet "
-            "(ROADMAP queue 1 item 5)"
-        )
     if stencil is not None:
         if bs != 1:
             raise ValueError("stencil levels are scalar")
@@ -250,10 +247,30 @@ def build_smoother(
     raise ValueError(f"unsupported smoother type {kind}")
 
 
+def _to_device(obj, device):
+    """A staged device format (or any dataclass tree of tensors) with its
+    tensors on ``device``; dataclasses are rebuilt, so a DIA level makes
+    its launch plan anew there."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{
+            f.name: _to_device(getattr(obj, f.name), device)
+            for f in dataclasses.fields(obj) if f.init
+        })
+    if isinstance(obj, tuple):
+        return tuple(_to_device(v, device) for v in obj)
+    return obj
+
+
 def stage_smoother(sm: Smoother | BlockGSSmoother, device) -> Smoother:
     """A host-built smoother with its arrays moved to ``device`` as
     tensors (Chebyshev's scalars stay on the host; the GS column indices
-    become int64, the index type a gather takes without a conversion)."""
+    become int64, the index type a gather takes without a conversion). A
+    Hiptmair smoother stages both inner smoothers and its three operators
+    (potential-space operator, curl and its transpose)."""
+    from .hiptmair import HiptmairSmoother
+
     def t(a, dtype=None):
         return torch.as_tensor(a, dtype=dtype).to(device)
 
@@ -269,4 +286,12 @@ def stage_smoother(sm: Smoother | BlockGSSmoother, device) -> Smoother:
         )
     if isinstance(sm, BlockGSSmoother):
         return dataclasses.replace(sm, blocks=t(sm.blocks), Binv=t(sm.Binv))
+    if isinstance(sm, HiptmairSmoother):
+        return HiptmairSmoother(
+            range_sm=stage_smoother(sm.range_sm, device),
+            pot_sm=stage_smoother(sm.pot_sm, device),
+            A_pot=_to_device(sm.A_pot, device),
+            C=_to_device(sm.C, device),
+            CT=_to_device(sm.CT, device),
+        )
     raise TypeError(f"smoother {type(sm).__name__} has no staging")

@@ -6,7 +6,10 @@ reverse; ``x=None`` means a zero initial guess. Jacobi and Chebyshev are
 polynomials in Dinv A, so their backward sweep is the forward one; the
 multicolor GS runs its colors in reverse order backwards. Block levels
 (bs 3 and 6) run Chebyshev with a block Dinv, order 5 on the window
-[0.25, 1] lam_max (smoothers/build.py).
+[0.25, 1] lam_max (smoothers/build.py). ``smooth`` and ``smooth_back``
+also dispatch the Hiptmair pair (smoothers/hiptmair.py), the block GS
+(smoothers/block.py) and a multigrid operator used as a smoother
+(solve/cycle.py).
 
 The multicolor GS sweep is plain torch, as it is XLA in the JAX package:
 per color, one gather of x by the color's column indices, one block
@@ -107,6 +110,10 @@ def smooth(sm: Smoother, A, x: torch.Tensor | None, b: torch.Tensor):
         return _gs(sm, A, x, b, reverse=False)
     if isinstance(sm, ChebyshevSmoother):
         return _chebyshev(sm, A, x, b)
+    from .hiptmair import HiptmairSmoother, hiptmair_smooth
+
+    if isinstance(sm, HiptmairSmoother):
+        return hiptmair_smooth(sm, A, x, b, reverse=False)
     from .block import BlockGSSmoother, block_gs_smooth
 
     if isinstance(sm, BlockGSSmoother):
@@ -121,6 +128,10 @@ def smooth(sm: Smoother, A, x: torch.Tensor | None, b: torch.Tensor):
 def smooth_back(sm: Smoother, A, x: torch.Tensor | None, b: torch.Tensor):
     if isinstance(sm, GSSmoother):
         return _gs(sm, A, x, b, reverse=True)
+    from .hiptmair import HiptmairSmoother, hiptmair_smooth
+
+    if isinstance(sm, HiptmairSmoother):
+        return hiptmair_smooth(sm, A, x, b, reverse=True)
     from .block import BlockGSSmoother, block_gs_smooth
 
     if isinstance(sm, BlockGSSmoother):

@@ -1,7 +1,7 @@
 """Device-time breakdown and busy share of one warm solve.
 
     python3 -m ngsamg_tpu_torch.utils.trace_solve \
-        [headline|unstructured|elasticity|gs]
+        [headline|unstructured|elasticity|gs|stokes]
 
 Needs one CUDA device. Sets up on ``cuda``, with the Chebyshev smoother,
 ``fem.poisson_3d(216)`` (``headline``, the default: 9,938,375 DoF),
@@ -10,8 +10,11 @@ Needs one CUDA device. Sets up on ``cuda``, with the Chebyshev smoother,
 dim=3, refine=1)`` (``elasticity``: 1,250,196 DoF on block-ELL levels,
 solved by the mixed-precision PCG); or, with ``AMGOptions()`` unchanged
 (multicolor GS, V-cycle), ``fem.poisson_3d(101)`` (``gs``: 1,000,000 DoF
-on block-ELL levels, one sweep a sequence of color steps). It runs two
-warm-up solves and five
+on block-ELL levels, one sweep a sequence of color steps); or the JAX
+package's Stokes bench leg (``stokes``: ``stokes_fem.stokes_tri(20, dim=3,
+alpha=10)``, 104,738 DoF, ``StokesAMG`` with short geometric loops and
+``max_coarse_size`` 80, Hiptmair smoothing on tile-ELL and dense levels,
+solved with ``maxiter=150``). It runs two warm-up solves and five
 unprofiled warm solves (host wall clock, ending in
 ``torch.cuda.synchronize()``), then one solve under ``torch.profiler``. It
 prints the device time by kernel name and one JSON line with:
@@ -103,6 +106,25 @@ SETUP_KW = {"elasticity": {"energy": "elasticity", "block_size": 3}}
 SOLVE_KW = {"elasticity": {"maxiter": 120, "mixed": True}}
 
 
+def _stokes_case():
+    """(problem, preconditioner not set up, solve) of the Stokes bench
+    leg."""
+    from .. import AMGOptions
+    from ..precond.stokes import StokesAMG
+    from .stokes_fem import stokes_tri
+
+    p, _normals = stokes_tri(20, dim=3, alpha=10.0)
+    opts = AMGOptions()
+    opts.levels.max_coarse_size = 80
+    pc = StokesAMG(
+        p.A, cell_pos=p.cell_pos, cell_vol=p.cell_vol,
+        facet_cells=p.facet_cells, facet_flow=p.facet_flow,
+        facet_verts=p.facet_verts, vert_pos=p.vert_pos,
+        bnd_facet_verts=p.bnd_facet_verts, options=opts, device="cuda",
+    )
+    return p, pc, lambda: pc.solve(p.b, tol=1e-8, maxiter=150)
+
+
 def main(argv=None) -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -113,7 +135,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(prog="trace_solve")
     ap.add_argument("problem", nargs="?", default="headline",
-                    choices=sorted(PROBLEMS))
+                    choices=sorted([*PROBLEMS, "stokes"]))
     ap.add_argument("--setup-profile", action="store_true",
                     help="profile setup() on the host with cProfile")
     args = ap.parse_args(argv)
@@ -125,21 +147,26 @@ def main(argv=None) -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(f"[trace] {smi}", flush=True)
-    p = PROBLEMS[problem](fem)
-    opts = (AMGOptions() if problem in DEFAULT_OPTIONS else
-            AMGOptions(smoother=SmootherOptions(type=SmootherType.CHEBYSHEV)))
-    pc = AMGPreconditioner(
-        p.A, coords=p.coords, options=opts, device="cuda",
-        **SETUP_KW.get(problem, {}),
-    )
+    if problem == "stokes":
+        p, pc, solve = _stokes_case()
+    else:
+        p = PROBLEMS[problem](fem)
+        opts = (
+            AMGOptions() if problem in DEFAULT_OPTIONS else AMGOptions(
+                smoother=SmootherOptions(type=SmootherType.CHEBYSHEV))
+        )
+        pc = AMGPreconditioner(
+            p.A, coords=p.coords, options=opts, device="cuda",
+            **SETUP_KW.get(problem, {}),
+        )
+
+        def solve():
+            return pc.solve(p.b, tol=1e-8, return_device=True,
+                            **SOLVE_KW.get(problem, {}))
     if args.setup_profile:
         _profiled_setup(pc)
     else:
         pc.setup()
-
-    def solve():
-        return pc.solve(p.b, tol=1e-8, return_device=True,
-                        **SOLVE_KW.get(problem, {}))
 
     for _ in range(2):
         _wall(solve)

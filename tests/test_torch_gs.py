@@ -245,10 +245,14 @@ def test_stencil_build_matches(kind):
 
 
 def test_unported_smoother_raises():
+    """The Hiptmair kind is no ``build_smoother`` smoother in either
+    package (the Stokes preconditioners build it); GS needs a
+    color-permuted level."""
     A = _problem(1)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tbuild.build_smoother(A, 1, _opts(ngsamg_tpu_torch, "hiptmair"), 0,
-                              A.shape[0], np.float32)
+    for pkg, build in ((ngsamg_tpu_torch, tbuild), (ngsamg_tpu, jbuild)):
+        with pytest.raises(ValueError, match="unsupported smoother type"):
+            build.build_smoother(A, 1, _opts(pkg, "hiptmair"), 0,
+                                 A.shape[0], np.float32)
     with pytest.raises(ValueError, match="color-permuted"):
         tbuild.build_smoother(A, 1, _opts(ngsamg_tpu_torch, "gs"), 0,
                               A.shape[0], np.float32)

@@ -2,11 +2,12 @@
 
 In a fresh interpreter (this test process has already imported
 ngsamg_tpu and JAX via tests/conftest.py), import the package and every
-module in it, run four small solves on the CPU — a lattice problem
+module in it, run five small solves on the CPU — a lattice problem
 (structured setup), an unstructured one (generic level loop, tile-ELL,
 cluster correction, host refinement), a lattice problem on the default
-options (multicolor GS) and a 3D elasticity one (block energies,
-block-ELL, the mixed-precision PCG) — and check that neither
+options (multicolor GS), a 3D elasticity one (block energies,
+block-ELL, the mixed-precision PCG) and a Stokes one (dual-mesh facet
+AMG with geometric loops and Hiptmair smoothing) — and check that neither
 `jax` nor `ngsamg_tpu` (its native extension included) was ever imported.
 """
 
@@ -38,7 +39,9 @@ SCRIPT = textwrap.dedent(
                  "coarsen.pairwise", "transfer.prolongation",
                  "transfer.galerkin", "solve.pcg", "precond.convert",
                  "utils.trace_solve", "smoothers.coloring",
-                 "smoothers.block", "apps.elmat", "ops.batched_la"):
+                 "smoothers.block", "apps.elmat", "ops.batched_la",
+                 "apps.stokes", "apps.stokes_hdiv", "utils.stokes_fem",
+                 "smoothers.hiptmair", "precond.stokes"):
         assert "ngsamg_tpu_torch." + name in mods, name
 
     p = fem.poisson_3d(34)  # 35,937 DoF: the uniform-stencil branches
@@ -79,6 +82,22 @@ SCRIPT = textwrap.dedent(
     xe, infoe = pce.solve(e.b, tol=1e-8, mixed=True)
     rele = np.linalg.norm(e.b - e.A @ xe) / np.linalg.norm(e.b)
     assert infoe.converged and rele <= 1e-8, (infoe, rele)
+    from ngsamg_tpu_torch.precond.stokes import StokesAMG
+    from ngsamg_tpu_torch.utils.stokes_fem import stokes_tri
+
+    s, _normals = stokes_tri(10, dim=2)  # 280 facet DoF
+    sopts = ngsamg_tpu_torch.AMGOptions()
+    sopts.levels.max_coarse_size = 40
+    pcs = StokesAMG(
+        s.A, cell_pos=s.cell_pos, cell_vol=s.cell_vol,
+        facet_cells=s.facet_cells, facet_flow=s.facet_flow,
+        facet_verts=s.facet_verts, vert_pos=s.vert_pos,
+        bnd_facet_verts=s.bnd_facet_verts, options=sopts, device="cpu",
+    ).setup()
+    assert type(pcs.op.levels[0].smoother).__name__ == "HiptmairSmoother"
+    xs, infos = pcs.solve(s.b, tol=1e-8)
+    rels = np.linalg.norm(s.b - s.A @ xs) / np.linalg.norm(s.b)
+    assert infos.converged and rels <= 1e-8, (infos, rels)
     bad = sorted(
         m for m in sys.modules
         if m in ("jax", "jaxlib", "ngsamg_tpu")
@@ -86,7 +105,7 @@ SCRIPT = textwrap.dedent(
     )
     assert not bad, bad
     print("OK", info.iterations, infou.iterations, infog.iterations,
-          infoe.iterations)
+          infoe.iterations, infos.iterations)
     """
 )
 

@@ -214,8 +214,9 @@ def test_unported_paths_raise():
     """The plate test coarsener (which declines the structured fast path
     and reaches the generic loop) builds the JAX package's levels; the
     JAX package's default options (multicolor GS, V-cycle) and the W-cycle
-    set up and solve; the Hiptmair smoother (ROADMAP queue 1 item 5) still
-    raises instead of running another one."""
+    set up and solve; the Hiptmair smoother, which only the Stokes
+    preconditioners build, raises the JAX package's ValueError instead of
+    running another one."""
     import ngsamg_tpu.factory.levels as jlevels
 
     p = tfem.poisson_3d(12)
@@ -249,7 +250,7 @@ def test_unported_paths_raise():
             type=ngsamg_tpu_torch.SmootherType.HIPTMAIR
         )
     )
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(ValueError, match="unsupported smoother type"):
         ngsamg_tpu_torch.AMGPreconditioner(
             p.A, coords=p.coords, options=hip, device="cpu"
         ).setup()
