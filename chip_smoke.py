@@ -7,6 +7,8 @@
                              # poisson_3d(101), 1,000,000 (GS and the cycles)
                              # stokes_tri(20, 3), 104,738 (Stokes bench leg)
                              # stokes_mac_2d(512), 523,264 (Stokes, MAC)
+                             # poisson_3d(101) again through the
+                             # host-distributed setup on 8 shards
 
 Phases, each of which raises (nonzero exit) on failure:
 
@@ -165,10 +167,57 @@ Phases, each of which raises (nonzero exit) on failure:
    ``stokes_cr(10)``: the same level count, iterations within one,
    solutions to 1e-6 relative, true relres <= 1e-8.
 
+22. dist-setup (after phase 13, on its assembled problem) —
+   ``poisson_3d(101)`` with ``AMGOptions(dist_setup=8)``, SPW, Chebyshev
+   on the card: the host-distributed setup (``parallel/dist_setup.py``),
+   then staging and solves as in phase 12. It must give the JAX package's
+   7 levels 1,000,000 / 147,697 / 39,687 / 10,660 / 2,872 / 776 / 208,
+   operator complexity 2.7298, contraction decisions (3, 8, 2) and (4, 2,
+   1) on ``min_rows``, shards per level 8, 8, 8, 2, 1, 1, 1, a peak shard
+   state under 4/8 of the finest global bytes, iterations within one of 16,
+   true relres <= 1e-8, every staged tensor on the card, and level 0 a
+   full DIA whose K2 plan reads x through the read-only cache (``ldg``: its
+   x window, 20,032 values, exceeds the shared-memory budget); then K2 at
+   level 0 against its plain version, timed like phase 4. Its row joins
+   the kernels line (``"path": "dist"``).
+23. dist-elasticity — ``unstructured_elasticity(140, dim=2)`` (39,480
+   DoF), ``dist_setup=8``, SPW, Chebyshev, ``max_coarse_size`` 60 on the
+   card and on the CPU: the JAX package's levels 19,740 / 3,051 / 862 /
+   242 / 67 / 18, operator complexity 2.276, its contraction decisions;
+   the plain f32 defect correction on the CPU within one of the JAX
+   package's 21 iterations and on the card within 10% of the CPU (each
+   pass stalls at the f32 floor, as phase 14's plain elasticity solve),
+   the mixed-precision PCG card against CPU within one; solutions to
+   1e-6, true relres <= 1e-8.
+24. mp-setup — ``mp_dist_setup_levels`` on 4 rank processes (spawned
+   with the card hidden) for ``poisson_3d(41)`` (64,000 DoF) and the
+   problem of phase 23: bitwise the single controller's
+   ``dist_setup_levels``; the per-rank peak shard bytes, transport calls
+   and moved bytes; then the scalar MP hierarchy staged on the card and
+   solved to a true relres <= 1e-8.
+25. api (after phase 16, on the headline problem) —
+   ``api.h1_scal(A, coords=..., ngs_amg_sm_type="chebyshev")`` on the
+   card: 6 levels (``GetNDof``), ``GetOC`` 1.762, <= 15 iterations, true
+   relres <= 1e-8, K1-K3 launched in its solve (``launches_api`` in the
+   kernels line); ``ToSparseMatrix`` of levels 1-5 against each level's
+   device matvec (rtol 1e-5; levels 1-2 are symmetric-half), ``CINV`` on
+   the coarsest level, and ``GetBF(level=2)`` raising the ValueError of
+   an implicit (lattice) transfer.
+26. timers — one warm headline solve inside ``timers.trace`` and
+   ``timers.device_region("solve")``: the trace file must hold the region
+   and K1's tiled kernel; ``timers.report()`` must list the host timer.
+27. api reference (last) — card against CPU: ``h1_scal`` on
+   ``poisson_2d(24)`` (GS) with ``GetBF``, the ``DOFMap`` transfers and
+   ``ToSparseMatrix`` of every level, ``elast_3d`` on ``elasticity_3d(8)``
+   with ``GetRotationOfBF`` (mixed solve), ``h1_3d`` on a 3-component
+   vector Poisson, the five ``Create*`` smoothers on the ``poisson_3d(24)``
+   matrix (rtol 1e-5), and ``stokes_hdiv_gg_2d``, ``stokes_hdg_gg_2d`` and
+   ``stokes_gg_2d`` on phase 21's problems.
+
 Every phase prints its seconds. The last lines are the nvidia-smi line,
 one JSON object describing the kernels (each row names the path its
-``launches`` were counted on: ``main``, ``bf16`` or ``stokes-mac``), and
-``{"ok": true, "device": {...}}``.
+``launches`` were counted on: ``main``, ``bf16``, ``stokes-mac`` or
+``dist``), and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2096,24 +2145,21 @@ def phase_stokes():
     return out
 
 
-def _stokes_k2_levels(pc, launches):
-    """K2 against its plain version on every DIA potential-space operator
-    of a Stokes hierarchy, timed like phase 4; returns the kernels-line
-    row of this path."""
+def _k2_row(cases, launches, path, tag, seed):
+    """K2 against its plain version on each ``(level, A)`` of ``cases``
+    (full-storage DIA levels), timed like phase 4; returns the
+    kernels-line row of ``path``, its launches those of the path's warm
+    solve."""
     import torch
 
     from ngsamg_tpu_torch.ops import dia_cuda
-    from ngsamg_tpu_torch.sparse import formats
     from ngsamg_tpu_torch.utils.timing import cold_ms, event_ms, graph_ms
 
     kern, plain = dia_cuda.dia_matvec, dia_cuda._dia_matvec_plain
     levels = []
-    for lvl, lev in enumerate(pc.op.levels):
-        A = getattr(lev.smoother, "A_pot", None)
-        if not isinstance(A, formats.DiaMatrix) or A.sym_half:
-            continue
-        label = f"dia_matvec_f32 stokes-mac A_pot level {lvl}"
-        x = _rand_x(A.nrows, A.nrows_pad, torch.float32, 300 + lvl)
+    for lvl, A in cases:
+        label = f"dia_matvec_f32 {tag} level {lvl}"
+        x = _rand_x(A.nrows, A.nrows_pad, torch.float32, seed + lvl)
         err, rel = _check_kernel(A, x, kern, plain, F32_TOL, label)
         _same_bits(kern, A, x, label)
         nbytes, flops = _level_cost(A, torch.float32)
@@ -2134,14 +2180,14 @@ def _stokes_k2_levels(pc, launches):
         }
         del lib
         entry["share_of_bound"] = bound_ms / entry["device_ms"]
-        print("[stokes-mac] K2 " + json.dumps(entry), flush=True)
+        print(f"[{path}] K2 " + json.dumps(entry), flush=True)
         levels.append(entry)
     if not levels:
-        raise AssertionError("stokes-mac: no DIA potential-space operator")
+        raise AssertionError(f"{path}: no full-storage DIA level")
     big = max(levels, key=lambda e: e["rows"])
     src, replaces = KERNELS["dia_matvec_f32"]
     return {
-        "name": "dia_matvec_f32", "path": "stokes-mac", "route": "cuda",
+        "name": "dia_matvec_f32", "path": path, "route": "cuda",
         "source": src, "replaces": replaces,
         "launches": int(launches["dia_matvec_f32"]),
         "max_abs_err": max(e["max_abs_err"] for e in levels),
@@ -2158,6 +2204,18 @@ def _stokes_k2_levels(pc, launches):
             for e in levels
         ],
     }
+
+
+def _stokes_k2_levels(pc, launches):
+    """K2 on every DIA potential-space operator of a Stokes hierarchy."""
+    from ngsamg_tpu_torch.sparse import formats
+
+    cases = []
+    for lvl, lev in enumerate(pc.op.levels):
+        A = getattr(lev.smoother, "A_pot", None)
+        if isinstance(A, formats.DiaMatrix) and not A.sym_half:
+            cases.append((lvl, A))
+    return _k2_row(cases, launches, "stokes-mac", "stokes-mac A_pot", 300)
 
 
 def phase_stokes_mac():
@@ -2272,6 +2330,481 @@ def phase_stokes_reference():
     return out
 
 
+# the JAX package's distributed setup on poisson_3d(101) (SPW, Chebyshev,
+# dist_setup=8; its numbers on the CPU, measured when the slice was
+# specified): levels, operator complexity, contraction decisions
+DIST_SHARDS = 8
+DIST_LEVELS = [1000000, 147697, 39687, 10660, 2872, 776, 208]
+DIST_OC = 2.7298
+DIST_CONTRACT = [(3, 8, 2, "min_rows"), (4, 2, 1, "min_rows")]
+DIST_SHARDS_PER_LEVEL = [8, 8, 8, 2, 1, 1, 1]
+DIST_JAX_IT = 16
+# ... and on unstructured_elasticity(140, dim=2), max_coarse_size 60
+DIST_ELAST_N = 140
+DIST_ELAST_LEVELS = [19740, 3051, 862, 242, 67, 18]
+DIST_ELAST_OC = 2.276
+DIST_ELAST_CONTRACT = [(1, 8, 1, "min_rows")]
+DIST_ELAST_SHARDS_PER_LEVEL = [8, 1, 1, 1, 1, 1]
+DIST_ELAST_JAX_IT = 21
+MP_RANKS = 4
+MP_N = 41  # fem.poisson_3d(41): 64,000 DoF
+
+
+def _dist_opts(mcs=None):
+    """The distributed setup's options: Chebyshev, SPW coarsening on 8
+    shards."""
+    from ngsamg_tpu_torch import CoarsenType, SpecOpt
+
+    opts = _options("chebyshev", dist_setup=DIST_SHARDS)
+    opts.coarsen.algo = SpecOpt(CoarsenType.SPW)
+    if mcs is not None:
+        opts.levels.max_coarse_size = mcs
+    return opts
+
+
+def _dist_log(log) -> dict:
+    return {
+        "contract_decisions": [list(d) for d in log.contract_decisions],
+        "shards_per_level": list(log.shards_per_level),
+        "peak_shard_bytes": int(log.peak_shard_bytes),
+        "finest_global_bytes": int(log.finest_global_bytes),
+    }
+
+
+def _check_dist_log(label, out, levels, oc, contract, shards, digits):
+    if out["level_sizes"] != levels:
+        raise AssertionError(f"{label}: levels {out['level_sizes']} != "
+                             f"{levels}")
+    if round(out["operator_complexity"], digits) != oc:
+        raise AssertionError(f"{label}: operator complexity "
+                             f"{out['operator_complexity']} != {oc}")
+    if [tuple(d) for d in out["contract_decisions"]] != contract:
+        raise AssertionError(f"{label}: contract decisions "
+                             f"{out['contract_decisions']} != {contract}")
+    if out["shards_per_level"] != shards:
+        raise AssertionError(f"{label}: shards per level "
+                             f"{out['shards_per_level']} != {shards}")
+
+
+def phase_dist_setup(p):
+    """poisson_3d(101) through the host-distributed setup on 8 shards
+    (SPW, Chebyshev) on the card: the JAX package's levels, operator
+    complexity and contraction decisions; level 0 a full DIA on K2's
+    read-only-cache plan; then K2 at that level against its plain
+    version, timed."""
+    from ngsamg_tpu_torch.sparse import formats
+
+    pc, out = _solve_run(p, _dist_opts(), "dist-setup")
+    out.update(_dist_log(pc.log_))
+    A0 = pc.op.levels[0].A
+    out["level0"] = {"format": type(A0).__name__,
+                     "sym_half": bool(getattr(A0, "sym_half", False)),
+                     "offsets": list(getattr(A0, "offsets", ())),
+                     "plan": _variant(A0) if hasattr(A0, "launch") else None}
+    print("[dist-setup] " + json.dumps(out), flush=True)
+    _check_dist_log("dist-setup", out, DIST_LEVELS, DIST_OC, DIST_CONTRACT,
+                    DIST_SHARDS_PER_LEVEL, 4)
+    if not out["peak_shard_bytes"] < 4 * out["finest_global_bytes"] \
+            / DIST_SHARDS:
+        raise AssertionError(f"dist-setup: peak shard bytes "
+                             f"{out['peak_shard_bytes']} not under 4/8 of "
+                             f"{out['finest_global_bytes']}")
+    if abs(out["iterations"] - DIST_JAX_IT) > 1:
+        raise AssertionError(f"dist-setup: {out['iterations']} iterations, "
+                             f"the JAX package's {DIST_JAX_IT}")
+    if not isinstance(A0, formats.DiaMatrix) or A0.sym_half \
+            or A0.launch.plan.path != "ldg":
+        raise AssertionError(f"dist-setup: level 0 is {out['level0']}, not "
+                             "a full DIA on K2's ldg plan")
+    if out["kernel_launches_warm"]["dia_matvec_f32"] <= 0:
+        raise AssertionError("dist-setup: K2 never launched")
+    row = _k2_row([(0, A0)], out["kernel_launches_warm"], "dist",
+                  "dist-setup", 400)
+    del pc
+    return out, row
+
+
+def phase_dist_elasticity():
+    """unstructured_elasticity(140, dim=2) through the distributed
+    elasticity setup (dist_setup=8) on the card and on the CPU, solved
+    with plain f32 defect correction (the JAX package's measurement) and
+    with the mixed-precision PCG."""
+    from ngsamg_tpu_torch import AMGPreconditioner
+    from ngsamg_tpu_torch.utils import fem
+
+    t0 = time.perf_counter()
+    q = fem.unstructured_elasticity(DIST_ELAST_N, dim=2)
+    pcs, runs = {}, {}
+    for dev in ("cuda", "cpu"):
+        pcs[dev] = AMGPreconditioner(
+            q.A, energy="elasticity", block_size=2, coords=q.coords,
+            options=_dist_opts(mcs=60), device=dev,
+        ).setup()
+        for mixed in (False, True):
+            x, info = pcs[dev].solve(q.b, tol=1e-8, mixed=mixed)
+            x = np.asarray(x)
+            runs[dev, mixed] = {
+                "iterations": int(info.iterations),
+                "outer_iterations": int(info.outer_iterations),
+                "history": [float(h) for h in info.history],
+                "relres_true": _true_relres(q.A, q.b, x),
+                "converged": bool(info.converged), "x": x,
+            }
+    pg = pcs["cuda"]
+    out = {"dofs": int(q.n), "level_sizes": [int(v) for v in pg.log_.nvs],
+           "operator_complexity": pg.operator_complexity,
+           "level_formats": [type(lev.A).__name__ for lev in pg.op.levels],
+           "setup_host_s": pg.setup_time_host,
+           "setup_staging_s": pg.setup_time_device}
+    out.update(_dist_log(pg.log_))
+    for (dev, mixed), r in runs.items():
+        out[f"{dev}_{'mixed' if mixed else 'plain'}"] = {
+            k: v for k, v in r.items() if k != "x"}
+    for mixed in (False, True):
+        xg, xc = runs["cuda", mixed]["x"], runs["cpu", mixed]["x"]
+        out[f"x_diff_{'mixed' if mixed else 'plain'}"] = float(
+            np.linalg.norm(xg - xc) / np.linalg.norm(xc))
+    out["s"] = time.perf_counter() - t0
+    print("[dist-elasticity] " + json.dumps(out), flush=True)
+    _check_dist_log("dist-elasticity", out, DIST_ELAST_LEVELS,
+                    DIST_ELAST_OC, DIST_ELAST_CONTRACT,
+                    DIST_ELAST_SHARDS_PER_LEVEL, 3)
+    if pcs["cpu"].log_.nvs != pg.log_.nvs:
+        raise AssertionError("dist-elasticity: CPU levels differ")
+    if abs(runs["cpu", False]["iterations"] - DIST_ELAST_JAX_IT) > 1:
+        raise AssertionError(f"dist-elasticity: the CPU's plain count "
+                             f"{runs['cpu', False]['iterations']}, the JAX "
+                             f"package's {DIST_ELAST_JAX_IT}")
+    # plain f32 defect correction stalls at the f32 floor in each pass and
+    # where a pass stops follows the rounding: the 10% band of
+    # [gs-reference]'s plain elasticity solve; the mixed PCG within one
+    bands = {False: max(2, 0.1 * runs["cpu", False]["iterations"]),
+             True: 1}
+    for mixed, band in bands.items():
+        g, c = runs["cuda", mixed], runs["cpu", mixed]
+        diff = out[f"x_diff_{'mixed' if mixed else 'plain'}"]
+        if (abs(g["iterations"] - c["iterations"]) > band
+                or not g["converged"] or g["relres_true"] > 1e-8
+                or c["relres_true"] > 1e-8 or diff > 1e-6):
+            raise AssertionError(f"dist-elasticity: the card disagrees with "
+                                 f"the CPU (mixed={mixed})")
+    return q, out
+
+
+def _levels_bitwise(label, ref, got):
+    if len(ref) != len(got):
+        raise AssertionError(f"{label}: {len(got)} levels, not {len(ref)}")
+    for i, (a, b) in enumerate(zip(ref, got)):
+        mats = [(a.A, b.A)]
+        if a.P is not None or b.P is not None:
+            mats.append((a.P, b.P))
+        if a.P_amg is not None or b.P_amg is not None:
+            mats.append((a.P_amg, b.P_amg))
+        for ma, mb in mats:
+            ma, mb = ma.tocsr(), mb.tocsr()
+            if not (np.array_equal(ma.indptr, mb.indptr)
+                    and np.array_equal(ma.indices, mb.indices)
+                    and np.array_equal(ma.data, mb.data)):
+                raise AssertionError(f"{label}: level {i} differs")
+        if a.v2agg is not None and not np.array_equal(a.v2agg, b.v2agg):
+            raise AssertionError(f"{label}: level {i} aggregates differ")
+
+
+def phase_mp_setup(q_elast):
+    """mp_dist_setup_levels on 4 rank processes (the card hidden from
+    them): bitwise the single controller's hierarchy on poisson_3d(41) and
+    on the dist-elasticity problem; the scalar MP hierarchy staged on the
+    card and solved."""
+    from ngsamg_tpu_torch import AMGPreconditioner
+    from ngsamg_tpu_torch.apps.elasticity import ElasticityEnergy
+    from ngsamg_tpu_torch.apps.h1 import H1Energy
+    from ngsamg_tpu_torch.parallel.dist_setup import dist_setup_levels
+    from ngsamg_tpu_torch.parallel.mp_runtime import mp_dist_setup_levels
+    from ngsamg_tpu_torch.utils import fem
+
+    p = fem.poisson_3d(MP_N)
+    out, mp = {}, {}
+    for label, A, energy, opts, coords in (
+        ("poisson_3d(41)", p.A, lambda: H1Energy(bs=1), _dist_opts(), None),
+        (f"unstructured_elasticity({DIST_ELAST_N}, 2)", q_elast.A,
+         lambda: ElasticityEnergy(dim=2), _dist_opts(mcs=60),
+         q_elast.coords),
+    ):
+        t0 = time.perf_counter()
+        ref, _ref_log = dist_setup_levels(A, energy(), opts, MP_RANKS,
+                                          coords=coords)
+        t1 = time.perf_counter()
+        levels, log = mp_dist_setup_levels(A, energy(), opts, MP_RANKS,
+                                           coords=coords)
+        t2 = time.perf_counter()
+        _levels_bitwise(f"mp-setup {label}", ref, levels)
+        out[label] = {
+            "dofs": int(A.shape[0]), "level_sizes": list(log.nvs),
+            "single_controller_s": t1 - t0, "mp_s": t2 - t1,
+            "ranks": [{k: st[k] for k in ("peak_shard_bytes",
+                                          "transport_calls", "moved_bytes")}
+                      for st in log.mp_rank_stats],
+        }
+        mp[label] = (levels, log)
+    pc = AMGPreconditioner(p.A, coords=p.coords, options=_dist_opts(),
+                           device="cuda")
+    pc.setup_levels_, pc.log_ = mp["poisson_3d(41)"]
+    pc._compile_device()
+    pc._is_setup = True
+    x, info = pc.solve(p.b, tol=1e-8)
+    relres = _true_relres(p.A, p.b, x)
+    off_card = [lab for lab, t in _operator_tensors(pc.op)
+                if t.device.type != "cuda"]
+    out["mp_solve"] = {"iterations": int(info.iterations),
+                       "relres_true": relres,
+                       "level_formats": [type(lev.A).__name__
+                                         for lev in pc.op.levels]}
+    print("[mp-setup] " + json.dumps(out), flush=True)
+    if off_card or not info.converged or relres > 1e-8:
+        raise AssertionError(f"mp-setup: MP hierarchy solve {out['mp_solve']}"
+                             f", off the card: {off_card[:5]}")
+    return out
+
+
+def _device_y(A, v):
+    """A staged level's matvec of a host vector, back on the host in f64."""
+    import torch
+
+    from ngsamg_tpu_torch.sparse import formats
+
+    xb = formats.block_vec(v, 1, A.nrows_pad, torch.float32, device="cuda")
+    return formats.flat_vec(formats.matvec(A, xb), A.nrows).double() \
+        .cpu().numpy()
+
+
+def phase_api(p):
+    """The headline through ``api.h1_scal`` on the card: levels, operator
+    complexity, iterations and K1-K3 launched in its solve; the
+    introspection methods (GetNDof, GetOC, CINV, ToSparseMatrix of levels
+    1-5 against each level's device matvec) and GetBF's refusal across
+    the implicit lattice transfer."""
+    import torch
+
+    from ngsamg_tpu_torch import api
+
+    t0 = time.perf_counter()
+    pc = api.h1_scal(p.A, coords=p.coords, ngs_amg_sm_type="chebyshev")
+    t1 = time.perf_counter()
+    _reset_counts()
+    x, info = pc.solve(p.b, tol=1e-8, return_device=True)
+    torch.cuda.synchronize()
+    launches = _counts()
+    relres = _true_relres(p.A, p.b, x.cpu().numpy())
+    nlev = pc.GetNLevels()
+    rng = np.random.default_rng(21)
+    to_sparse = []
+    for lvl in range(1, nlev):
+        A = pc.op.levels[lvl].A
+        C = api.ToSparseMatrix(A)
+        v = rng.standard_normal(C.shape[0])
+        y = _device_y(A, v)
+        to_sparse.append({
+            "level": lvl, "format": type(A).__name__,
+            "sym_half": bool(getattr(A, "sym_half", False)),
+            "nnz": int(C.nnz),
+            "rel_err": float(np.abs(C @ v - y).max() / np.abs(y).max()),
+        })
+    Ac = pc.setup_levels_[-1].A
+    c = rng.standard_normal(Ac.shape[0])
+    cinv_err = float(np.linalg.norm(Ac @ pc.CINV(c) - c) / np.linalg.norm(c))
+    try:
+        pc.GetBF(level=2)
+        getbf = None
+    except ValueError as e:
+        getbf = str(e)
+    out = {"ndof": [pc.GetNDof(i) for i in range(nlev)], "oc": pc.GetOC(),
+           "iterations": int(info.iterations), "relres_true": relres,
+           "setup_s": t1 - t0, "cinv_rel_err": cinv_err,
+           "to_sparse": to_sparse, "getbf_level2": getbf,
+           "launches": {k: v for k, v in launches.items() if v}}
+    print("[api] " + json.dumps(out), flush=True)
+    if out["ndof"] != HEADLINE_LEVELS or round(out["oc"], 3) != 1.762:
+        raise AssertionError(f"api: levels {out['ndof']}, OC {out['oc']}")
+    if info.iterations > 15 or not info.converged or relres > 1e-8:
+        raise AssertionError(f"api: {info.iterations} iterations, relres "
+                             f"{relres}")
+    for k in _path_kernels(pc):
+        if launches[k] <= 0:
+            raise AssertionError(f"api: kernel {k} never launched")
+    if any(e["rel_err"] > 1e-5 for e in to_sparse) \
+            or not all(e["sym_half"] for e in to_sparse[:2]):
+        raise AssertionError(f"api: ToSparseMatrix {to_sparse}")
+    if cinv_err > 1e-8:
+        raise AssertionError(f"api: CINV residual {cinv_err}")
+    if getbf is None or "implicit (lattice transfer)" not in getbf:
+        raise AssertionError(f"api: GetBF(level=2) gave {getbf!r}")
+    return pc, launches
+
+
+def phase_api_reference():
+    """The api on small problems, card against CPU: h1_scal (defaults,
+    GS) with GetBF, the DOFMap and ToSparseMatrix of every level,
+    elast_3d with GetRotationOfBF, h1_3d on a 3-component vector Poisson,
+    the five standalone smoothers, and one Stokes class of each kind."""
+    from ngsamg_tpu_torch import api
+    from ngsamg_tpu_torch.utils import fem
+    from ngsamg_tpu_torch.utils import stokes_fem as sf
+
+    t0 = time.perf_counter()
+    out = {}
+
+    def solved(pc, A, b, **kw):
+        x, info = pc.solve(b, tol=1e-8, **kw)
+        x = np.asarray(x)
+        return x, int(info.iterations), _true_relres(A, b, x)
+
+    def compare(label, runs, extra=None):
+        (xg, ig, rg), (xc, ic, _rc) = runs["cuda"], runs["cpu"]
+        diff = float(np.linalg.norm(xg - xc) / np.linalg.norm(xc))
+        out[label] = {"card_iterations": ig, "cpu_iterations": ic,
+                      "card_relres_true": rg, "x_diff": diff,
+                      **(extra or {})}
+        if abs(ig - ic) > 1 or rg > 1e-8 or diff > 1e-6:
+            raise AssertionError(f"api-reference {label}: {out[label]}")
+
+    p = fem.poisson_2d(24)
+    pcs = {dev: api.h1_scal(p.A, coords=p.coords, ngs_amg_max_coarse_size=40,
+                            device=dev) for dev in ("cuda", "cpu")}
+    g, c = pcs["cuda"], pcs["cpu"]
+    vf = np.random.default_rng(22).standard_normal(p.n)
+    mg, mc = g.GetMap(), c.GetMap()
+    for k in range(mg.GetNSteps()):
+        vc = mg.TransferF2C(k, vf)
+        if not (np.allclose(vc, mc.TransferF2C(k, vf), rtol=1e-6)
+                and np.allclose(mg.TransferC2F(k, vc), mc.TransferC2F(k, vc),
+                                rtol=1e-6)):
+            raise AssertionError(f"api-reference: DOFMap step {k} differs")
+        vf = vc
+    for lvl in range(1, g.GetNLevels()):
+        if not np.allclose(g.GetBF(level=lvl, dof=1), c.GetBF(level=lvl, dof=1),
+                           rtol=1e-6):
+            raise AssertionError(f"api-reference: GetBF level {lvl} differs")
+    for lvl, (lg, lc) in enumerate(zip(g.op.levels, c.op.levels)):
+        if (api.ToSparseMatrix(lg.A) != api.ToSparseMatrix(lc.A)).nnz:
+            raise AssertionError(f"api-reference: ToSparseMatrix level {lvl}")
+    compare("h1_scal poisson_2d(24)",
+            {dev: solved(pcs[dev], p.A, p.b) for dev in pcs},
+            {"levels": g.GetNLevels(), "steps": mg.GetNSteps()})
+
+    e = fem.elasticity_3d(8)
+    pcs = {dev: api.elast_3d(e.A, e.coords,
+                             ngs_amg_sm_type="chebyshev", device=dev)
+           for dev in ("cuda", "cpu")}
+    rot = [pcs[dev].GetRotationOfBF(level=1, dof=2, comp=4)
+           for dev in ("cuda", "cpu")]
+    if rot[0].shape != (e.n // 3, 3) or not np.allclose(rot[0], rot[1],
+                                                         rtol=1e-6):
+        raise AssertionError("api-reference: GetRotationOfBF differs")
+    compare("elast_3d elasticity_3d(8), mixed",
+            {dev: solved(pcs[dev], e.A, e.b, mixed=True) for dev in pcs})
+
+    v = fem.vector_poisson(fem.poisson_3d(12), 3)
+    compare("h1_3d vector_poisson(poisson_3d(12), 3)", {
+        dev: solved(api.h1_3d(v.A, coords=v.coords, device=dev), v.A, v.b)
+        for dev in ("cuda", "cpu")})
+
+    s = fem.poisson_3d(24)
+    rng = np.random.default_rng(23)
+    x0, b = rng.standard_normal(s.n), rng.standard_normal(s.n)
+    blocks = [np.arange(i, min(i + 4, s.n)) for i in range(0, s.n, 4)]
+    smoothers = {
+        "CreateHybridGSS": lambda d: api.CreateHybridGSS(s.A, device=d),
+        "CreateJacobiSmoother": lambda d: api.CreateJacobiSmoother(
+            s.A, device=d),
+        "CreateChebyshevSmoother": lambda d: api.CreateChebyshevSmoother(
+            s.A, device=d),
+        "CreateDynBlockSmoother": lambda d: api.CreateDynBlockSmoother(
+            s.A, device=d),
+        "CreateHybridBlockGSS": lambda d: api.CreateHybridBlockGSS(
+            s.A, blocks, device=d),
+    }
+    sm_err = {}
+    for name, make in smoothers.items():
+        sg, sc = make("cuda"), make("cpu")
+        for fn in ("Smooth", "SmoothBack"):
+            yg, yc = getattr(sg, fn)(x0, b), getattr(sc, fn)(x0, b)
+            err = float(np.abs(yg - yc).max() / np.abs(yc).max())
+            sm_err[f"{name}.{fn}"] = err
+            if err > 1e-5:
+                raise AssertionError(f"api-reference: {name}.{fn} {err}")
+    out["smoothers_rel_err"] = sm_err
+
+    def stokes_opts(mcs):
+        from ngsamg_tpu_torch import AMGOptions
+
+        o = AMGOptions()
+        o.levels.max_coarse_size = mcs
+        return o
+
+    def geo(prob):
+        return dict(cell_pos=prob.cell_pos, cell_vol=prob.cell_vol,
+                    facet_cells=prob.facet_cells, facet_flow=prob.facet_flow)
+
+    prob, counts, V = sf.stokes_tri_hdiv(14)
+    compare("stokes_hdiv_gg_2d stokes_tri_hdiv(14)", {
+        dev: solved(api.stokes_hdiv_gg_2d(
+            prob.A, **geo(prob), facet_dof_counts=counts, preserved=V,
+            options=stokes_opts(120), device=dev), prob.A, prob.b)
+        for dev in ("cuda", "cpu")})
+    S, bs_, E, hg = sf.stokes_hdg_p1(12)
+    compare("stokes_hdg_gg_2d stokes_hdg_p1(12)", {
+        dev: solved(api.stokes_hdg_gg_2d(S, E, **hg,
+                                         options=stokes_opts(150),
+                                         device=dev), S, bs_)
+        for dev in ("cuda", "cpu")})
+    cr, _normals = sf.stokes_cr(10, dim=2)
+    compare("stokes_gg_2d stokes_cr(10)", {
+        dev: solved(api.stokes_gg_2d(cr.A, **geo(cr),
+                                     options=stokes_opts(150), device=dev),
+                    cr.A, cr.b)
+        for dev in ("cuda", "cpu")})
+    out["s"] = time.perf_counter() - t0
+    print("[api-reference] " + json.dumps(out), flush=True)
+    return out
+
+
+def phase_timers(pc, p):
+    """One warm headline solve inside ``timers.trace`` and
+    ``timers.device_region``: the trace file holds the region and K1's
+    tiled kernel; ``timers.report`` lists the host timer around it."""
+    import glob
+    import os
+    import tempfile
+
+    from ngsamg_tpu_torch.utils import timers
+
+    with tempfile.TemporaryDirectory() as logdir:
+        with timers.timer("headline_solve"):
+            with timers.trace(logdir):
+                with timers.device_region("solve"):
+                    pc.solve(p.b, tol=1e-8, return_device=True)
+        files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+        if len(files) != 1:
+            raise AssertionError(f"timers: trace files {files}")
+        with open(files[0]) as fh:
+            events = json.load(fh)["traceEvents"]
+        size = os.path.getsize(files[0])
+    names = {str(e.get("name")) for e in events}
+    k1 = sorted(n for n in names if "stencil3d_kernel" in n)
+    report = timers.report()
+    out = {"trace_bytes": size, "events": len(events),
+           "region": "solve" in names, "k1_names": k1[:2],
+           "report": report.splitlines()}
+    print("[timers] " + json.dumps(out), flush=True)
+    if not out["region"] or not k1:
+        raise AssertionError("timers: the trace lacks the region or K1")
+    if not any(ln.split()[0] == "headline_solve" for ln in out["report"][1:]):
+        raise AssertionError(f"timers: report {report}")
+    return out
+
+
+
+
 def main() -> int:
     import torch
 
@@ -2287,7 +2820,11 @@ def main() -> int:
     phase_selftest(pc)
     del pc
     bf16_rows, _solves = phase_bf16(p, rows)
-    del p
+    api_pc, api_launches = phase_api(p)
+    for row in rows:
+        row["launches_api"] = int(api_launches[row["name"]])
+    phase_timers(api_pc, p)
+    del api_pc, p
     _up, upc, _uout = phase_unstructured()
     phase_tile_ell(upc)
     del _up, upc
@@ -2303,11 +2840,16 @@ def main() -> int:
     gp = fem.poisson_3d(GS_N)
     phase_gs(gp)
     cycles = phase_cycles(gp)
+    _dist, dist_row = phase_dist_setup(gp)
     del gp
+    q_elast, _delast = phase_dist_elasticity()
+    phase_mp_setup(q_elast)
+    del q_elast
     phase_gs_reference()
     phase_stokes()
     _mac, stokes_row = phase_stokes_mac()
     phase_stokes_reference()
+    phase_api_reference()
     for row in rows:  # one warm solve of poisson_3d(101), W and BS cycles
         for label in ("W", "BS"):
             row[f"launches_{label}"] = int(
@@ -2317,7 +2859,7 @@ def main() -> int:
         if err is not None:
             row["max_abs_err"] = max(row["max_abs_err"], err)
     print(_nvidia_smi())
-    print(json.dumps({"kernels": rows + bf16_rows + [stokes_row]}))
+    print(json.dumps({"kernels": rows + bf16_rows + [stokes_row, dist_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

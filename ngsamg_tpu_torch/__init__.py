@@ -26,9 +26,20 @@ from .config import (
     SpecOpt,
     options_from_flags,
 )
-from .precond.amg import AMGPreconditioner, amg_preconditioner
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # the front end (and torch with it) loads on first use, so that host
+    # modules import without torch: the multi-process setup's numpy ranks
+    # (parallel/mp_runtime.py) start without it
+    if name in ("AMGPreconditioner", "amg_preconditioner"):
+        from .precond import amg
+
+        return getattr(amg, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __all__ = [
     "AMGOptions",

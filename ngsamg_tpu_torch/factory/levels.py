@@ -67,6 +67,21 @@ class FactoryLog:
 
     nvs: list = field(default_factory=list)
     nnzs: list = field(default_factory=list)
+    # distributed setup only (parallel/dist_setup.py): max resident bytes
+    # of any ONE shard's level-loop state vs the finest global matrix
+    peak_shard_bytes: int = 0
+    finest_global_bytes: int = 0
+    # distributed setup only: the level loop's redistribution decisions
+    # (level, active_before, active_after, reason) and the ACTIVE shard
+    # count per level
+    contract_decisions: list = field(default_factory=list)
+    shards_per_level: list = field(default_factory=list)
+    # distributed setup only: max over tracking points of (largest shard's
+    # state x n_shards / total state); 1.0 = perfectly balanced
+    state_balance: float = 0.0
+    # multi-process setup only (parallel/mp_runtime.py): each rank's log
+    # and transport statistics
+    mp_rank_stats: list = field(default_factory=list)
 
     @property
     def operator_complexity(self) -> float:

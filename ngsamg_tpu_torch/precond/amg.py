@@ -242,9 +242,11 @@ class AMGPreconditioner:
     batched pencil solver runs there too. The smoothers (multicolor GS,
     the default; Jacobi, l1-Jacobi, Chebyshev, dyn-block GS), the V, W and
     BS cycles and the device dtypes (float32, float64, bfloat16) are those
-    of the JAX package. Options of the JAX package that this port does not
-    run raise and name their ROADMAP item: ``shards != 1`` and
-    ``dist_setup > 1``; the Hiptmair smoother raises the JAX package's
+    of the JAX package. ``dist_setup > 1`` builds an H1 or elasticity
+    hierarchy with the host-distributed setup (parallel/dist_setup.py) and
+    stages it as any other. Options of the JAX package that this port
+    does not run raise and name their ROADMAP item: ``shards != 1``
+    (item 8b); the Hiptmair smoother raises the JAX package's
     ``ValueError`` (only the Stokes preconditioners, precond/stokes.py,
     build it). The local cluster
     correction (``options.cluster_corr``) is staged on unstructured scalar
@@ -269,14 +271,11 @@ class AMGPreconditioner:
         if options is None:
             options = options_from_flags(flags) if flags else AMGOptions()
         self.options = options
-        for unported, item in (
-            (options.shards != 1, "shards: ROADMAP queue 1 item 8"),
-            (options.dist_setup > 1, "dist_setup: ROADMAP queue 1 item 8"),
-        ):
-            if unported:
-                raise NotImplementedError(
-                    f"{item} (not ported to ngsamg_tpu_torch yet)"
-                )
+        if options.shards != 1:
+            raise NotImplementedError(
+                "shards: ROADMAP queue 1 item 8b (not ported to "
+                "ngsamg_tpu_torch yet)"
+            )
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {self.device}: CUDA is not available")
@@ -401,6 +400,17 @@ class AMGPreconditioner:
         t0 = time.perf_counter()
         if self._nodalp2 is not None:
             self._setup_nodalp2_levels()
+        elif (
+            self.options.dist_setup > 1
+            and isinstance(self.energy, (H1Energy, ElasticityEnergy))
+            and self._finest_mesh is None
+        ):
+            from ..parallel.dist_setup import dist_setup_levels
+
+            self.setup_levels_, self.log_ = dist_setup_levels(
+                self.A_host, self.energy, self.options,
+                self.options.dist_setup, coords=self.coords,
+            )
         else:
             self.setup_levels_, self.log_ = setup_levels(
                 self.A_host, self.energy, self.options, self.coords,

@@ -2,12 +2,14 @@
 
 In a fresh interpreter (this test process has already imported
 ngsamg_tpu and JAX via tests/conftest.py), import the package and every
-module in it, run five small solves on the CPU — a lattice problem
+module in it, run seven small solves on the CPU — a lattice problem
 (structured setup), an unstructured one (generic level loop, tile-ELL,
 cluster correction, host refinement), a lattice problem on the default
 options (multicolor GS), a 3D elasticity one (block energies,
-block-ELL, the mixed-precision PCG) and a Stokes one (dual-mesh facet
-AMG with geometric loops and Hiptmair smoothing) — and check that neither
+block-ELL, the mixed-precision PCG), a Stokes one (dual-mesh facet
+AMG with geometric loops and Hiptmair smoothing), an unstructured one
+through the host-distributed setup (``dist_setup=4``) and a lattice one
+through ``api.h1_scal`` — and check that neither
 `jax` nor `ngsamg_tpu` (its native extension included) was ever imported.
 """
 
@@ -41,7 +43,10 @@ SCRIPT = textwrap.dedent(
                  "utils.trace_solve", "smoothers.coloring",
                  "smoothers.block", "apps.elmat", "ops.batched_la",
                  "apps.stokes", "apps.stokes_hdiv", "utils.stokes_fem",
-                 "smoothers.hiptmair", "precond.stokes"):
+                 "smoothers.hiptmair", "precond.stokes",
+                 "parallel.transport", "parallel.dist_setup",
+                 "parallel.dist_elast", "parallel.mp_runtime",
+                 "utils.timers", "api"):
         assert "ngsamg_tpu_torch." + name in mods, name
 
     p = fem.poisson_3d(34)  # 35,937 DoF: the uniform-stencil branches
@@ -98,6 +103,23 @@ SCRIPT = textwrap.dedent(
     xs, infos = pcs.solve(s.b, tol=1e-8)
     rels = np.linalg.norm(s.b - s.A @ xs) / np.linalg.norm(s.b)
     assert infos.converged and rels <= 1e-8, (infos, rels)
+    d = fem.unstructured_poisson(16, dim=2)  # the distributed setup
+    dopts = ngsamg_tpu_torch.AMGOptions(
+        dist_setup=4, smoother=opts.smoother
+    )
+    pcd = ngsamg_tpu_torch.AMGPreconditioner(
+        d.A, coords=d.coords, options=dopts, device="cpu"
+    ).setup()
+    assert pcd.log_.shards_per_level[0] == 4
+    xd, infod = pcd.solve(d.b, tol=1e-8)
+    reld = np.linalg.norm(d.b - d.A @ xd) / np.linalg.norm(d.b)
+    assert infod.converged and reld <= 1e-8, (infod, reld)
+    from ngsamg_tpu_torch import api
+
+    pca = api.h1_scal(g.A, coords=g.coords, ngs_amg_sm_type="chebyshev",
+                      device="cpu")
+    xa, infoa = pca.solve(g.b, tol=1e-8)
+    assert infoa.converged and pca.GetNLevels() == pca.num_levels
     bad = sorted(
         m for m in sys.modules
         if m in ("jax", "jaxlib", "ngsamg_tpu")
@@ -105,7 +127,8 @@ SCRIPT = textwrap.dedent(
     )
     assert not bad, bad
     print("OK", info.iterations, infou.iterations, infog.iterations,
-          infoe.iterations, infos.iterations)
+          infoe.iterations, infos.iterations, infod.iterations,
+          infoa.iterations)
     """
 )
 

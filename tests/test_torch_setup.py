@@ -310,14 +310,24 @@ def test_missing_names():
     [("shards", 4, "item 8"), ("dist_setup", 4, "item 8")],
 )
 def test_unported_options_raise(field, value, item):
-    """Sharding and the distributed setup are not ported: asking for them
-    raises instead of running a plain single-device setup."""
+    """Sharding (ROADMAP item 8b) is not ported: asking for it raises
+    instead of running a plain single-device setup. The host-distributed
+    setup (item 8a) is ported: it raises no more and builds the hierarchy
+    on ``value`` shards (tests/test_torch_dist_setup.py holds it to the
+    JAX package)."""
     p = tfem.poisson_3d(12)
     opts = _cheb(ngsamg_tpu_torch).replace(**{field: value})
-    with pytest.raises(NotImplementedError, match=f"{field}: .*{item}"):
-        ngsamg_tpu_torch.AMGPreconditioner(
-            p.A, coords=p.coords, options=opts, device="cpu"
-        )
+    if field == "shards":
+        with pytest.raises(NotImplementedError, match=f"{field}: .*{item}b"):
+            ngsamg_tpu_torch.AMGPreconditioner(
+                p.A, coords=p.coords, options=opts, device="cpu"
+            )
+        return
+    pc = ngsamg_tpu_torch.AMGPreconditioner(
+        p.A, coords=p.coords, options=opts, device="cpu"
+    ).setup()
+    assert pc.log_.shards_per_level[0] == value
+    assert pc.log_.peak_shard_bytes > 0
 
 
 def test_energy_names():
