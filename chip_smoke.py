@@ -8,7 +8,8 @@
                              # stokes_tri(20, 3), 104,738 (Stokes bench leg)
                              # stokes_mac_2d(512), 523,264 (Stokes, MAC)
                              # poisson_3d(101) again through the
-                             # host-distributed setup on 8 shards
+                             # host-distributed setup on 8 shards,
+                             # then sharded over 8 gloo ranks
 
 Phases, each of which raises (nonzero exit) on failure:
 
@@ -214,10 +215,57 @@ Phases, each of which raises (nonzero exit) on failure:
    matrix (rtol 1e-5), and ``stokes_hdiv_gg_2d``, ``stokes_hdg_gg_2d`` and
    ``stokes_gg_2d`` on phase 21's problems.
 
+28. sharded (after phase 22, on its host levels) — the JAX package's
+   multi-chip oracle (``__graft_entry__.py`` ``dryrun_multichip``) on one
+   card: phase 22's host levels staged again with ``shards=8`` (plain
+   tile-ELL on levels 1-3, every level padded to a multiple of 64 rows;
+   checked), the hierarchy written once to ``build/sharded/`` with host
+   tensors, 8 spawned gloo ranks on ``cuda:0`` each mapping it and
+   keeping its rows (``parallel/sharded_run.py``), placed with
+   ``shards_hint = log.shards_per_level``. Checks: 7 levels, OC 2.7298,
+   placement (8, 8, 8, 2, 1, 1, 1) and ``level_shard_counts`` at or below
+   it; the residual contracts over two PCG steps; the sharded PCG to 1e-5
+   takes this card's replicated count (the JAX package's: 8) with rel r^2
+   < 1e-10, and its x, gathered back, has a true relres (the host matrix
+   in f64) below 1e-3 and at most 5% above the replicated x's (both sit at
+   the f32 floor, about 1.3e-4), and lies within 1e-3 of the replicated
+   x; K2 on
+   the rank's window launched on every rank in that run and,
+   on every rank's block of level 0, equal to its plain version (two
+   launches the same bits). Prints the windowed K2's time on rank 0's
+   block (graph replay, swept, one call), bytes, bound, plain version and
+   cuSPARSE on the same rows, the collective rounds and bytes of a rank a
+   PCG iteration, and the warm sharded solve's seconds. Its row joins the
+   kernels line (``"path": "sharded"``, ``launches`` summed over ranks).
+29. sharded-halo (in the same world) — the JAX tests' production cycles
+   (``tests/test_parallel.py``): ``HaloTileELL`` on
+   ``unstructured_poisson(100, 2, refine=1)`` (16 PCG steps), the
+   ``HaloBlockELL`` cycle on ``elasticity_3d(11)`` in f64, sharded GS on
+   ``unstructured_poisson(16, 2)`` (12 steps, colour-step exchanges) and
+   the sub-group placement of ``poisson_3d(20)`` in f64, each against the
+   replicated result on this card (1e-3, 1e-10, 1e-4, 1e-10).
+30. mp-stokes (after phase 24) — ``mp_dist_stokes_levels`` and
+   ``mp_dist_stokes_hdiv_levels`` on 2 numpy rank processes: equal to the
+   single controller.
+31. collective-transport — ``dist_setup_levels``
+   (``unstructured_poisson(14, 2)``) and ``dist_stokes_levels``
+   (``stokes_tri(8, 2)``), the JAX package's tests' problems, over
+   ``CollectiveTransport`` on 4 gloo ranks whose words live on
+   ``cuda:0``: bitwise the ``LocalTransport`` hierarchy; transport calls
+   and moved bytes a rank.
+32. dist-stokes (after phase 19) — ``stokes_tri(8, dim=3)`` through
+   ``StokesAMG(dist_setup=8)`` against its serial setup on the card: the
+   same level sizes, at most 10 iterations more, true relres <= 1e-8
+   (the bench leg cannot take the distributed setup: its curl-smoothed P
+   fills in, beyond the host's memory; ROADMAP section 3);
+   ``stokes_tri_hdiv(14)`` through ``StokesHDivAMG(dist_setup=3)``
+   against its serial setup: the same levels, P within 1e-9, at most 10
+   iterations more.
+
 Every phase prints its seconds. The last lines are the nvidia-smi line,
 one JSON object describing the kernels (each row names the path its
-``launches`` were counted on: ``main``, ``bf16``, ``stokes-mac`` or
-``dist``), and ``{"ok": true, "device": {...}}``.
+``launches`` were counted on: ``main``, ``bf16``, ``stokes-mac``,
+``dist`` or ``sharded``), and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2039,14 +2087,14 @@ STOKES_MAC_LEVELS = 8
 STOKES_MAC_JAX_IT = 409  # the JAX package's count on the CPU (3 passes)
 
 
-def _stokes_amg(prob, mcs, device="cuda", geometric=True):
+def _stokes_amg(prob, mcs, device="cuda", geometric=True, dist_setup=0):
     """A StokesAMG of a stokes_fem problem with ``max_coarse_size`` mcs
     (not set up); ``geometric`` passes the primal facet -> vertex
     incidence (short loops) where the problem has one."""
     from ngsamg_tpu_torch import AMGOptions
     from ngsamg_tpu_torch.precond.stokes import StokesAMG
 
-    opts = AMGOptions()
+    opts = AMGOptions(dist_setup=dist_setup)
     opts.levels.max_coarse_size = mcs
     kw = {}
     if geometric and prob.facet_verts is not None:
@@ -2339,6 +2387,11 @@ DIST_OC = 2.7298
 DIST_CONTRACT = [(3, 8, 2, "min_rows"), (4, 2, 1, "min_rows")]
 DIST_SHARDS_PER_LEVEL = [8, 8, 8, 2, 1, 1, 1]
 DIST_JAX_IT = 16
+# PR 9's staging of that hierarchy on one device (bucketed tile-ELL) and
+# the sharded solve's (shards=8: plain tile-ELL, every level padded to a
+# multiple of 64 rows)
+DIST_FORMATS = ["DiaMatrix"] + ["TileELLStack"] * 3 + ["DenseMatrix"] * 3
+SHARDED_FORMATS = ["DiaMatrix"] + ["TileELL"] * 3 + ["DenseMatrix"] * 3
 # ... and on unstructured_elasticity(140, dim=2), max_coarse_size 60
 DIST_ELAST_N = 140
 DIST_ELAST_LEVELS = [19740, 3051, 862, 242, 67, 18]
@@ -2350,12 +2403,12 @@ MP_RANKS = 4
 MP_N = 41  # fem.poisson_3d(41): 64,000 DoF
 
 
-def _dist_opts(mcs=None):
+def _dist_opts(mcs=None, **kw):
     """The distributed setup's options: Chebyshev, SPW coarsening on 8
     shards."""
     from ngsamg_tpu_torch import CoarsenType, SpecOpt
 
-    opts = _options("chebyshev", dist_setup=DIST_SHARDS)
+    opts = _options("chebyshev", dist_setup=DIST_SHARDS, **kw)
     opts.coarsen.algo = SpecOpt(CoarsenType.SPW)
     if mcs is not None:
         opts.levels.max_coarse_size = mcs
@@ -2416,12 +2469,14 @@ def phase_dist_setup(p):
             or A0.launch.plan.path != "ldg":
         raise AssertionError(f"dist-setup: level 0 is {out['level0']}, not "
                              "a full DIA on K2's ldg plan")
+    if out["level_formats"] != DIST_FORMATS:
+        raise AssertionError(f"dist-setup: formats {out['level_formats']} "
+                             f"!= {DIST_FORMATS}")
     if out["kernel_launches_warm"]["dia_matvec_f32"] <= 0:
         raise AssertionError("dist-setup: K2 never launched")
     row = _k2_row([(0, A0)], out["kernel_launches_warm"], "dist",
                   "dist-setup", 400)
-    del pc
-    return out, row
+    return pc, out, row
 
 
 def phase_dist_elasticity():
@@ -2803,6 +2858,508 @@ def phase_timers(pc, p):
     return out
 
 
+# the sharded solve (ROADMAP item 8b): the JAX package's multi-chip oracle
+# (__graft_entry__.py dryrun_multichip, MULTICHIP_r05.json) on one card,
+# 8 gloo ranks sharing cuda:0
+SHARD_RANKS = 8
+SHARD_RTOL = 1e-5
+SHARD_JAX_IT = 8  # the JAX package's sharded == replicated count
+# the sharded x against the system: its true relres ||b - A x|| / ||b||
+# (host matrix, f64) at most 5% above the replicated x's on the same card
+# and below 1e-3. An f32 x of this system stops near 1.3e-4 however far the
+# recursive residual falls (its rounding times the condition number; the
+# 1e-8 solves get there by refinement passes), so 1e-5 cannot be asked of
+# it; a wrong row block or x base gives O(1). And its distance to the
+# replicated x (the JAX tests' sharded-solve bound).
+SHARD_TRUE_RTOL = 1e-3
+SHARD_TRUE_OVER_REPLICATED = 1.05
+SHARD_X_RTOL = 1e-3
+WINDOW_KERNEL = "dia_window_matvec_f32"
+
+
+def _build_dir():
+    from pathlib import Path
+
+    d = Path(__file__).resolve().parent / "build" / "sharded"
+    d.mkdir(parents=True, exist_ok=True)
+    return d
+
+
+def _op_file(op, name):
+    """The hierarchy with host tensors, written once for the ranks (each
+    maps the file and keeps its rows)."""
+    import torch
+
+    from ngsamg_tpu_torch.smoothers.build import _to_device
+
+    path = _build_dir() / name
+    torch.save(_to_device(op, "cpu"), path)
+    return str(path)
+
+
+def _world_clock() -> dict:
+    """Seconds from spawning the last world to its ranks' process groups
+    being up (first and last rank), its functions' ends and the caller
+    having every result."""
+    from ngsamg_tpu_torch.parallel.world import LAST_WORLD
+
+    t0 = LAST_WORLD["spawned"]
+    ranks = LAST_WORLD["ranks"].values()
+    return {
+        "ready_first_s": min(c["ready"] for c in ranks) - t0,
+        "ready_last_s": max(c["ready"] for c in ranks) - t0,
+        "process_start_last_s": max(c["start"] for c in ranks) - t0,
+        "done_last_s": max(c["done"] for c in ranks) - t0,
+        "results_s": LAST_WORLD["results"] - t0,
+    }
+
+
+def _spawn(tasks, n, timeout=600.0):
+    from ngsamg_tpu_torch.parallel.sharded_run import spawn_tasks
+
+    return spawn_tasks(tasks, n, backend="gloo", device="cuda:0",
+                       timeout=timeout)
+
+
+def _replicated_steps(op, b, steps, until=0.0, tol2=1e-16):
+    """The oracle's loop on one device: masked PCG steps from a zero guess
+    until the residual has dropped by ``until`` (at most ``steps``)."""
+    import torch
+
+    from ngsamg_tpu_torch.solve.pcg import _pcg_init, _pcg_step
+
+    A = op.levels[0].A
+    st = _pcg_init(b)
+    rn0 = float(st[4])
+    t2 = torch.tensor(tol2, dtype=b.dtype, device=b.device)
+    rns = []
+    for _ in range(steps):
+        st = _pcg_step(op, A, st, t2)
+        rns.append(float(st[4]))
+        if rns[-1] <= until ** 2 * rn0:
+            break
+    return st[0], len(rns), rns[-1] / rn0
+
+
+def _halo_cases():
+    """The JAX package's tests/test_parallel.py production-cycle, GS and
+    sub-group problems, set up on the host with shards=8: (label, op,
+    b, shard keywords, kind, steps, tol)."""
+    from ngsamg_tpu_torch import AMGPreconditioner
+    from ngsamg_tpu_torch.utils import fem
+
+    cases = []
+    for label, prob, kw, sk, kind, steps, tol in (
+        ("halo_tile_ell unstructured_poisson(100, 2, refine=1)",
+         fem.unstructured_poisson(100, dim=2, refine=1),
+         dict(smoother="chebyshev", mcs=60), {"replicate_below": 100},
+         "steps", 16, 1e-3),
+        ("halo_block_ell elasticity_3d(11) f64", fem.elasticity_3d(11),
+         dict(smoother="chebyshev", dtype="float64", bs=3),
+         {"replicate_below": 200}, "apply", 0, 1e-10),
+        ("sharded_gs unstructured_poisson(16, 2)",
+         fem.unstructured_poisson(16, dim=2), dict(smoother="gs", mcs=40),
+         {"replicate_below": 50}, "steps", 12, 1e-4),
+        ("sub_groups poisson_3d(20) f64", fem.poisson_3d(20),
+         dict(dtype="float64"),
+         {"replicate_below": 4096, "min_local_rows": 128}, "apply", 0,
+         1e-10),
+    ):
+        o = _options(kw.get("smoother"), shards=SHARD_RANKS,
+                     dtype=kw.get("dtype", "float32"))
+        if "mcs" in kw:
+            o.levels.max_coarse_size = kw["mcs"]
+        extra = ({"energy": "elasticity", "block_size": 3}
+                 if kw.get("bs") else {})
+        pc = AMGPreconditioner(prob.A, coords=prob.coords, options=o,
+                               device="cpu", **extra).setup()
+        bs = kw.get("bs", 1)
+        b = np.zeros((pc.A_dev.nrows_pad, bs))
+        b.reshape(-1)[: prob.A.shape[0]] = np.random.default_rng(
+            len(cases)).standard_normal(prob.A.shape[0])
+        cases.append((label, pc.op, b, sk, kind, steps, tol))
+    return cases
+
+
+def _sharded_staging(p, pc):
+    """Phase 22's host levels staged again on the card with shards=8, as
+    the JAX package's multi-chip oracle stages them: every level padded to
+    a multiple of 8 * 8 rows, plain tile-ELL. Returns (preconditioner,
+    staging seconds)."""
+    import torch
+
+    from ngsamg_tpu_torch import AMGPreconditioner
+
+    pc8 = AMGPreconditioner(p.A, coords=p.coords,
+                            options=_dist_opts(shards=DIST_SHARDS),
+                            device="cuda")
+    # the same host hierarchy: staging reads the levels, never writes them
+    pc8.setup_levels_, pc8.log_ = pc.setup_levels_, pc.log_
+    t0 = time.perf_counter()
+    pc8._compile_device()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    pc8._is_setup = True
+    formats = [type(lev.A).__name__ for lev in pc8.op.levels]
+    pads = [lev.A.nrows_pad for lev in pc8.op.levels
+            if hasattr(lev.A, "nrows_pad")]
+    if formats != SHARDED_FORMATS or any(n % (8 * DIST_SHARDS)
+                                         for n in pads):
+        raise AssertionError(f"sharded: staged as {formats}, padded rows "
+                             f"{pads}")
+    return pc8, secs
+
+
+def phase_sharded(p, pc, halo):
+    """[sharded] and [sharded-halo]: one world of 8 gloo ranks on cuda:0.
+
+    [sharded] places phase 22's hierarchy (7 levels; its host levels
+    staged again with shards=8, ``_sharded_staging``) with ``shards_hint
+    = log.shards_per_level``: the residual
+    must contract over two PCG steps, the sharded PCG to 1e-5 must take
+    the replicated count on this card (the JAX package's: 8) with rel r^2
+    < 1e-10, and K2 on the rank's window must launch on every rank and equal
+    its plain version on every rank's block of level 0; its time on rank
+    0's block beside its bytes, bound and cuSPARSE on the same rows.
+    [sharded-halo] runs ``halo`` (``_halo_cases``) in the same world, each
+    against the replicated result on this card."""
+    import torch
+
+    from ngsamg_tpu_torch.smoothers.build import _to_device
+    from ngsamg_tpu_torch.solve.cycle import amg_apply
+
+    t0 = time.perf_counter()
+    pc, staging_s = _sharded_staging(p, pc)
+    log = pc.log_
+    hint = list(log.shards_per_level)
+    sk = {"shards_hint": hint}
+    path = _op_file(pc.op, "dist_setup_op.pt")
+    b = pc._to_dev(p.b).cpu().numpy()
+    tasks = [
+        dict(kind="pcg", op=path, b=b, steps=2, tol2=1e-16, shard=sk),
+        dict(kind="pcg", op=path, b=b, steps=60, until=SHARD_RTOL,
+             tol2=1e-16, shard=sk),
+        dict(kind="pcg", op=path, b=b, tol=SHARD_RTOL, maxiter=60, warm=1,
+             shard=sk),
+        dict(kind="window_k2", op=path, shard=sk, seed=500),
+    ]
+    for _label, op, hb, hk, kind, steps, _tol in halo:
+        if kind == "apply":
+            tasks.append(dict(kind="apply", op=op, b=hb, shard=hk))
+        else:
+            tasks.append(dict(kind="pcg", op=op, b=hb, steps=steps,
+                              tol2=1e-30, shard=hk))
+    t1 = time.perf_counter()
+    res = _spawn(tasks, SHARD_RANKS)
+    t2 = time.perf_counter()
+    two, orc, warm, win = res[:4]
+    bt = torch.as_tensor(b, dtype=torch.float32, device="cuda")
+    x_rep, it_rep, rr_rep = _replicated_steps(pc.op, bt, 60, SHARD_RTOL)
+    # the sharded solution in the user's space, held to the system it
+    # solves (b - A x with the host matrix, in f64) and to the replicated
+    # solution on this card
+    x_sh = pc._from_dev(torch.as_tensor(orc["x"], device="cuda"))
+    x_rp = pc._from_dev(x_rep)
+    bn = float(np.linalg.norm(p.b))
+    true_sh = float(np.linalg.norm(p.b - p.A @ x_sh)) / bn
+    true_rp = float(np.linalg.norm(p.b - p.A @ x_rp)) / bn
+    x_diff = float(np.linalg.norm(x_sh - x_rp) / np.linalg.norm(x_rp))
+    per_it = max(orc["iterations"], 1)
+    launches = [r.get(WINDOW_KERNEL, 0) for r in orc["launches_per_rank"]]
+    nbytes, flops = win["bytes"], win["flops"]
+    bound_ms, bound_by = _bound_ms(nbytes, flops, torch.float32)
+    out = {
+        "levels": len(orc["counts"]),
+        "operator_complexity": pc.operator_complexity,
+        "placement": hint, "level_shard_counts": list(orc["counts"]),
+        "level_formats_rank0": [lev["A"] for lev in orc["levels"]],
+        "two_steps_rn": two["rn"],
+        "iterations_sharded": orc["iterations"],
+        "iterations_replicated": it_rep,
+        "iterations_jax": SHARD_JAX_IT,
+        "rel_r2_sharded": orc["rn"][-1] / orc["rn0"],
+        "rel_r2_replicated": rr_rep,
+        "relres_true_sharded": true_sh,
+        "relres_true_replicated": true_rp,
+        "x_rel_diff_vs_replicated": x_diff,
+        "staging_s": staging_s,
+        "collectives_per_iteration_rank0": {
+            k: v / per_it for k, v in orc["collectives"].items()},
+        "warm_solve_s": warm["seconds"],
+        "warm_solve_iterations": warm["iterations"],
+        "window_k2": {k: win[k] for k in (
+            "terms", "window", "device_ms", "cold_ms", "call_ms",
+            "plain_ms", "library_ms")},
+        "window_k2_bytes": nbytes, "window_k2_flops": flops,
+        "window_k2_bound_ms": bound_ms, "window_k2_bound_by": bound_by,
+        "window_k2_checks": win["checks"],
+        "window_k2_launches_per_rank": launches,
+        "world_s": t2 - t1, "host_files_s": t1 - t0,
+        "task_wall_s_rank0": [r.get("wall_s") for r in res],
+        "world_clock": _world_clock(),
+    }
+    print("[sharded] " + json.dumps(out), flush=True)
+    if out["levels"] != len(DIST_LEVELS) or round(
+            out["operator_complexity"], 4) != DIST_OC:
+        raise AssertionError("sharded: not the oracle's hierarchy")
+    if hint != DIST_SHARDS_PER_LEVEL or any(
+            c > max(h, 1) for c, h in zip(orc["counts"], hint)) or not any(
+            c < SHARD_RANKS for c in orc["counts"][1:]):
+        raise AssertionError(f"sharded: placement {orc['counts']} against "
+                             f"the hint {hint}")
+    if not two["rn"][1] < two["rn"][0]:
+        raise AssertionError(f"sharded: residual {two['rn']} not contracting")
+    if (orc["iterations"] != it_rep or orc["iterations"] >= 60
+            or out["rel_r2_sharded"] >= 1e-10):
+        raise AssertionError(f"sharded: {orc['iterations']} iterations "
+                             f"against the replicated {it_rep}")
+    if not (np.isfinite(x_sh).all() and true_sh < SHARD_TRUE_RTOL
+            and true_sh <= SHARD_TRUE_OVER_REPLICATED * true_rp
+            and x_diff < SHARD_X_RTOL):
+        raise AssertionError(
+            f"sharded: true relres {true_sh} (bound {SHARD_TRUE_RTOL}, and "
+            f"{SHARD_TRUE_OVER_REPLICATED} x the replicated {true_rp}), x "
+            f"against the replicated {x_diff} (bound {SHARD_X_RTOL})")
+    if min(launches) <= 0 or len(launches) != SHARD_RANKS:
+        raise AssertionError(f"sharded: {WINDOW_KERNEL} launches {launches}")
+    for c in win["checks"]:
+        if c["rel_err"] > F32_TOL or not c["same_bits"]:
+            raise AssertionError(f"sharded: windowed K2 on rank {c['rank']}:"
+                                 f" {c}")
+    src, replaces = KERNELS["dia_matvec_f32"]
+    row = {
+        "name": WINDOW_KERNEL, "path": "sharded", "route": "cuda",
+        "source": src, "replaces": replaces,
+        "launches": int(sum(launches)), "launches_per_rank": launches,
+        "max_abs_err": max(c["max_abs_err"] for c in win["checks"]),
+        "ms": win["device_ms"], "device_ms": win["device_ms"],
+        "cold_ms": win["cold_ms"], "call_ms": win["call_ms"],
+        "plain_ms": win["plain_ms"], "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": win["library_ms"],
+        "rows": win["checks"][0]["rows"], "terms": win["terms"],
+    }
+    # [sharded-halo]
+    hout = {}
+    for (label, op, hb, _hk, kind, _steps, tol), r in zip(halo, res[4:]):
+        opc = _to_device(op, "cuda")
+        dt = opc.levels[0].smoother.Dinv.dtype
+        bt = torch.as_tensor(hb, dtype=dt, device="cuda")
+        if kind == "apply":
+            ref = amg_apply(opc, bt).cpu().numpy()
+            err = float(np.linalg.norm(r["y"] - ref) / np.linalg.norm(ref))
+        else:
+            xr, _k, _rr = _replicated_steps(opc, bt, _steps, tol2=1e-30)
+            xr = xr.cpu().numpy()
+            err = float(np.abs(r["x"] - xr).max() / np.abs(xr).max())
+        hout[label] = {
+            "level_shard_counts": list(r["counts"]),
+            "level_formats_rank0": [lev["A"] for lev in r["levels"]],
+            "smoothers_rank0": [lev["smoother"] for lev in r["levels"]],
+            "comm_per_apply": [lev["comm_per_apply"] for lev in r["levels"]],
+            "collectives_rank0": r.get("collectives"),
+            "err_vs_replicated": err, "tol": tol,
+        }
+    print("[sharded-halo] " + json.dumps(hout), flush=True)
+    want = {"halo_tile_ell": "HaloTileELL", "halo_block_ell": "HaloBlockELL",
+            "sharded_gs": "BlockELL"}
+    for label, h in hout.items():
+        kind = label.split()[0]
+        if not h["err_vs_replicated"] < h["tol"]:
+            raise AssertionError(f"sharded-halo {label}: {h}")
+        if kind in want and want[kind] not in h["level_formats_rank0"]:
+            raise AssertionError(f"sharded-halo {label}: formats "
+                                 f"{h['level_formats_rank0']}")
+        if kind == "sharded_gs" and ("ShardedGS" not in h["smoothers_rank0"]
+                                     or not h["collectives_rank0"]
+                                     ["gs_rounds"]):
+            raise AssertionError(f"sharded-halo {label}: no sharded GS")
+        if kind == "sub_groups" and not any(
+                1 < c < SHARD_RANKS for c in h["level_shard_counts"]):
+            raise AssertionError(f"sharded-halo {label}: no sub-group level")
+    print(f"[sharded] {time.perf_counter() - t0:.1f} s", flush=True)
+    return out, row
+
+
+def phase_collective_transport():
+    """dist_setup_levels and dist_stokes_levels over CollectiveTransport:
+    4 gloo ranks whose words live on cuda:0, bitwise the LocalTransport
+    hierarchy."""
+    from ngsamg_tpu_torch.apps.h1 import H1Energy
+    from ngsamg_tpu_torch.parallel.dist_setup import dist_setup_levels
+    from ngsamg_tpu_torch.parallel.dist_stokes import dist_stokes_levels
+    from ngsamg_tpu_torch.parallel.mp_runtime import (
+        mp_dist_setup_levels, mp_dist_stokes_levels)
+    from ngsamg_tpu_torch.utils import fem
+    from ngsamg_tpu_torch.utils.stokes_fem import stokes_tri
+
+    t0 = time.perf_counter()
+    coll = dict(transport="collective", backend="gloo", device="cuda:0")
+    out = {}
+    # the JAX package's tests' sizes (tests/test_dist_setup.py,
+    # tests/test_dist_stokes.py): a call costs tens of ms through gloo on
+    # CUDA tensors, and [mp-setup]'s poisson_3d(41) takes 555 of them
+    p = fem.unstructured_poisson(14, dim=2)
+    ref, _ = dist_setup_levels(p.A, H1Energy(bs=1), _dist_opts(mcs=40),
+                               MP_RANKS)
+    t1 = time.perf_counter()
+    levels, log = mp_dist_setup_levels(p.A, H1Energy(bs=1),
+                                       _dist_opts(mcs=40), MP_RANKS, **coll)
+    t2 = time.perf_counter()
+    _levels_bitwise("collective-transport unstructured_poisson(14, 2)", ref,
+                    levels)
+    if len(levels) < 2:
+        raise AssertionError("collective-transport: one level only")
+    out["unstructured_poisson(14, 2)"] = {
+        "level_sizes": list(log.nvs), "collective_s": t2 - t1,
+        "world_clock": _world_clock(),
+        "ranks": [{k: st[k] for k in ("transport_calls", "moved_bytes")}
+                  for st in log.mp_rank_stats]}
+    s, _normals = stokes_tri(8, dim=2, alpha=10.0)
+    spc = _stokes_amg(s, 60, device="cpu", geometric=False)
+    opts = spc.options
+    sref = dist_stokes_levels(spc.A_host, spc.mesh0, 1, opts, MP_RANKS)
+    t3 = time.perf_counter()
+    slev, slog = mp_dist_stokes_levels(spc.A_host, spc.mesh0, 1, opts,
+                                       MP_RANKS, **coll)
+    t4 = time.perf_counter()
+    if len(sref) != len(slev):
+        raise AssertionError("collective-transport: Stokes level counts")
+    for i, (a, c) in enumerate(zip(sref, slev)):
+        for ma, mc in ((a.A, c.A), (a.P, c.P), (a.C, c.C)):
+            if (ma is None) != (mc is None) or (
+                    ma is not None and abs(ma - mc).max() != 0.0):
+                raise AssertionError(f"collective-transport: Stokes level "
+                                     f"{i} differs")
+        if not np.array_equal(a.mesh.edge_data["flow"],
+                              c.mesh.edge_data["flow"]):
+            raise AssertionError(f"collective-transport: flows level {i}")
+    out["stokes_tri(8, 2)"] = {
+        "levels": len(slev), "collective_s": t4 - t3,
+        "world_clock": _world_clock(),
+        "ranks": [{k: st[k] for k in ("transport_calls", "moved_bytes")}
+                  for st in slog.mp_rank_stats]}
+    out["s"] = time.perf_counter() - t0
+    print("[collective-transport] " + json.dumps(out), flush=True)
+    if not all(st["transport_calls"] > 0 for st in log.mp_rank_stats):
+        raise AssertionError("collective-transport: no exchange ran")
+    return out
+
+
+# [dist-stokes]: stokes_tri(8, dim=3), 6,470 facet DoF. Its distributed
+# setup takes 44-47 s on a host CPU, n = 10 several times that
+# (scripts/dist_stokes_fill.py), more than the script's time allows
+DIST_STOKES_N = 8
+
+
+def phase_dist_stokes():
+    """The distributed Stokes setup on the card against the serial one on
+    the same card. The bench leg cannot run it: with the default
+    (curl-smoothed) prolongation the distributed setup's P fills in on 3D
+    meshes (the JAX package's too: at stokes_tri(8, dim=3) its level-1 P
+    is 99% dense), stokes_tri(20, dim=3) through dist_setup=8 met the
+    card host's 96 GiB, and the setup's host time grows about as n^8
+    (scripts/dist_stokes_fill.py; ROADMAP section 3). So: the largest
+    size within the script's time, stokes_tri(DIST_STOKES_N, dim=3), through
+    StokesAMG(dist_setup=8) against its serial setup (the same level
+    sizes, at most 10 iterations more, the JAX tests' band; true relres
+    <= 1e-8), and stokes_tri_hdiv(14) through StokesHDivAMG(dist_setup=3)
+    against its serial setup (the same levels, P within 1e-9)."""
+    from ngsamg_tpu_torch import AMGOptions
+    from ngsamg_tpu_torch.precond.stokes import StokesHDivAMG
+    from ngsamg_tpu_torch.utils import stokes_fem as sf
+
+    t0 = time.perf_counter()
+    prob, _normals = sf.stokes_tri(DIST_STOKES_N, dim=3, alpha=10.0)
+    runs = {}
+    for dist in (0, DIST_SHARDS):
+        pc = _stokes_amg(prob, 80, geometric=False, dist_setup=dist).setup()
+        res = _stokes_solves(pc, prob, 150, warm=1, first=False)
+        runs[dist] = {"level_sizes": [int(c.A.shape[0])
+                                      for c in pc.setup_levels_],
+                      "setup_host_s": pc.setup_time_host,
+                      "iterations": res["iterations"],
+                      "relres_true": res["relres_true"],
+                      "warm_solve_s": res["warm_solve_s"]}
+    label = f"stokes_tri({DIST_STOKES_N}, 3)"
+    out = {label: {"dofs": int(prob.n), "serial": runs[0],
+                   "dist": runs[DIST_SHARDS]}}
+    hd = {}
+    ph, counts, V = sf.stokes_tri_hdiv(14)
+    for dist in (0, 3):
+        o = AMGOptions(dist_setup=dist)
+        o.levels.max_coarse_size = 120
+        hpc = StokesHDivAMG(
+            ph.A, cell_pos=ph.cell_pos, cell_vol=ph.cell_vol,
+            facet_cells=ph.facet_cells, facet_flow=ph.facet_flow,
+            facet_dof_counts=counts, preserved=V, options=o,
+            device="cuda").setup()
+        x, info = hpc.solve(ph.b, tol=1e-8, maxiter=500)
+        hd[dist] = (hpc.setup_levels_, int(info.iterations),
+                    _true_relres(ph.A, ph.b, x), bool(info.converged))
+    (sl, si, _sr, _sc), (dl, di, dr, dc) = hd[0], hd[3]
+    dP = max((float(abs(a.P - b.P).max()) for a, b in zip(sl, dl)
+              if a.P is not None), default=0.0)
+    out["stokes_tri_hdiv(14)"] = {
+        "levels": len(dl), "serial_levels": len(sl),
+        "iterations": di, "serial_iterations": si, "relres_true": dr,
+        "max_P_diff": dP}
+    out["s"] = time.perf_counter() - t0
+    print("[dist-stokes] " + json.dumps(out), flush=True)
+    ser, dis = runs[0], runs[DIST_SHARDS]
+    if dis["level_sizes"] != ser["level_sizes"] or dis["iterations"] > \
+            ser["iterations"] + 10:
+        raise AssertionError(f"dist-stokes: {out[label]}")
+    if len(dl) != len(sl) or dP > 1e-9 or not dc or dr > 1e-8 \
+            or di > si + 10:
+        raise AssertionError(f"dist-stokes: HDiv "
+                             f"{out['stokes_tri_hdiv(14)']}")
+    return out
+
+
+def phase_mp_stokes():
+    """The two Stokes MP entry points on 2 rank processes (pipes, numpy
+    ranks): equal to the single controller."""
+    from ngsamg_tpu_torch import AMGOptions
+    from ngsamg_tpu_torch.parallel.dist_stokes import (
+        dist_stokes_hdiv_levels, dist_stokes_levels)
+    from ngsamg_tpu_torch.parallel.mp_runtime import (
+        mp_dist_stokes_hdiv_levels, mp_dist_stokes_levels)
+    from ngsamg_tpu_torch.precond.stokes import StokesHDivAMG
+    from ngsamg_tpu_torch.utils import stokes_fem as sf
+
+    t0 = time.perf_counter()
+    s, _normals = sf.stokes_tri(10, dim=2, alpha=10.0)
+    spc = _stokes_amg(s, 60, device="cpu", geometric=False)
+    ref = dist_stokes_levels(spc.A_host, spc.mesh0, 1, spc.options, 2)
+    got, log = mp_dist_stokes_levels(spc.A_host, spc.mesh0, 1, spc.options,
+                                     2)
+    ph, counts, V = sf.stokes_tri_hdiv(8, alpha=10.0)
+    o = AMGOptions()
+    o.levels.max_coarse_size = 120
+    hpc = StokesHDivAMG(
+        ph.A, cell_pos=ph.cell_pos, cell_vol=ph.cell_vol,
+        facet_cells=ph.facet_cells, facet_flow=ph.facet_flow,
+        facet_dof_counts=counts, preserved=V, options=o, device="cpu")
+    href = dist_stokes_hdiv_levels(hpc.A_host, hpc.mesh0, hpc.dofs0,
+                                   hpc.pres0, o, 2)
+    hgot, hlog = mp_dist_stokes_hdiv_levels(hpc.A_host, hpc.mesh0,
+                                            hpc.dofs0, hpc.pres0, o, 2)
+    for label, a_lv, b_lv in (("stokes", ref, got), ("hdiv", href, hgot)):
+        if len(a_lv) != len(b_lv) or len(a_lv) < 2:
+            raise AssertionError(f"mp-stokes {label}: level counts")
+        for i, (a, b) in enumerate(zip(a_lv, b_lv)):
+            for ma, mb in ((a.A, b.A), (a.P, b.P),
+                           (getattr(a, "C", None), getattr(b, "C", None))):
+                if (ma is None) != (mb is None) or (
+                        ma is not None and abs(ma - mb).max() != 0.0):
+                    raise AssertionError(f"mp-stokes {label}: level {i}")
+    out = {"stokes_tri(10, 2)": {"levels": len(got),
+                                  "peak_shard_bytes": log.peak_shard_bytes},
+           "stokes_tri_hdiv(8)": {"levels": len(hgot),
+                                   "peak_shard_bytes": hlog.peak_shard_bytes},
+           "s": time.perf_counter() - t0}
+    print("[mp-stokes] " + json.dumps(out), flush=True)
+    return out
 
 
 def main() -> int:
@@ -2840,13 +3397,17 @@ def main() -> int:
     gp = fem.poisson_3d(GS_N)
     phase_gs(gp)
     cycles = phase_cycles(gp)
-    _dist, dist_row = phase_dist_setup(gp)
-    del gp
+    dist_pc, _dist, dist_row = phase_dist_setup(gp)
+    _sharded, window_row = phase_sharded(gp, dist_pc, _halo_cases())
+    del gp, dist_pc
     q_elast, _delast = phase_dist_elasticity()
     phase_mp_setup(q_elast)
     del q_elast
+    phase_mp_stokes()
+    phase_collective_transport()
     phase_gs_reference()
     phase_stokes()
+    phase_dist_stokes()
     _mac, stokes_row = phase_stokes_mac()
     phase_stokes_reference()
     phase_api_reference()
@@ -2859,7 +3420,8 @@ def main() -> int:
         if err is not None:
             row["max_abs_err"] = max(row["max_abs_err"], err)
     print(_nvidia_smi())
-    print(json.dumps({"kernels": rows + bf16_rows + [stokes_row, dist_row]}))
+    print(json.dumps({"kernels": rows + bf16_rows
+                      + [stokes_row, dist_row, window_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

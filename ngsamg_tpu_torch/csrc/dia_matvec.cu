@@ -97,11 +97,19 @@ constexpr int kSymRows = 2;  // consecutive rows of a K3 thread
 // Shared memory: offsets (ndiag int64), the groups' partial sums
 // (groups x 32, accumulation type), then x's window (window values; 0 on
 // the ldg path).
+//
+// The kernel runs on a window: a block of n_rows rows (n_pad here) whose x
+// may be a longer vector: y[i] = sum_d data[d, i] * x[x_base + i + off_d],
+// x zero outside [0, x_len). A whole level is the window n_rows = x_len =
+// n_pad, x_base = 0. A rank of the sharded solve (parallel/shard.py) holds
+// its rows [r0, r0 + n_rows) of a row-sharded level and the gathered x; it
+// passes x_base = r0.
 template <typename T>
 __global__ void dia_tiled_kernel(const T* __restrict__ data,
                                  const long long* __restrict__ offs,
                                  int ndiag, long long n_pad, int per_group,
-                                 int window, long long lo,
+                                 int window, long long lo, long long x_len,
+                                 long long x_base,
                                  const T* __restrict__ x,
                                  T* __restrict__ y) {
   using Acc = typename AccOf<T>::type;
@@ -113,11 +121,11 @@ __global__ void dia_tiled_kernel(const T* __restrict__ data,
   const int lane = threadIdx.x % kTileRows, g = threadIdx.x / kTileRows;
   const long long r0 = (long long)blockIdx.x * kTileRows;
   for (int d = threadIdx.x; d < ndiag; d += blockDim.x) s_offs[d] = offs[d];
-  const long long w0 = r0 + lo;
+  const long long w0 = x_base + r0 + lo;
 #pragma unroll 4
   for (int k = threadIdx.x; k < window; k += blockDim.x) {
     const long long j = w0 + k;
-    s_x[k] = (j >= 0 && j < n_pad) ? x[j] : from_acc<T>(Acc(0));
+    s_x[k] = (j >= 0 && j < x_len) ? x[j] : from_acc<T>(Acc(0));
   }
   __syncthreads();
   const long long row = r0 + lane;
@@ -133,8 +141,8 @@ __global__ void dia_tiled_kernel(const T* __restrict__ data,
     } else {
 #pragma unroll 4
       for (int d = d0; d < d1; ++d) {
-        const long long j = row + s_offs[d];
-        if (j >= 0 && j < n_pad)
+        const long long j = x_base + row + s_offs[d];
+        if (j >= 0 && j < x_len)
           acc += to_acc(dp[(long long)d * n_pad]) * to_acc(__ldg(x + j));
       }
     }
@@ -315,8 +323,10 @@ int launch_sym(const T* data, const long long* offs, int ndiag,
 template <typename T>
 int launch_tiled(const T* data, const long long* offs, int ndiag,
                  long long n_pad, int groups, int per_group, int window,
-                 long long lo, const T* x, T* y, void* stream) {
+                 long long lo, long long x_len, long long x_base,
+                 const T* x, T* y, void* stream) {
   if (n_pad <= 0) return 0;
+  if (x_len < 0 || x_base < 0) return (int)cudaErrorInvalidValue;
   const long long smem =
       (long long)ndiag * sizeof(long long) +
       (long long)groups * kTileRows * sizeof(typename AccOf<T>::type) +
@@ -328,29 +338,12 @@ int launch_tiled(const T* data, const long long* offs, int ndiag,
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   dia_tiled_kernel<T><<<(unsigned)blocks, groups * kTileRows, (size_t)smem,
                         (cudaStream_t)stream>>>(data, offs, ndiag, n_pad,
-                                                per_group, window, lo, x, y);
+                                                per_group, window, lo, x_len,
+                                                x_base, x, y);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
-
-extern "C" int ngsamg_dia_matvec_f32(const float* data, const long long* offs,
-                                     int ndiag, long long n_pad, int groups,
-                                     int per_group, int window, long long lo,
-                                     const float* x, float* y, void* stream) {
-  return launch_tiled<float>(data, offs, ndiag, n_pad, groups, per_group,
-                             window, lo, x, y, stream);
-}
-
-extern "C" int ngsamg_dia_matvec_f64(const double* data,
-                                     const long long* offs, int ndiag,
-                                     long long n_pad, int groups,
-                                     int per_group, int window, long long lo,
-                                     const double* x, double* y,
-                                     void* stream) {
-  return launch_tiled<double>(data, offs, ndiag, n_pad, groups, per_group,
-                              window, lo, x, y, stream);
-}
 
 extern "C" int ngsamg_dia_sym_matvec_f32(const float* data,
                                          const long long* offs, int ndiag,
@@ -376,16 +369,6 @@ extern "C" int ngsamg_dia_sym_matvec_f64(const double* data,
                             stream);
 }
 
-extern "C" int ngsamg_dia_matvec_bf16(const __nv_bfloat16* data,
-                                      const long long* offs, int ndiag,
-                                      long long n_pad, int groups,
-                                      int per_group, int window, long long lo,
-                                      const __nv_bfloat16* x,
-                                      __nv_bfloat16* y, void* stream) {
-  return launch_tiled<__nv_bfloat16>(data, offs, ndiag, n_pad, groups,
-                                     per_group, window, lo, x, y, stream);
-}
-
 extern "C" int ngsamg_dia_sym_matvec_bf16(const __nv_bfloat16* data,
                                           const long long* offs, int ndiag,
                                           long long n_pad, int batch, int tpg,
@@ -398,3 +381,19 @@ extern "C" int ngsamg_dia_sym_matvec_bf16(const __nv_bfloat16* data,
                                    groups, per_group, tile, reach, smem_bytes,
                                    blocks, x, y, stream);
 }
+
+// K2 (see dia_tiled_kernel): n_rows rows of data (row stride n_rows), x of
+// x_len values read from x_base on. A whole level is the window
+// (n_pad, n_pad, 0); a rank's row block of a sharded level is
+// (n_rows, x_len, r0).
+#define NGSAMG_DIA_MATVEC(SFX, T)                                            \
+  extern "C" int ngsamg_dia_matvec_##SFX(                                    \
+      const T* data, const long long* offs, int ndiag, long long n_rows,     \
+      long long x_len, long long x_base, int groups, int per_group,          \
+      int window, long long lo, const T* x, T* y, void* stream) {            \
+    return launch_tiled<T>(data, offs, ndiag, n_rows, groups, per_group,     \
+                           window, lo, x_len, x_base, x, y, stream);         \
+  }
+NGSAMG_DIA_MATVEC(f32, float)
+NGSAMG_DIA_MATVEC(f64, double)
+NGSAMG_DIA_MATVEC(bf16, __nv_bfloat16)

@@ -46,7 +46,8 @@ _ARGS = {
                               _P, _P, _P],
     "ngsamg_stencil3d": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _I, _L, _L, _L, _L, _P, _P, _P],
-    "ngsamg_dia_matvec": [_P, _P, _I, _L, _I, _I, _I, _L, _P, _P, _P],
+    "ngsamg_dia_matvec": [_P, _P, _I, _L, _L, _L, _I, _I, _I, _L,
+                          _P, _P, _P],
     "ngsamg_dia_sym_matvec": [_P, _P, _I, _L, _I, _I, _I, _I, _I,
                               _L, _I, _L, _P, _P, _P],
 }

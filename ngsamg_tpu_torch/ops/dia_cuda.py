@@ -23,8 +23,13 @@ the launch refuses a plan that does not match the kernel's layout.
 :func:`dia_matvec` launches the kernel for a CUDA tensor (f32, f64 or
 bf16) and raises if it cannot; for a CPU tensor it runs
 :func:`_dia_matvec_plain`, which sums bf16 in f32 and rounds once, as the
-bf16 kernels do. The plans size the partial sums in shared memory by the
-accumulation type (f32 for bf16) and x's window by the element size.
+bf16 kernels do. K2 and its plain version run on a window: a block of
+rows over a longer x read from an offset. A whole level is the window
+(n_pad, n_pad, 0); a rank's rows of a row-sharded level are a
+:class:`~ngsamg_tpu_torch.sparse.formats.DiaWindow` (parallel/shard.py),
+whose launches are counted apart, as ``dia_window_matvec_*``. The plans
+size the partial sums in shared memory by the accumulation type (f32 for
+bf16) and x's window by the element size.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ from . import cuda_lib
 # kernel launches per entry point (a plain count; see chip_smoke.py)
 LAUNCHES = {
     f"{kind}_{sfx}": 0
-    for kind in ("dia_matvec", "dia_sym_matvec")
+    for kind in ("dia_matvec", "dia_sym_matvec", "dia_window_matvec")
     for sfx in cuda_lib.DTYPE_SUFFIXES
 }
 
@@ -191,25 +196,37 @@ class DiaLaunch:
     plan: DiaPlan | DiaSymPlan
 
 
+def _window(A) -> tuple[int, int, int]:
+    """(rows, x_len, x_base) of a full-storage matrix: a DiaWindow's own
+    (a rank's row block over a longer x), a DiaMatrix's (n_pad, n_pad, 0)."""
+    if hasattr(A, "x_base"):
+        return A.nrows, A.x_len, A.x_base
+    return A.nrows_pad, A.nrows_pad, 0
+
+
 def stage(A) -> DiaLaunch:
     offsets = tuple(int(o) for o in A.offsets)
-    if A.sym_half and min(offsets, default=0) < 0:
+    sym = getattr(A, "sym_half", False)
+    if sym and min(offsets, default=0) < 0:
         raise ValueError("dia_matvec: sym_half stores offsets >= 0 only")
     offs = torch.tensor(offsets, dtype=torch.int64, device=A.data.device)
-    make = dia_sym_plan if A.sym_half else dia_plan
-    return DiaLaunch(
-        offs=offs, plan=make(offsets, A.nrows_pad, A.data.element_size())
-    )
+    if sym:
+        plan = dia_sym_plan(offsets, A.nrows_pad, A.data.element_size())
+    else:
+        plan = dia_plan(offsets, _window(A)[0], A.data.element_size())
+    return DiaLaunch(offs=offs, plan=plan)
 
 
 def _dia_matvec_plain(A, x: torch.Tensor) -> torch.Tensor:
     """Shift-and-FMA form (ngsamg_tpu/sparse/formats.py `_dia_matvec_xla`),
-    summed in the kernels' accumulation type and rounded once."""
-    n = A.nrows_pad
+    summed in the kernels' accumulation type and rounded once. Full
+    storage reads the window: y[i] = sum_d data[d, i] * x[x_base + i +
+    off_d], x zero outside [0, x_len)."""
     acc = cuda_lib.acc_dtype(x.dtype)
     data = A.data.to(acc)
     xf = x[:, 0].to(acc)
-    if A.sym_half:
+    if getattr(A, "sym_half", False):
+        n = A.nrows_pad
         hi = max(A.offsets[-1], 0)
         xp = F.pad(xf, (hi, hi))
         y = torch.zeros_like(xf)
@@ -221,17 +238,21 @@ def _dia_matvec_plain(A, x: torch.Tensor) -> torch.Tensor:
                 dp = F.pad(data[d], (hi, hi))
                 y = y + dp[hi - off: hi - off + n] * xp[hi - off: hi - off + n]
         return y.to(x.dtype)[:, None]
-    lo = -min(A.offsets[0], 0)
-    hi = max(A.offsets[-1], 0)
-    xp = F.pad(xf, (lo, hi))
-    y = torch.zeros_like(xf)
+    n, x_len, x_base = _window(A)
+    first = x_base + min(A.offsets, default=0)
+    last = x_base + max(A.offsets, default=0) + n
+    left, right = max(0, -first), max(0, last - x_len)
+    xp = F.pad(xf[:x_len], (left, right))
+    y = torch.zeros(n, dtype=acc, device=x.device)
     for d, off in enumerate(A.offsets):
-        y = y + data[d] * xp[lo + off: lo + off + n]
+        s = left + x_base + off
+        y = y + data[d] * xp[s: s + n]
     return y.to(x.dtype)[:, None]
 
 
 def dia_matvec(A, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x for a DiaMatrix (full or sym_half); x: (nrows_pad, 1)."""
+    """y = A @ x for a DiaMatrix (full or sym_half; x: (nrows_pad, 1)) or
+    a DiaWindow (x: (x_len, 1); y: (nrows, 1))."""
     if x.device.type == "cpu":
         return _dia_matvec_plain(A, x)
     if x.device.type != "cuda":
@@ -242,32 +263,38 @@ def dia_matvec(A, x: torch.Tensor) -> torch.Tensor:
             f"dia_matvec: data {A.data.dtype}@{A.data.device} vs "
             f"x {x.dtype}@{x.device}"
         )
+    sym = getattr(A, "sym_half", False)
+    n, x_len, x_base = (A.nrows_pad, A.nrows_pad, 0) if sym else _window(A)
     ndiag = len(A.offsets)
-    if A.data.shape != (ndiag, A.nrows_pad) or not A.data.is_contiguous():
+    if A.data.shape != (ndiag, n) or not A.data.is_contiguous():
         raise ValueError(
-            f"dia_matvec: data must be contiguous ({ndiag}, {A.nrows_pad}), "
+            f"dia_matvec: data must be contiguous ({ndiag}, {n}), "
             f"got {tuple(A.data.shape)}"
         )
-    if x.shape != (A.nrows_pad, 1) or not x.is_contiguous():
+    if x.shape != (x_len, 1) or not x.is_contiguous():
         raise ValueError(
-            f"dia_matvec: x must be contiguous ({A.nrows_pad}, 1), "
+            f"dia_matvec: x must be contiguous ({x_len}, 1), "
             f"got {tuple(x.shape)}"
         )
     launch = A.launch
-    y = torch.empty_like(x)
-    key = ("dia_sym_matvec" if A.sym_half else "dia_matvec") + f"_{sfx}"
-    sym = f"ngsamg_{key}"
-    fn = getattr(cuda_lib.library(), sym)
+    y = x.new_empty((n, 1))
+    if sym:
+        kind = entry = "dia_sym_matvec"
+    else:
+        entry = "dia_matvec"
+        kind = "dia_window_matvec" if hasattr(A, "x_base") else entry
+    sym_name = f"ngsamg_{entry}_{sfx}"
+    fn = getattr(cuda_lib.library(), sym_name)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     p = launch.plan
-    if A.sym_half:
-        rc = fn(A.data.data_ptr(), launch.offs.data_ptr(), ndiag, A.nrows_pad,
+    if sym:
+        rc = fn(A.data.data_ptr(), launch.offs.data_ptr(), ndiag, n,
                 p.batch, p.tpg, p.groups, p.per_group, p.tile, p.reach,
                 p.smem_bytes, p.blocks, x.data_ptr(), y.data_ptr(), stream)
     else:
-        rc = fn(A.data.data_ptr(), launch.offs.data_ptr(), ndiag, A.nrows_pad,
-                p.groups, p.per_group, p.window, p.lo, x.data_ptr(),
+        rc = fn(A.data.data_ptr(), launch.offs.data_ptr(), ndiag, n, x_len,
+                x_base, p.groups, p.per_group, p.window, p.lo, x.data_ptr(),
                 y.data_ptr(), stream)
-    cuda_lib.check(rc, sym)
-    LAUNCHES[key] += 1
+    cuda_lib.check(rc, sym_name)
+    LAUNCHES[f"{kind}_{sfx}"] += 1
     return y

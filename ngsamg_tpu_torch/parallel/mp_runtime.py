@@ -1,8 +1,11 @@
 """True multi-controller distributed setup: one OS process per shard.
 
-Copied from ngsamg_tpu/parallel/mp_runtime.py for the scalar-H1, vector-H1
-and elasticity setups; the Stokes entry points raise until
-``parallel/dist_stokes.py`` is ported (ROADMAP queue 1 item 8c).
+Copied from ngsamg_tpu/parallel/mp_runtime.py: the scalar-H1, vector-H1,
+elasticity, Stokes and HDiv Stokes setups. Besides the pipe-based
+:class:`MPTransport`, every entry point takes ``transport="collective"``:
+the ranks then form a ``torch.distributed`` world (parallel/world.py,
+``backend`` the caller's choice) and exchange through
+``transport.CollectiveTransport``, whose words live on ``device``.
 
 The reference's distributed layer is one rank per MPI process, each
 holding ONLY its rows, exchanging through typed collectives
@@ -13,7 +16,8 @@ not fork — nothing of the parent's address space is inherited, and the
 parent may hold a CUDA context), ships each worker ONLY its contiguous
 row slice, and runs the SAME rank-local level loop
 (`dist_setup._scalar_levels_parts`, `_vector_levels_parts`,
-`dist_elast._elast_levels_parts`) in every worker with an
+`dist_elast._elast_levels_parts`, `dist_stokes._stokes_levels_parts`,
+`_stokes_hdiv_levels_parts`) in every worker with an
 :class:`MPTransport` whose primitives move real bytes between processes
 over OS pipes. The workers are numpy ranks: they start with
 ``CUDA_VISIBLE_DEVICES=""`` so none of them creates a CUDA context.
@@ -250,89 +254,181 @@ class MPTransport(Transport):
 # ---------------------------------------------------------------------------
 
 
-def _mp_worker(rank, n, conns, parent, payload, starts, energy, opts):
-    """One rank: run the rank-local level loop on OWN rows only."""
-    try:
-        from .transport import use_transport
+def _rank_levels(rank, n, tr, payload, starts, energy, opts):
+    """One rank's level loop under transport ``tr``: its own rows only.
+    Returns (per-level records, log statistics, finest-level extras)."""
+    from .transport import use_transport
 
-        tr = MPTransport(rank, n, conns)
-        with use_transport(tr):
-            if isinstance(payload, tuple):  # (A rows, vertex positions)
-                from .dist_elast import _elast_levels_parts
-
-                part, pos = payload
-                recs, log, finest = _elast_levels_parts(
-                    [part if s == rank else None for s in range(n)],
-                    [pos if s == rank else None for s in range(n)],
-                    starts,
-                    opts,
-                    energy,
-                )
-                out = [
-                    {
-                        "P": rec["P_parts"][rank],
-                        "P_amg": (
-                            None
-                            if rec["P_amg_parts"] is None
-                            else rec["P_amg_parts"][rank]
-                        ),
-                        "v2agg": rec["v2agg_parts"][rank],
-                        "Ac": rec["Ac_parts"][rank],
-                        "coarse_starts": rec["coarse_starts"],
-                        "c_vst": rec["c_vst"],
-                        "row_bs_f": rec["row_bs_f"],
-                        "cpos": rec["cpos_parts"][rank],
-                        "cl2": rec["cl2_parts"][rank],
-                    }
-                    for rec in recs
-                ]
-                extra = {
-                    "pos": finest["pos_parts"][rank],
-                    "l2": finest["l2_parts"][rank],
-                }
-            else:
-                bs = int(getattr(energy, "dpv", 1) or 1)
-                parts_in = [
-                    payload if s == rank else None for s in range(n)
-                ]
-                if bs > 1:
-                    from .dist_setup import _vector_levels_parts
-
-                    recs, log = _vector_levels_parts(
-                        parts_in, starts, opts, bs
-                    )
-                else:
-                    from .dist_setup import _scalar_levels_parts
-
-                    recs, log = _scalar_levels_parts(
-                        parts_in, starts, opts, energy
-                    )
-                out = [
-                    {
-                        "P": rec["P_parts"][rank],
-                        "v2agg": rec["v2agg_parts"][rank],
-                        "Ac": rec["Ac_parts"][rank],
-                        "coarse_starts": rec["coarse_starts"],
-                    }
-                    for rec in recs
-                ]
-                extra = None
-        parent.send(
-            (
-                "ok",
-                out,
-                {
-                    "nvs": log.nvs,
-                    "nnzs": log.nnzs,
-                    "peak_shard_bytes": log.peak_shard_bytes,
-                    "finest_global_bytes": log.finest_global_bytes,
-                    "contract_decisions": log.contract_decisions,
-                    "shards_per_level": log.shards_per_level,
-                    "transport_calls": tr.calls,
-                    "moved_bytes": tr.moved_bytes,
-                },
-                extra,
+    with use_transport(tr):
+        if isinstance(payload, dict) and "stokes_hdiv" in payload:
+            from .dist_stokes import (
+                _ShardedDual,
+                _stokes_hdiv_levels_parts,
             )
+
+            (pos, vol, edges, flow, A_rows, cnt, V,
+             n_special) = payload["stokes_hdiv"]
+            v_starts, e_starts = starts
+
+            def _wrap(x):
+                return [x if s == rank else None for s in range(n)]
+
+            sd = _ShardedDual(
+                v_starts, e_starts, _wrap(pos), _wrap(vol),
+                _wrap(edges), _wrap(flow), _wrap(A_rows),
+            )
+            recs, log = _stokes_hdiv_levels_parts(
+                sd, _wrap(cnt), _wrap(V), n_special, opts
+            )
+            out = [
+                {
+                    "v_starts": rec["v_starts"],
+                    "e_starts": rec["e_starts"],
+                    "A": rec["A_parts"][rank],
+                    "pos": rec["pos_parts"][rank],
+                    "vol": rec["vol_parts"][rank],
+                    "edges": rec["edges_parts"][rank],
+                    "flow": rec["flow_parts"][rank],
+                    "cnt": rec["cnt_parts"][rank],
+                    "V": rec["V_parts"][rank],
+                    "P": (
+                        None
+                        if rec["P_parts"] is None
+                        else rec["P_parts"][rank]
+                    ),
+                    "v2agg": (
+                        None
+                        if rec["v2agg_parts"] is None
+                        else rec["v2agg_parts"][rank]
+                    ),
+                }
+                for rec in recs
+            ]
+            extra = None
+        elif isinstance(payload, dict) and "stokes" in payload:
+            from .dist_stokes import (
+                _ShardedDual,
+                _stokes_levels_parts,
+            )
+
+            pos, vol, edges, flow, A_rows, bs = payload["stokes"]
+            v_starts, e_starts = starts
+
+            def _wrap(x):
+                return [x if s == rank else None for s in range(n)]
+
+            sd = _ShardedDual(
+                v_starts, e_starts, _wrap(pos), _wrap(vol),
+                _wrap(edges), _wrap(flow), _wrap(A_rows),
+            )
+            recs, log = _stokes_levels_parts(sd, bs, opts)
+            out = [
+                {
+                    "v_starts": rec["v_starts"],
+                    "e_starts": rec["e_starts"],
+                    "A": rec["A_parts"][rank],
+                    "pos": rec["pos_parts"][rank],
+                    "vol": rec["vol_parts"][rank],
+                    "edges": rec["edges_parts"][rank],
+                    "flow": rec["flow_parts"][rank],
+                    "C": (
+                        None
+                        if rec["C_parts"] is None
+                        else rec["C_parts"][rank]
+                    ),
+                    "P": (
+                        None
+                        if rec["P_parts"] is None
+                        else rec["P_parts"][rank]
+                    ),
+                    "v2agg": (
+                        None
+                        if rec["v2agg_parts"] is None
+                        else rec["v2agg_parts"][rank]
+                    ),
+                }
+                for rec in recs
+            ]
+            extra = None
+        elif isinstance(payload, tuple):  # (A rows, vertex positions)
+            from .dist_elast import _elast_levels_parts
+
+            part, pos = payload
+            recs, log, finest = _elast_levels_parts(
+                [part if s == rank else None for s in range(n)],
+                [pos if s == rank else None for s in range(n)],
+                starts,
+                opts,
+                energy,
+            )
+            out = [
+                {
+                    "P": rec["P_parts"][rank],
+                    "P_amg": (
+                        None
+                        if rec["P_amg_parts"] is None
+                        else rec["P_amg_parts"][rank]
+                    ),
+                    "v2agg": rec["v2agg_parts"][rank],
+                    "Ac": rec["Ac_parts"][rank],
+                    "coarse_starts": rec["coarse_starts"],
+                    "c_vst": rec["c_vst"],
+                    "row_bs_f": rec["row_bs_f"],
+                    "cpos": rec["cpos_parts"][rank],
+                    "cl2": rec["cl2_parts"][rank],
+                }
+                for rec in recs
+            ]
+            extra = {
+                "pos": finest["pos_parts"][rank],
+                "l2": finest["l2_parts"][rank],
+            }
+        else:
+            bs = int(getattr(energy, "dpv", 1) or 1)
+            parts_in = [
+                payload if s == rank else None for s in range(n)
+            ]
+            if bs > 1:
+                from .dist_setup import _vector_levels_parts
+
+                recs, log = _vector_levels_parts(
+                    parts_in, starts, opts, bs
+                )
+            else:
+                from .dist_setup import _scalar_levels_parts
+
+                recs, log = _scalar_levels_parts(
+                    parts_in, starts, opts, energy
+                )
+            out = [
+                {
+                    "P": rec["P_parts"][rank],
+                    "v2agg": rec["v2agg_parts"][rank],
+                    "Ac": rec["Ac_parts"][rank],
+                    "coarse_starts": rec["coarse_starts"],
+                }
+                for rec in recs
+            ]
+            extra = None
+    return out, {
+        "nvs": log.nvs,
+        "nnzs": log.nnzs,
+        "peak_shard_bytes": log.peak_shard_bytes,
+        "finest_global_bytes": log.finest_global_bytes,
+        "contract_decisions": log.contract_decisions,
+        "shards_per_level": log.shards_per_level,
+        "transport_calls": tr.calls,
+        "moved_bytes": tr.moved_bytes,
+    }, extra
+
+
+def _mp_worker(rank, n, conns, parent, payload, starts, energy, opts):
+    """One rank of the pipe mesh."""
+    try:
+        tr = MPTransport(rank, n, conns)
+        parent.send(
+            ("ok",) + _rank_levels(rank, n, tr, payload, starts, energy,
+                                   opts)
         )
     except Exception as e:  # surface the rank's failure to the parent
         import traceback
@@ -340,6 +436,22 @@ def _mp_worker(rank, n, conns, parent, payload, starts, energy, opts):
         parent.send(("err", f"rank {rank}: {e}\n{traceback.format_exc()}"))
     finally:
         parent.close()
+
+
+def _collective_rank(mesh, parts, starts, energy, opts):
+    """One rank of a ``torch.distributed`` world: the level loop over a
+    :class:`~.transport.CollectiveTransport`; rank 0 returns every rank's
+    result (collected as pickled objects, not through the transport)."""
+    import torch.distributed as dist
+
+    from .transport import CollectiveTransport
+
+    tr = CollectiveTransport(mesh)
+    res = _rank_levels(mesh.rank, mesh.size, tr, parts[mesh.rank], starts,
+                       energy, opts)
+    got = [None] * mesh.size if mesh.rank == 0 else None
+    dist.gather_object(res, got, dst=0)
+    return got
 
 
 def _device_tensors(obj, seen=None):
@@ -364,10 +476,27 @@ def _device_tensors(obj, seen=None):
     return [d for v in items for d in _device_tensors(v, seen)]
 
 
-def _mp_spawn_collect(parts, starts, energy, opts, n_ranks, timeout):
-    """Spawn one worker per rank (pipe mesh), collect per-rank results."""
+def _mp_spawn_collect(parts, starts, energy, opts, n_ranks, timeout,
+                      transport="pipes", backend=None, device=None):
+    """Spawn one worker per rank, collect per-rank results: a pipe mesh of
+    numpy ranks, or (``transport="collective"``) a ``torch.distributed``
+    world of ``backend`` whose exchanges run on ``device``."""
     import multiprocessing as mp
 
+    if transport == "collective":
+        if backend is None or device is None:
+            raise ValueError(
+                "transport='collective' needs an explicit backend "
+                "('gloo' or 'nccl') and device (e.g. 'cuda:0' or 'cpu')"
+            )
+        from .world import spawn_world
+
+        return spawn_world(
+            _collective_rank, n_ranks, backend=backend, device=device,
+            args=(parts, starts, energy, opts), timeout=timeout,
+        )
+    if transport != "pipes":
+        raise ValueError(f"unknown transport {transport!r}")
     on_device = _device_tensors(energy)
     if on_device:
         # the ranks cannot see a card; the energy must be host data
@@ -433,13 +562,85 @@ def mp_dist_stokes_levels(
     opts,
     n_ranks: int,
     timeout: float = 600.0,
+    *,
+    transport: str = "pipes",
+    backend: str | None = None,
+    device: str | None = None,
 ):
-    """Stokes dual-mesh distributed setup across OS processes: not
-    ported (it runs ``parallel/dist_stokes.py``)."""
-    raise NotImplementedError(
-        "mp_dist_stokes_levels: ROADMAP queue 1 item 8c (not ported to "
-        "ngsamg_tpu_torch yet)"
+    """Stokes dual-mesh distributed setup across ``n_ranks`` OS
+    processes: each rank receives ONLY its cell/facet slices of the dual
+    mesh + its facet-DOF matrix rows and runs the rank-local
+    `dist_stokes._stokes_levels_parts` under an :class:`MPTransport`.
+    Returns the same `StokesLevel` list as `dist_stokes_levels`, plus
+    the per-rank log.
+    """
+    from .dist_stokes import _split, package_stokes_levels
+
+    A = A.tocsr().astype(np.float64)
+    v_starts = _split(mesh0.nv, n_ranks)
+    e_starts = _split(mesh0.ne, n_ranks)
+    pos = mesh0.vertex_data["pos"]
+    vol = mesh0.vertex_data["vol"]
+    flow = mesh0.edge_data["flow"]
+    parts = [
+        {
+            "stokes": (
+                pos[v_starts[s]: v_starts[s + 1]],
+                vol[v_starts[s]: v_starts[s + 1]],
+                mesh0.edges[e_starts[s]: e_starts[s + 1]],
+                flow[e_starts[s]: e_starts[s + 1]],
+                A[e_starts[s] * bs: e_starts[s + 1] * bs],
+                bs,
+            )
+        }
+        for s in range(n_ranks)
+    ]
+    results = _mp_spawn_collect(
+        parts, (v_starts, e_starts), None, opts, n_ranks, timeout,
+        transport, backend, device,
     )
+    from ..factory.levels import FactoryLog
+
+    log = FactoryLog()
+    stats0 = results[0][1]
+    log.nvs = list(stats0["nvs"])
+    log.nnzs = list(stats0["nnzs"])
+    log.finest_global_bytes = stats0["finest_global_bytes"]
+    log.peak_shard_bytes = max(
+        res[1]["peak_shard_bytes"] for res in results
+    )
+    log.mp_rank_stats = [res[1] for res in results]
+    n_levels = len(results[0][0])
+    recs = []
+    for li in range(n_levels):
+        rr = [results[r][0][li] for r in range(n_ranks)]
+        recs.append(
+            {
+                "v_starts": rr[0]["v_starts"],
+                "e_starts": rr[0]["e_starts"],
+                "A_parts": [rec["A"] for rec in rr],
+                "pos_parts": [rec["pos"] for rec in rr],
+                "vol_parts": [rec["vol"] for rec in rr],
+                "edges_parts": [rec["edges"] for rec in rr],
+                "flow_parts": [rec["flow"] for rec in rr],
+                "C_parts": (
+                    None
+                    if rr[0]["C"] is None
+                    else [rec["C"] for rec in rr]
+                ),
+                "P_parts": (
+                    None
+                    if rr[0]["P"] is None
+                    else [rec["P"] for rec in rr]
+                ),
+                "v2agg_parts": (
+                    None
+                    if rr[0]["v2agg"] is None
+                    else [rec["v2agg"] for rec in rr]
+                ),
+            }
+        )
+    return package_stokes_levels(recs), log
 
 
 def mp_dist_stokes_hdiv_levels(
@@ -450,13 +651,72 @@ def mp_dist_stokes_hdiv_levels(
     opts,
     n_ranks: int,
     timeout: float = 600.0,
+    *,
+    transport: str = "pipes",
+    backend: str | None = None,
+    device: str | None = None,
 ):
-    """HDiv Stokes distributed setup across OS processes: not ported (it
-    runs ``parallel/dist_stokes.py``)."""
-    raise NotImplementedError(
-        "mp_dist_stokes_hdiv_levels: ROADMAP queue 1 item 8c (not ported "
-        "to ngsamg_tpu_torch yet)"
+    """HDiv Stokes distributed setup across ``n_ranks`` OS processes
+    (variable facet DOFs + preserved vectors, rank-local
+    `dist_stokes._stokes_hdiv_levels_parts`)."""
+    from .dist_stokes import _shard_hdiv_level0, package_hdiv_levels
+
+    sd, cnt_parts, V_parts = _shard_hdiv_level0(
+        A, mesh0, dofs0, pres0, n_ranks
     )
+    parts = [
+        {
+            "stokes_hdiv": (
+                sd.pos_parts[s], sd.vol_parts[s], sd.edges_parts[s],
+                sd.flow_parts[s], sd.A_parts[s], cnt_parts[s],
+                V_parts[s], pres0.n_special,
+            )
+        }
+        for s in range(n_ranks)
+    ]
+    results = _mp_spawn_collect(
+        parts, (sd.v_starts, sd.e_starts), None, opts, n_ranks, timeout,
+        transport, backend, device,
+    )
+    from ..factory.levels import FactoryLog
+
+    log = FactoryLog()
+    stats0 = results[0][1]
+    log.nvs = list(stats0["nvs"])
+    log.nnzs = list(stats0["nnzs"])
+    log.finest_global_bytes = stats0["finest_global_bytes"]
+    log.peak_shard_bytes = max(
+        res[1]["peak_shard_bytes"] for res in results
+    )
+    log.mp_rank_stats = [res[1] for res in results]
+    n_levels = len(results[0][0])
+    recs = []
+    for li in range(n_levels):
+        rr = [results[r][0][li] for r in range(n_ranks)]
+        recs.append(
+            {
+                "v_starts": rr[0]["v_starts"],
+                "e_starts": rr[0]["e_starts"],
+                "A_parts": [rec["A"] for rec in rr],
+                "pos_parts": [rec["pos"] for rec in rr],
+                "vol_parts": [rec["vol"] for rec in rr],
+                "edges_parts": [rec["edges"] for rec in rr],
+                "flow_parts": [rec["flow"] for rec in rr],
+                "cnt_parts": [rec["cnt"] for rec in rr],
+                "V_parts": [rec["V"] for rec in rr],
+                "P_parts": (
+                    None
+                    if rr[0]["P"] is None
+                    else [rec["P"] for rec in rr]
+                ),
+                "v2agg_parts": (
+                    None
+                    if rr[0]["v2agg"] is None
+                    else [rec["v2agg"] for rec in rr]
+                ),
+            }
+        )
+    return package_hdiv_levels(recs, pres0.n_special), log
 
 
 def mp_dist_setup_levels(
@@ -466,6 +726,10 @@ def mp_dist_setup_levels(
     n_ranks: int,
     timeout: float = 600.0,
     coords: np.ndarray | None = None,
+    *,
+    transport: str = "pipes",
+    backend: str | None = None,
+    device: str | None = None,
 ):
     """Distributed setup across ``n_ranks`` OS processes (scalar H1 and
     elasticity — the same uniformity as the reference's EQC/ReduceTable
@@ -478,7 +742,10 @@ def mp_dist_setup_levels(
     `dist_elast._elast_levels_parts`) under an :class:`MPTransport`. The
     parent assembles the per-rank results into the same ``(levels, log)``
     as `dist_setup.dist_setup_levels` and attaches per-rank transport
-    statistics at ``log.mp_rank_stats``.
+    statistics at ``log.mp_rank_stats``. ``transport="collective"`` runs
+    the ranks as a ``torch.distributed`` world of ``backend`` exchanging
+    through ``CollectiveTransport`` on ``device`` (every rank receives the
+    payload list and keeps its own).
     """
     from ..apps.elasticity import ElasticityEnergy
     from ..factory.levels import FactoryLog, SetupLevel
@@ -516,7 +783,7 @@ def mp_dist_setup_levels(
             parts, starts = split_rows(A, n_ranks)
 
     results = _mp_spawn_collect(parts, starts, energy, opts, n_ranks,
-                                timeout)
+                                timeout, transport, backend, device)
 
     def ph_mesh(n):
         return AlgebraicMesh(nv=n, edges=np.zeros((0, 2), dtype=np.int64))

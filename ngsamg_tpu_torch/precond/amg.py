@@ -244,11 +244,13 @@ class AMGPreconditioner:
     BS cycles and the device dtypes (float32, float64, bfloat16) are those
     of the JAX package. ``dist_setup > 1`` builds an H1 or elasticity
     hierarchy with the host-distributed setup (parallel/dist_setup.py) and
-    stages it as any other. Options of the JAX package that this port
-    does not run raise and name their ROADMAP item: ``shards != 1``
-    (item 8b); the Hiptmair smoother raises the JAX package's
-    ``ValueError`` (only the Stokes preconditioners, precond/stokes.py,
-    build it). The local cluster
+    stages it as any other. ``shards = s > 1`` stages the hierarchy
+    that the sharded solve places (parallel/shard.py ``shard_operator``),
+    on this one device, as the JAX package does: every level padded to a
+    multiple of ``8 s`` rows, plain (not bucketed) tile-ELL, and the
+    multicolor GS in its sliced storage. The Hiptmair smoother raises the
+    JAX package's ``ValueError`` (only the Stokes preconditioners,
+    precond/stokes.py, build it). The local cluster
     correction (``options.cluster_corr``) is staged on unstructured scalar
     finest levels, as in the JAX package.
     """
@@ -271,11 +273,6 @@ class AMGPreconditioner:
         if options is None:
             options = options_from_flags(flags) if flags else AMGOptions()
         self.options = options
-        if options.shards != 1:
-            raise NotImplementedError(
-                "shards: ROADMAP queue 1 item 8b (not ported to "
-                "ngsamg_tpu_torch yet)"
-            )
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {self.device}: CUDA is not available")
@@ -509,6 +506,10 @@ class AMGPreconditioner:
             shape=(self.n, len(verts) * bs),
         ).tocsr()
 
+    @property
+    def _row_align(self) -> int:
+        return ROW_ALIGN * max(int(self.options.shards), 1)
+
     def _compile_device(self):
         """Stage the hierarchy: row orders, symmetric scaling, formats,
         smoothers, transfers, coarse inverse, cluster correction and the
@@ -518,6 +519,11 @@ class AMGPreconditioner:
         levels = self.setup_levels_
         nlev = len(levels)
         dev, npdt = self.device, self.np_dtype
+        align = self._row_align
+        # bucketed tile-ELL and the per-color split GS storage only on
+        # single-device placements: the row sharding (parallel/shard.py,
+        # parallel/halo.py) cuts uniform per-level arrays
+        stack = int(opts.shards) <= 1
         stages = self._device_stage_times = {}
         t_last = time.perf_counter()
 
@@ -545,7 +551,9 @@ class AMGPreconditioner:
                         lev.A, lev.row_bs, opts.smoother, i
                     )
                 if perm is None:
-                    perm = formats.plan_reorder(lev.A, lev.row_bs)
+                    perm = formats.plan_reorder(
+                        lev.A, lev.row_bs, tile_sort=stack
+                    )
             perms.append(perm)
             bounds.append(cb)
         # scalar view of the finest level's block-row order
@@ -599,7 +607,7 @@ class AMGPreconditioner:
             gs_ell = None
             if lev.stencil is not None:
                 A_fmt = formats.format_from_stencil(
-                    lev.stencil, npdt, ROW_ALIGN, device=dev
+                    lev.stencil, npdt, align, device=dev
                 )
             elif bounds[i] is not None:
                 # GS levels stay block-ELL whatever choose_format would
@@ -607,16 +615,16 @@ class AMGPreconditioner:
                 # smoother stores its rows split per color, cut from the
                 # same host arrays (scaled and permuted)
                 data, cols, nb = bell.pack(
-                    A, lev.row_bs, lev.row_bs, npdt, ROW_ALIGN
+                    A, lev.row_bs, lev.row_bs, npdt, align
                 )
                 A_fmt = bell.from_packed(
                     data, cols, nb, A.shape[1] // lev.row_bs, device=dev
                 )
-                if bounds[i]:
+                if bounds[i] and stack:
                     gs_ell = (data, cols)
             else:
                 A_fmt = formats.choose_format(
-                    A, lev.row_bs, npdt, ROW_ALIGN, device=dev
+                    A, lev.row_bs, npdt, align, device=dev, stack=stack
                 )
             A_fmts.append(A_fmt)
             _mark("pack_A")
@@ -667,12 +675,12 @@ class AMGPreconditioner:
                     )
                     P_fmt = bell.from_scipy(
                         Pb, lev.row_bs, dpv, dtype=npdt,
-                        row_align=ROW_ALIGN, device=dev,
+                        row_align=align, device=dev,
                     )
                     R_fmt = bell.from_scipy(
                         Pb.T.tobsr(blocksize=(dpv, lev.row_bs)),
                         dpv, lev.row_bs, dtype=npdt,
-                        row_align=ROW_ALIGN, device=dev,
+                        row_align=align, device=dev,
                     )
                 else:
                     # explicit scalar transfers as tile-ELL (one gathered
@@ -1058,7 +1066,7 @@ class AMGPreconditioner:
             )
         elif isinstance(Af, bell.BlockELL):
             fmt = bell.from_scipy(
-                A0, bs, bs, dtype=np.float64, row_align=ROW_ALIGN,
+                A0, bs, bs, dtype=np.float64, row_align=self._row_align,
                 col_chunk=Af.col_chunk, device=dev,
             )
         if fmt is not None and _scalar_pad(fmt, bs) == _scalar_pad(Af, bs):

@@ -21,8 +21,9 @@ correction on the host around the f32 device PCG. Each class takes
 ``device`` ("cuda" by default: DIA levels run the hand-written DIA kernel;
 "cpu" runs every plain version) and raises when CUDA is absent.
 
-Not ported: the distributed setup (``options.dist_setup > 1`` off a
-lattice, ``parallel/dist_stokes.py``), ROADMAP queue 1 item 8c; it raises.
+``options.dist_setup > 1`` off a lattice builds the hierarchy with the
+distributed Stokes setup (parallel/dist_stokes.py), as in the JAX
+package; a lattice dual mesh keeps the serial setup.
 """
 
 from __future__ import annotations
@@ -143,18 +144,15 @@ def _device_of(device) -> torch.device:
     return dev
 
 
-def _no_dist_setup(options: AMGOptions, mesh) -> None:
-    """The JAX package takes its distributed Stokes setup for
-    ``dist_setup > 1`` off a lattice (a lattice dual mesh keeps the serial
-    path there too); the port has none yet."""
-    if (
+def _takes_dist_setup(options: AMGOptions, mesh) -> bool:
+    """``dist_setup > 1`` takes the distributed Stokes setup
+    (parallel/dist_stokes.py); a lattice dual mesh keeps the serial path,
+    whose ``coarsen_cells`` takes the structured lattice coarsener (a
+    different algorithm by design), as in the JAX package."""
+    return (
         options.dist_setup > 1
         and lattice_aggregate(mesh.vertex_data["pos"]) is None
-    ):
-        raise NotImplementedError(
-            "dist_setup: the distributed Stokes setup, ROADMAP queue 1 "
-            "item 8c (not ported to ngsamg_tpu_torch yet)"
-        )
+    )
 
 
 def _coarse_inverse(A: sp.spmatrix, npad: int, device) -> torch.Tensor:
@@ -289,7 +287,14 @@ class StokesAMG(_StokesSolve):
         opts = self.options
         lc = opts.levels
         bs = self.facet_bs
-        _no_dist_setup(opts, self.mesh0)
+        if _takes_dist_setup(opts, self.mesh0):
+            from ..parallel.dist_stokes import dist_stokes_levels
+
+            self.setup_levels_, self.log_ = dist_stokes_levels(
+                self.A_host, self.mesh0, bs, opts, opts.dist_setup,
+                return_log=True,
+            )
+            return self._finish_setup(t0)
         levels: list[st.StokesLevel] = []
         A, mesh = self.A_host, self.mesh0
         Y = self._loops0  # incidence loops, contracted level-to-level
@@ -340,6 +345,9 @@ class StokesAMG(_StokesSolve):
             mesh = cmesh
             lvl += 1
         self.setup_levels_ = levels
+        return self._finish_setup(t0)
+
+    def _finish_setup(self, t0: float) -> "StokesAMG":
         t1 = time.perf_counter()
         self._compile_device()
         _sync(self.device)
@@ -608,7 +616,14 @@ class StokesHDivAMG(_StokesSolve):
     def setup(self) -> "StokesHDivAMG":
         t0 = time.perf_counter()
         lc = self.options.levels
-        _no_dist_setup(self.options, self.mesh0)
+        if _takes_dist_setup(self.options, self.mesh0):
+            from ..parallel.dist_stokes import dist_stokes_hdiv_levels
+
+            self.setup_levels_ = dist_stokes_hdiv_levels(
+                self.A_host, self.mesh0, self.dofs0, self.pres0,
+                self.options, self.options.dist_setup,
+            )
+            return self._finish_setup(t0)
         levels = []
         A, mesh, dofs, pres = self.A_host, self.mesh0, self.dofs0, self.pres0
         lvl = 0
@@ -638,6 +653,9 @@ class StokesHDivAMG(_StokesSolve):
             mesh, dofs, pres = cmesh, dofs_c, pres_c
             lvl += 1
         self.setup_levels_ = levels
+        return self._finish_setup(t0)
+
+    def _finish_setup(self, t0: float) -> "StokesHDivAMG":
         self._compile_device()
         _sync(self.device)
         self.setup_time = time.perf_counter() - t0

@@ -8,8 +8,9 @@ multicolor GS runs its colors in reverse order backwards. Block levels
 (bs 3 and 6) run Chebyshev with a block Dinv, order 5 on the window
 [0.25, 1] lam_max (smoothers/build.py). ``smooth`` and ``smooth_back``
 also dispatch the Hiptmair pair (smoothers/hiptmair.py), the block GS
-(smoothers/block.py) and a multigrid operator used as a smoother
-(solve/cycle.py).
+(smoothers/block.py), a multigrid operator used as a smoother
+(solve/cycle.py) and, through their ``sharded_smooth`` hook, the sharded
+sweeps of parallel/shard.py.
 
 The multicolor GS sweep is plain torch, as it is XLA in the JAX package:
 per color, one gather of x by the color's column indices, one block
@@ -122,10 +123,17 @@ def smooth(sm: Smoother, A, x: torch.Tensor | None, b: torch.Tensor):
 
     if isinstance(sm, AMGSmoother):
         return sm.smooth(A, x, b)
+    # the sharded sweeps of parallel/shard.py
+    hook = getattr(sm, "sharded_smooth", None)
+    if hook is not None:
+        return hook(A, x, b, reverse=False)
     raise TypeError(type(sm))
 
 
 def smooth_back(sm: Smoother, A, x: torch.Tensor | None, b: torch.Tensor):
+    hook = getattr(sm, "sharded_smooth", None)
+    if hook is not None:
+        return hook(A, x, b, reverse=True)
     if isinstance(sm, GSSmoother):
         return _gs(sm, A, x, b, reverse=True)
     from .hiptmair import HiptmairSmoother, hiptmair_smooth

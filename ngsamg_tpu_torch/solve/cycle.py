@@ -10,6 +10,11 @@ hierarchies, scalar or block; vectors are (nrows_pad, bs) and change
 shape between levels of different block size). A cluster correction, when
 the hierarchy carries one, wraps the cycle multiplicatively and
 symmetrically. ``AMGSmoother`` uses a multigrid operator as a smoother.
+
+On a rank of the sharded solve (parallel/shard.py) the same code runs on
+the rank's rows: the sharded operators and transfers carry their own
+collectives (``formats.matvec``'s hook), and the coarse inverse and the
+cluster correction, which are replicated, take the gathered vector.
 """
 
 from __future__ import annotations
@@ -50,13 +55,19 @@ def coarse_solve(op: AMGOperator, b: torch.Tensor) -> torch.Tensor:
             return torch.zeros_like(b)
         x = smooth(lev.smoother, lev.A, None, b)
         return smooth_back(lev.smoother, lev.A, x, b)
+    # a sharded coarsest level (parallel/shard.py): the inverse is
+    # replicated, so it is applied to the gathered vector
+    pl = getattr(lev.A, "placement", None)
+    if pl is not None:
+        b = pl.gather(b)
     n, bs = b.shape
     ci = op.coarse_inv
     # an f64 inverse inside an f32 cycle: applying the explicit inverse
     # (norm ~1/lambda_min) in f32 would inject eps32*kappa-sized
     # indefinite noise into the coarse solve
     x = torch.matmul(ci, b.reshape(-1).to(ci.dtype))
-    return x.to(b.dtype).reshape(n, bs)
+    x = x.to(b.dtype).reshape(n, bs)
+    return x if pl is None else pl.take(x)
 
 
 def _cycle(op: AMGOperator, b: torch.Tensor, l: int) -> torch.Tensor:
@@ -86,9 +97,14 @@ def amg_apply(op: AMGOperator, b: torch.Tensor) -> torch.Tensor:
     if op.cluster_corr is None:
         return core(op, b)
     A0 = op.levels[0].A
-    z = cluster_apply(op.cluster_corr, b)
+    cc = op.cluster_corr
+    # a sharded finest level carries its own (parallel/shard.py)
+    corr = getattr(cc, "sharded_apply", None) or (
+        lambda r: cluster_apply(cc, r)
+    )
+    z = corr(b)
     z = z + core(op, b - matvec(A0, z))
-    return z + cluster_apply(op.cluster_corr, b - matvec(A0, z))
+    return z + corr(b - matvec(A0, z))
 
 
 @dataclass(frozen=True)

@@ -27,17 +27,23 @@ class SolveResult(NamedTuple):
     relres: torch.Tensor  # final ||r|| / ||b||
 
 
-def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _dot(a: torch.Tensor, b: torch.Tensor, A=None) -> torch.Tensor:
+    """<a, b>; on a rank of the sharded solve (``A`` the rank's finest
+    level, parallel/shard.py) the sum over the rows of one replica, the
+    same value on every rank."""
+    pl = getattr(A, "placement", None)
+    if pl is not None:
+        return pl.dot(a, b)
     return torch.dot(a.reshape(-1), b.reshape(-1))
 
 
-def _pcg_init(b: torch.Tensor):
+def _pcg_init(b: torch.Tensor, A=None):
     """Trivial PCG start state (the M-apply happens at the top of each
     iteration)."""
     x = torch.zeros_like(b)
     p = torch.zeros_like(b)
     rz = b.new_zeros(())
-    rn = _dot(b, b)
+    rn = _dot(b, b, A)
     k = torch.zeros((), dtype=torch.int32, device=b.device)
     return (x, b, p, rz, rn, k)
 
@@ -49,21 +55,21 @@ def _pcg_step(op: AMGOperator, A, state, tol_abs2: torch.Tensor):
     zero = x.new_zeros(())
     active = rn > tol_abs2
     z = amg_apply(op, r)
-    rz = _dot(r, z)
+    rz = _dot(r, z, A)
     first = k == 0
     beta = torch.where(
         first, zero, rz / torch.where(rz_prev == 0, eps, rz_prev)
     )
     p_new = z + beta * p
     q = matvec(A, p_new)
-    pq = _dot(p_new, q)
+    pq = _dot(p_new, q, A)
     ok = active & (pq > 0) & (rz.abs() > 0)
     alpha = torch.where(ok, rz / torch.where(pq == 0, eps, pq), zero)
     x = x + alpha * p_new
     r = torch.where(ok, r - alpha * q, r)
     p = torch.where(ok, p_new, p)
     rz_prev = torch.where(ok, rz, rz_prev)
-    rn = torch.where(ok, _dot(r, r), rn)
+    rn = torch.where(ok, _dot(r, r, A), rn)
     k = k + ok.to(torch.int32)
     return (x, r, p, rz_prev, rn, k)
 
@@ -77,7 +83,7 @@ def pcg(
     maxiter: int = 200,
 ) -> SolveResult:
     """PCG with the AMG cycle as preconditioner. Zero initial guess."""
-    bnorm2 = float(_dot(b, b))
+    bnorm2 = float(_dot(b, b, A))
     if bnorm2 == 0.0:
         z = torch.zeros_like(b)
         return SolveResult(
@@ -85,7 +91,7 @@ def pcg(
         )
     tol_abs2 = torch.tensor(tol * tol * bnorm2, dtype=b.dtype, device=b.device)
     tol_abs2_host = float(tol_abs2)
-    state = _pcg_init(b)
+    state = _pcg_init(b, A)
     for _ in range(maxiter):
         state = _pcg_step(op, A, state, tol_abs2)
         rn = float(state[4])
@@ -115,17 +121,17 @@ def _pcg_mixed_step(
     tiny = torch.finfo(torch.float64).tiny
     zero = x.new_zeros(())
     active = rn > tol_abs2
-    rnorm = torch.sqrt(torch.clamp(_dot(r, r), min=tiny))
+    rnorm = torch.sqrt(torch.clamp(_dot(r, r, A64), min=tiny))
     z32 = amg_apply(op, (r * (1.0 / rnorm)).to(cycle_dt))
     z = z32.to(torch.float64) * rnorm
-    rz = _dot(r, z)
+    rz = _dot(r, z, A64)
     first = k == 0
     beta = torch.where(
         first, zero, rz / torch.where(rz_prev == 0, tiny, rz_prev)
     )
     p_new = z + beta * p
     q = matvec(A64, p_new)
-    pq = _dot(p_new, q)
+    pq = _dot(p_new, q, A64)
     ok = active & (pq > 0) & (rz.abs() > 0)
     alpha = torch.where(ok, rz / torch.where(pq == 0, tiny, pq), zero)
     x = x + alpha * p_new
@@ -133,7 +139,7 @@ def _pcg_mixed_step(
     p = torch.where(ok, p_new, p)
     rz_prev = torch.where(ok, rz, rz_prev)
     rw = r if w is None else w * r
-    rn = torch.where(ok, _dot(rw, rw), rn)
+    rn = torch.where(ok, _dot(rw, rw, A64), rn)
     k = k + ok.to(torch.int32)
     return (x, r, p, rz_prev, rn, k)
 
@@ -157,7 +163,7 @@ def pcg_mixed(
     :func:`_pcg_mixed_step`.
     """
     wb = b64 if weight is None else b64 * weight
-    bnorm2 = float(_dot(wb, wb))
+    bnorm2 = float(_dot(wb, wb, A64))
     if bnorm2 == 0.0:
         z = torch.zeros_like(b64)
         return SolveResult(
@@ -193,7 +199,7 @@ def _si_step(op: AMGOperator, A, state, tol_abs2: torch.Tensor):
     r_new = r - matvec(A, x_new - x)
     x = torch.where(active, x_new, x)
     r = torch.where(active, r_new, r)
-    rn = torch.where(active, _dot(r, r), rn)
+    rn = torch.where(active, _dot(r, r, A), rn)
     k = k + active.to(torch.int32)
     return (x, r, rn, k)
 
@@ -208,7 +214,7 @@ def amg_iteration(
 ) -> SolveResult:
     """Stationary AMG iteration x <- x + M^-1 (b - A x) (the reference's
     `AMGAsLinearSolver` simple iteration). Zero initial guess."""
-    bnorm2 = float(_dot(b, b))
+    bnorm2 = float(_dot(b, b, A))
     if bnorm2 == 0.0:
         z = torch.zeros_like(b)
         return SolveResult(

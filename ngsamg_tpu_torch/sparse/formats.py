@@ -15,6 +15,9 @@ hierarchies stage (see ``format_from_stencil`` and ``choose_format``):
   explicit transfers. The JAX package computes this matvec in XLA (no
   Pallas kernel), and so does the port, in plain torch: one gather and one
   batched product.
+* :class:`DiaWindow` — a row block of a full-storage DIA matrix over a
+  longer x (a rank's rows of a row-sharded level). Matvec: K2 on the
+  window.
 * :class:`DenseMatrix` — small coarse levels, applied with ``torch.matmul``.
 * :class:`~ngsamg_tpu_torch.sparse.bell.BlockELL` (sparse/bell.py) — block
   (bs > 1) unstructured levels and their transfers.
@@ -29,6 +32,7 @@ it for their scope (precond/amg.py ``_full_f32``).
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -37,6 +41,15 @@ import torch
 
 from ..ops import dia_cuda, stencil_cuda
 from . import bell as _bell
+
+
+def _rebuild(A):
+    """Pickle a format with a launch plan by its constructor's fields: the
+    plan (device tensors, ctypes arguments) is made anew where the level
+    is unpickled (a rank of the sharded solve loading the hierarchy)."""
+    return type(A), tuple(
+        getattr(A, f.name) for f in dataclasses.fields(A) if f.init
+    )
 
 
 @dataclass(frozen=True)
@@ -60,6 +73,32 @@ class DiaMatrix:
 
     def __post_init__(self):
         object.__setattr__(self, "launch", dia_cuda.stage(self))
+
+    def __reduce__(self):
+        return _rebuild(self)
+
+
+@dataclass(frozen=True)
+class DiaWindow:
+    """Rows of a full-storage DIA matrix over a longer x (the rank's row
+    block of a row-sharded level, parallel/shard.py):
+
+        y[i] = sum_d data[d, i] * x[x_base + i + offsets[d]],
+
+    x zero outside [0, x_len). Matvec: K2 on the window."""
+
+    data: torch.Tensor  # (ndiag, nrows)
+    offsets: tuple  # ints, ascending
+    nrows: int
+    x_len: int
+    x_base: int
+    launch: object = field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "launch", dia_cuda.stage(self))
+
+    def __reduce__(self):
+        return _rebuild(self)
 
 
 @dataclass(frozen=True)
@@ -125,6 +164,9 @@ class StencilDia:
     def __post_init__(self):
         object.__setattr__(self, "launch", stencil_cuda.stage(self))
 
+    def __reduce__(self):
+        return _rebuild(self)
+
 
 def _tile_ell_matvec(A: TileELL, x: torch.Tensor) -> torch.Tensor:
     """Gather one column chunk of x per slot, then one (1 x K*C) @
@@ -139,7 +181,7 @@ def _tile_ell_matvec(A: TileELL, x: torch.Tensor) -> torch.Tensor:
 
 def matvec(A, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x for the port's device formats; x: (nrows_pad, bs)."""
-    if isinstance(A, DiaMatrix):
+    if isinstance(A, (DiaMatrix, DiaWindow)):
         return dia_cuda.dia_matvec(A, x)
     if isinstance(A, StencilDia):
         return stencil_cuda.stencil_matvec(A, x)
@@ -163,6 +205,11 @@ def matvec(A, x: torch.Tensor) -> torch.Tensor:
         return lattice_prol_apply(A, x)
     if isinstance(A, LatticeRestriction):
         return lattice_restrict_apply(A, x)
+    # the sharded formats (parallel/shard.py, parallel/halo.py) carry their
+    # own collectives
+    hm = getattr(A, "halo_matvec", None)
+    if hm is not None:
+        return hm(x)
     raise TypeError(type(A))
 
 
@@ -528,7 +575,7 @@ def tile_ell_stack_from_scipy(
     )
 
 
-def plan_reorder(A: sp.spmatrix, bs: int):
+def plan_reorder(A: sp.spmatrix, bs: int, tile_sort: bool = True):
     """Row order for levels headed to tile-ELL: bandwidth-reducing reverse
     Cuthill-McKee, then FULL TILE_M-row tiles sorted by descending
     TILE_CHUNK column-chunk union, so the bucketed tile-ELL packer gets
@@ -538,7 +585,8 @@ def plan_reorder(A: sp.spmatrix, bs: int):
     ordered coarse levels do not. Returns a row permutation, or None for
     levels that will use DIA or dense storage in natural order. The partial
     tail tile stays pinned last (real rows must remain a prefix of every
-    bucket's row range).
+    bucket's row range). ``tile_sort=False`` (levels the sharded solve
+    cuts into row blocks, packed as plain tile-ELL) keeps the RCM order.
     """
     n = A.shape[0] // bs
     if bs != 1 or n <= DENSE_MAX_ROWS:
@@ -552,7 +600,7 @@ def plan_reorder(A: sp.spmatrix, bs: int):
         dtype=np.int64,
     )
     Tfull = n // TILE_M
-    if Tfull < 2:
+    if Tfull < 2 or not tile_sort:
         return rcm
     Ar = A.tocsr()[rcm][:, rcm].tocsr()
     cnt = _tile_chunk_counts(Ar, TILE_CHUNK, Tfull)
@@ -561,12 +609,14 @@ def plan_reorder(A: sp.spmatrix, bs: int):
     return np.concatenate([head, rcm[Tfull * TILE_M:]])
 
 
-def _te_bytes(te: TileELLStack) -> int:
-    """Stored bytes of a tile-ELL stack, counting column indices as int32
-    (the JAX package's layout) so the DIA/tile-ELL choice matches it."""
+def _te_bytes(te) -> int:
+    """Stored bytes of a tile-ELL stack (or plain tile-ELL), counting
+    column indices as int32 (the JAX package's layout) so the DIA/tile-ELL
+    choice matches it."""
+    blocks = te.blocks if isinstance(te, TileELLStack) else (te,)
     return sum(
         b.data.numel() * b.data.element_size() + 4 * b.cols.numel()
-        for b in te.blocks
+        for b in blocks
     )
 
 
@@ -577,6 +627,7 @@ def choose_format(
     row_align: int = 8,
     *,
     device="cpu",
+    stack: bool = True,
 ):
     """Pick the format for one level's matrix.
 
@@ -586,8 +637,20 @@ def choose_format(
     the tile-ELL bytes) when the level has at most ``DIA_MAX_DIAGS``
     diagonals, else tile-ELL; small levels DIA (few diagonals) or dense.
     Block (bs > 1) unstructured levels keep their natural block tiles in
-    block-ELL.
+    block-ELL. ``stack=False`` packs a plain :class:`TileELL` with its rows
+    padded to ``row_align`` in place of the bucketed stack (the JAX
+    package's ``stack_chunk=None``: levels the sharded solve cuts).
     """
+
+    def te_pack():
+        if stack:
+            return tile_ell_stack_from_scipy(A, dtype, device=device)
+        m = max(TILE_M, row_align)
+        return tile_ell_from_scipy(
+            A, dtype, nr_pad=_round_up(A.shape[0], m),
+            nc_pad=_round_up(A.shape[1], row_align), device=device,
+        )
+
     n = A.shape[0] // bs
     # DIA wins over dense whenever the level is a stencil and not tiny
     if bs == 1 and n > 512:
@@ -596,7 +659,7 @@ def choose_format(
             # true stencil level: DIA is gather-free at ~1x fill
             return dia_from_scipy(A, dtype, row_align, device=device)
         if n > DENSE_MAX_ROWS:
-            te = tile_ell_stack_from_scipy(A, dtype, device=device)
+            te = te_pack()
             if nd <= DIA_MAX_DIAGS:
                 n_pad = -(-n // row_align) * row_align
                 dia_bytes = nd * n_pad * np.dtype(dtype).itemsize
@@ -608,7 +671,7 @@ def choose_format(
     if n <= DENSE_MAX_ROWS and (n * bs) ** 2 * 4 <= 512e6:
         return dense_from_scipy(A, bs, dtype, row_align, device=device)
     if bs == 1:
-        return tile_ell_stack_from_scipy(A, dtype, device=device)
+        return te_pack()
     return _bell.from_scipy(
         A, bs, bs, dtype=dtype, row_align=row_align, device=device
     )

@@ -6,8 +6,10 @@ port's rank-local level loop over an ``MPTransport``; the hierarchy must
 be BITWISE-equal to the port's single-controller ``dist_setup_levels``
 and to the JAX package's (run on its numpy branches, as in
 tests/test_torch_dist_setup.py). The ranks are numpy processes started
-with ``CUDA_VISIBLE_DEVICES=""``. The two Stokes entry points are not
-ported (ROADMAP item 8c) and raise.
+with ``CUDA_VISIBLE_DEVICES=""``. The two Stokes entry points (Stokes
+dual mesh, scalar and vector facet dofs, and HDiv) are held bitwise to
+the port's single-controller ``dist_stokes`` setups, as
+tests/test_mp_setup.py holds the JAX package's.
 """
 
 import contextlib
@@ -200,12 +202,127 @@ def test_mp_setup_solves():
     assert info.converged and r < 1e-7, (info.iterations, r)
 
 
+def _stokes_pc(p, opts):
+    from ngsamg_tpu_torch.precond.stokes import StokesAMG
+
+    return StokesAMG(
+        p.A, cell_pos=p.cell_pos, cell_vol=p.cell_vol,
+        facet_cells=p.facet_cells, facet_flow=p.facet_flow, options=opts,
+        device="cpu",
+    ).setup()
+
+
+def _hdiv_pc(p, counts, V, opts):
+    from ngsamg_tpu_torch.precond.stokes import StokesHDivAMG
+
+    return StokesHDivAMG(
+        p.A, cell_pos=p.cell_pos, cell_vol=p.cell_vol,
+        facet_cells=p.facet_cells, facet_flow=p.facet_flow,
+        facet_dof_counts=counts, preserved=V, options=opts, device="cpu",
+    ).setup()
+
+
+def _stokes_equal(s_levels, m_levels):
+    assert len(s_levels) == len(m_levels) >= 2
+    for i, (sl, ml) in enumerate(zip(s_levels, m_levels)):
+        assert abs(sl.A - ml.A).max() == 0.0, f"L{i}"
+        assert sl.mesh.nv == ml.mesh.nv and sl.mesh.ne == ml.mesh.ne
+        np.testing.assert_array_equal(sl.mesh.edges, ml.mesh.edges)
+        np.testing.assert_array_equal(
+            sl.mesh.edge_data["flow"], ml.mesh.edge_data["flow"]
+        )
+        if sl.P is not None or ml.P is not None:
+            assert abs(sl.P - ml.P).max() == 0.0, f"P L{i}"
+            np.testing.assert_array_equal(sl.v2agg, ml.v2agg)
+        if sl.C is not None or ml.C is not None:
+            assert abs(sl.C - ml.C).max() == 0.0, f"C L{i}"
+
+
+def _hdiv_equal(s_levels, m_levels):
+    assert len(s_levels) == len(m_levels) >= 2
+    for i, (sl, ml) in enumerate(zip(s_levels, m_levels)):
+        np.testing.assert_array_equal(sl.dofs.offsets, ml.dofs.offsets)
+        assert abs(sl.A - ml.A).max() == 0.0, f"L{i}"
+        np.testing.assert_array_equal(sl.pres.vectors, ml.pres.vectors)
+        if sl.P is not None or ml.P is not None:
+            assert abs(sl.P - ml.P).max() == 0.0, f"P L{i}"
+            np.testing.assert_array_equal(sl.v2agg, ml.v2agg)
+
+
 def test_mp_stokes_entry_points_name_item_8c():
-    """The distributed Stokes setups (`dist_stokes.py`) are not ported."""
-    with pytest.raises(NotImplementedError, match="item 8c"):
-        mp_runtime.mp_dist_stokes_levels(None, None, 1, None, 3)
-    with pytest.raises(NotImplementedError, match="item 8c"):
-        mp_runtime.mp_dist_stokes_hdiv_levels(None, None, None, None, None, 3)
+    """The two distributed Stokes entry points (ROADMAP item 8c) run on
+    two ranks, the default smoothed prolongation included, and equal the
+    single controller."""
+    from ngsamg_tpu_torch.parallel import dist_stokes as tdst
+    from ngsamg_tpu_torch.utils import stokes_fem as tsf
+
+    p, _ = tsf.stokes_tri(6, dim=2, alpha=10.0)
+    opts = ngsamg_tpu_torch.AMGOptions()
+    opts.levels.max_coarse_size = 30
+    pc = _stokes_pc(p, opts)
+    s_levels = tdst.dist_stokes_levels(pc.A_host, pc.mesh0, 1, opts, 2)
+    m_levels, m_log = mp_runtime.mp_dist_stokes_levels(
+        pc.A_host, pc.mesh0, 1, opts, 2
+    )
+    _stokes_equal(s_levels, m_levels)
+    assert len(m_log.mp_rank_stats) == 2
+    p, counts, V = tsf.stokes_tri_hdiv(6, dim=2, alpha=10.0)
+    o = ngsamg_tpu_torch.AMGOptions()
+    o.levels.max_coarse_size = 60
+    pc = _hdiv_pc(p, counts, V, o)
+    s_levels = tdst.dist_stokes_hdiv_levels(
+        pc.A_host, pc.mesh0, pc.dofs0, pc.pres0, o, 2
+    )
+    m_levels, _ = mp_runtime.mp_dist_stokes_hdiv_levels(
+        pc.A_host, pc.mesh0, pc.dofs0, pc.pres0, o, 2
+    )
+    _hdiv_equal(s_levels, m_levels)
+
+
+@pytest.mark.parametrize("bs", [1, 2])
+def test_mp_stokes_equals_single_controller(bs):
+    """tests/test_mp_setup.py's Stokes case: the dual-mesh level loop one
+    process per rank, per-rank cell/facet slices only, equal to the single
+    controller (operators, prolongations, loop basis)."""
+    from ngsamg_tpu_torch.config import ProlType
+    from ngsamg_tpu_torch.parallel import dist_stokes as tdst
+    from ngsamg_tpu_torch.utils import stokes_fem as tsf
+
+    if bs == 1:
+        p, _ = tsf.stokes_tri(10, dim=2, alpha=10.0)
+    else:
+        p, _ = tsf.stokes_cr(8, alpha=10.0)
+    opts = ngsamg_tpu_torch.AMGOptions()
+    opts.levels.max_coarse_size = 60
+    opts.prol.type = ngsamg_tpu_torch.SpecOpt(ProlType.PIECEWISE)
+    pc = _stokes_pc(p, opts)
+    s_levels = tdst.dist_stokes_levels(pc.A_host, pc.mesh0, bs, opts, 3)
+    m_levels, m_log = mp_runtime.mp_dist_stokes_levels(
+        pc.A_host, pc.mesh0, bs, opts, 3
+    )
+    assert m_log.peak_shard_bytes > 0
+    assert len(m_log.mp_rank_stats) == 3
+    _stokes_equal(s_levels, m_levels)
+
+
+def test_mp_stokes_hdiv_equals_single_controller():
+    """tests/test_mp_setup.py's HDiv case: the preserved-vector level loop
+    one process per rank, equal to the single controller."""
+    from ngsamg_tpu_torch.parallel import dist_stokes as tdst
+    from ngsamg_tpu_torch.utils import stokes_fem as tsf
+
+    p, counts, V = tsf.stokes_tri_hdiv(8, dim=2, alpha=10.0)
+    o = ngsamg_tpu_torch.AMGOptions()
+    o.levels.max_coarse_size = 120
+    pc = _hdiv_pc(p, counts, V, o)
+    s_levels = tdst.dist_stokes_hdiv_levels(
+        pc.A_host, pc.mesh0, pc.dofs0, pc.pres0, o, 3
+    )
+    m_levels, m_log = mp_runtime.mp_dist_stokes_hdiv_levels(
+        pc.A_host, pc.mesh0, pc.dofs0, pc.pres0, o, 3
+    )
+    assert m_log.peak_shard_bytes > 0
+    _hdiv_equal(s_levels, m_levels)
 
 
 def test_mp_ranks_take_host_data_only():

@@ -9,7 +9,9 @@ options (multicolor GS), a 3D elasticity one (block energies,
 block-ELL, the mixed-precision PCG), a Stokes one (dual-mesh facet
 AMG with geometric loops and Hiptmair smoothing), an unstructured one
 through the host-distributed setup (``dist_setup=4``) and a lattice one
-through ``api.h1_scal`` — and check that neither
+through ``api.h1_scal``, a Stokes one through the distributed Stokes
+setup (``dist_setup=2``) and a sharded solve in a spawned world of two
+gloo ranks, whose ranks report their own modules — and check that neither
 `jax` nor `ngsamg_tpu` (its native extension included) was ever imported.
 """
 
@@ -46,7 +48,9 @@ SCRIPT = textwrap.dedent(
                  "smoothers.hiptmair", "precond.stokes",
                  "parallel.transport", "parallel.dist_setup",
                  "parallel.dist_elast", "parallel.mp_runtime",
-                 "utils.timers", "api"):
+                 "utils.timers", "api", "parallel.world",
+                 "parallel.shard", "parallel.halo",
+                 "parallel.sharded_run", "parallel.dist_stokes"):
         assert "ngsamg_tpu_torch." + name in mods, name
 
     p = fem.poisson_3d(34)  # 35,937 DoF: the uniform-stencil branches
@@ -120,6 +124,34 @@ SCRIPT = textwrap.dedent(
                       device="cpu")
     xa, infoa = pca.solve(g.b, tol=1e-8)
     assert infoa.converged and pca.GetNLevels() == pca.num_levels
+    sd, _n = stokes_tri(8, dim=2)  # the distributed Stokes setup
+    sdo = ngsamg_tpu_torch.AMGOptions(dist_setup=2)
+    sdo.levels.max_coarse_size = 40
+    pcsd = StokesAMG(
+        sd.A, cell_pos=sd.cell_pos, cell_vol=sd.cell_vol,
+        facet_cells=sd.facet_cells, facet_flow=sd.facet_flow,
+        options=sdo, device="cpu",
+    ).setup()
+    xsd, infosd = pcsd.solve(sd.b, tol=1e-8)
+    assert infosd.converged and pcsd.num_levels >= 2
+    # the sharded solve in a spawned world of two gloo ranks
+    from ngsamg_tpu_torch.parallel.sharded_run import spawn_tasks
+    from ngsamg_tpu_torch.sparse.formats import block_vec
+
+    h = fem.poisson_3d(12)
+    pch = ngsamg_tpu_torch.AMGPreconditioner(
+        h.A, coords=h.coords, device="cpu",
+        options=ngsamg_tpu_torch.AMGOptions(shards=2, smoother=opts.smoother),
+    ).setup()
+    bh = block_vec(h.b, 1, pch.A_dev.nrows_pad, torch.float32).numpy()
+    ranks, sol = spawn_tasks(
+        [{"kind": "import_check"},
+         {"kind": "pcg", "op": pch.op, "b": bh, "tol": 1e-5,
+          "shard": {"replicate_below": 100}}],
+        2, backend="gloo", device="cpu", timeout=120,
+    )
+    assert not ranks["jax"] and not ranks["ngsamg_tpu"], ranks
+    assert sol["counts"][0] == 2 and sol["relres"] < 1e-5, sol["counts"]
     bad = sorted(
         m for m in sys.modules
         if m in ("jax", "jaxlib", "ngsamg_tpu")
@@ -128,7 +160,7 @@ SCRIPT = textwrap.dedent(
     assert not bad, bad
     print("OK", info.iterations, infou.iterations, infog.iterations,
           infoe.iterations, infos.iterations, infod.iterations,
-          infoa.iterations)
+          infoa.iterations, infosd.iterations, sol["iterations"])
     """
 )
 

@@ -310,22 +310,31 @@ def test_missing_names():
     [("shards", 4, "item 8"), ("dist_setup", 4, "item 8")],
 )
 def test_unported_options_raise(field, value, item):
-    """Sharding (ROADMAP item 8b) is not ported: asking for it raises
-    instead of running a plain single-device setup. The host-distributed
-    setup (item 8a) is ported: it raises no more and builds the hierarchy
-    on ``value`` shards (tests/test_torch_dist_setup.py holds it to the
-    JAX package)."""
+    """The options of ROADMAP item 8 run: ``shards`` (8b) stages the
+    JAX package's padded hierarchy on one device (every level a multiple
+    of 8 * shards rows, no bucketed tile-ELL), which the sharded solve
+    places (tests/test_torch_parallel.py); the host-distributed setup
+    (8a) builds the hierarchy on ``value`` shards
+    (tests/test_torch_dist_setup.py holds it to the JAX package)."""
     p = tfem.poisson_3d(12)
     opts = _cheb(ngsamg_tpu_torch).replace(**{field: value})
-    if field == "shards":
-        with pytest.raises(NotImplementedError, match=f"{field}: .*{item}b"):
-            ngsamg_tpu_torch.AMGPreconditioner(
-                p.A, coords=p.coords, options=opts, device="cpu"
-            )
-        return
     pc = ngsamg_tpu_torch.AMGPreconditioner(
         p.A, coords=p.coords, options=opts, device="cpu"
     ).setup()
+    if field == "shards":
+        pj = ngsamg_tpu.AMGPreconditioner(
+            p.A, coords=p.coords,
+            options=_cheb(ngsamg_tpu).replace(**{field: value}),
+        ).setup()
+        pads = [lev.A.nrows_pad for lev in pc.op.levels]
+        assert pads == [lev.A.nrows_pad for lev in pj.op.levels], item
+        assert all(n % (8 * value) == 0 for n in pads), pads
+        assert [type(lev.A).__name__ for lev in pc.op.levels] == [
+            type(lev.A).__name__ for lev in pj.op.levels
+        ]
+        x, info = pc.solve(p.b, tol=1e-8)
+        assert info.converged
+        return
     assert pc.log_.shards_per_level[0] == value
     assert pc.log_.peak_shard_bytes > 0
 

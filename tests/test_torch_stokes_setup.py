@@ -591,25 +591,42 @@ def test_hiptmair_staging_and_cast():
 
 
 def test_dist_setup_names_item_8c():
-    """``dist_setup > 1``: the JAX package's distributed Stokes setup is
-    not ported; off a lattice it raises and names ROADMAP item 8c, on a
-    lattice the serial path runs, as in the JAX package."""
+    """``dist_setup > 1`` (ROADMAP item 8c): off a lattice the StokesAMG
+    and StokesHDivAMG hierarchies come from the distributed Stokes setup
+    (parallel/dist_stokes.py) and solve; on a lattice the serial path
+    runs, as in the JAX package."""
+    from ngsamg_tpu_torch.parallel import dist_stokes as tdst
+
     p, _ = tsf.stokes_tri(6, dim=2)
     opts = ngsamg_tpu_torch.AMGOptions(dist_setup=2)
-    with pytest.raises(NotImplementedError, match="8c"):
-        tpre.StokesAMG(
-            p.A, cell_pos=p.cell_pos, cell_vol=p.cell_vol,
-            facet_cells=p.facet_cells, facet_flow=p.facet_flow,
-            options=opts, device="cpu",
-        ).setup()
+    opts.levels.max_coarse_size = 30
+    pc = tpre.StokesAMG(
+        p.A, cell_pos=p.cell_pos, cell_vol=p.cell_vol,
+        facet_cells=p.facet_cells, facet_flow=p.facet_flow,
+        options=opts, device="cpu",
+    ).setup()
+    ref = tdst.dist_stokes_levels(pc.A_host, pc.mesh0, 1, opts, 2)
+    assert pc.num_levels == len(ref) >= 2
+    for lev, r in zip(pc.setup_levels_, ref):
+        assert abs(lev.A - r.A).max() == 0.0
+    assert pc.log_.peak_shard_bytes > 0
+    x, info = pc.solve(p.b, tol=1e-8, maxiter=100)
+    assert info.converged
     ph, counts, V = tsf.stokes_tri_hdiv(6)
-    with pytest.raises(NotImplementedError, match="8c"):
-        tpre.StokesHDivAMG(
-            ph.A, cell_pos=ph.cell_pos, cell_vol=ph.cell_vol,
-            facet_cells=ph.facet_cells, facet_flow=ph.facet_flow,
-            facet_dof_counts=counts, preserved=V, options=opts,
-            device="cpu",
-        ).setup()
+    ph_pc = tpre.StokesHDivAMG(
+        ph.A, cell_pos=ph.cell_pos, cell_vol=ph.cell_vol,
+        facet_cells=ph.facet_cells, facet_flow=ph.facet_flow,
+        facet_dof_counts=counts, preserved=V, options=opts,
+        device="cpu",
+    ).setup()
+    ref = tdst.dist_stokes_hdiv_levels(
+        ph_pc.A_host, ph_pc.mesh0, ph_pc.dofs0, ph_pc.pres0, opts, 2
+    )
+    assert ph_pc.num_levels == len(ref) >= 2
+    for lev, r in zip(ph_pc.setup_levels_, ref):
+        assert abs(lev.A - r.A).max() == 0.0
+    x, info = ph_pc.solve(ph.b, tol=1e-8, maxiter=200)
+    assert info.converged
     _p, pc = _tiny_stokes(dist_setup=2)
     assert pc.setup().num_levels >= 2
 
