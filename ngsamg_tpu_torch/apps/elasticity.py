@@ -1,11 +1,15 @@
 """Elasticity AMG energy (2D: 3 DOFs/vertex, 3D: 6 DOFs/vertex).
 
-Copied from ngsamg_tpu/apps/elasticity.py, numpy branches only: where the
-original first asks its native extension (``frob2_sym``, ``elast_ahat_bsr``,
-``rigid_edge_blocks``, ``bsr_from_edge_blocks``, ``elast_rm_diag``,
-``harmonic_mean_sym``, ``elast_soc_robust``, ``elast_map_edge_mats``,
-``pencil_extreme_eig``) this copy runs the numpy code beside it. The device
-pencil solver of ``_pencil_extreme_eig`` (ops/batched_la.py, behind
+Copied from ngsamg_tpu/apps/elasticity.py with its native branches: as
+there, each step first asks the native extension (``frob2_sym``,
+``elast_ahat_bsr``, ``rigid_edge_blocks``, ``bsr_from_edge_blocks``,
+``elast_rm_diag``, ``harmonic_mean_sym``, ``elast_soc_robust``,
+``elast_map_edge_mats``, ``pencil_extreme_eig``; ``ngsamg_tpu_torch.native``)
+and runs the numpy code beside it where ``native.HAVE_NATIVE`` is off. The
+native robust SOC is a Jacobi eigensolver, so it can order near-ties
+differently from numpy's ``eigh``: the two switch settings build slightly
+different hierarchies, each the JAX package's under the same setting. The
+device pencil solver of ``_pencil_extreme_eig`` (ops/batched_la.py, behind
 ``DEVICE_SOC_MIN_EDGES``, off by default as in the JAX package) runs on the
 energy's ``device``, which the preconditioner sets to its own; a failure
 there raises.
@@ -36,6 +40,7 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse as sp
 
+from .. import native
 from ..mesh.topo import AlgebraicMesh, scatter_add
 from ..sparse.host import to_bsr
 from .base import Energy
@@ -50,6 +55,9 @@ def _frob2T(B: np.ndarray) -> np.ndarray:
     bitwise-identical weights. Required for the distributed setup's
     serial-equality guarantee.
     """
+    nat = native.frob2_sym(B) if B.ndim == 3 else None
+    if nat is not None:
+        return nat
     sq = B * B
     d = np.einsum("...ii->...i", sq).sum(axis=-1)
     s = sq + np.swapaxes(sq, -1, -2)  # commutative add: transpose-invariant
@@ -79,6 +87,7 @@ class ElasticityEnergy(Energy):
     """
 
     default_robust = True  # ENABLE_ROBUST_ELASTICITY_COARSENING analog
+    transport_kind = "rigid"  # native truncate_prol kernel dispatch
 
     def __init__(self, dim: int, rot_scale: float | str = "auto",
                  device=None):
@@ -237,6 +246,15 @@ class ElasticityEnergy(Energy):
         Edge (i,j), midpoint m: K_e = w_e * [Qim, -Qjm]^T [Qim, -Qjm]
         (the reference's `CalcRMBlock`) + vertex-weight * identity on displacement DOFs.
         """
+        fused = native.elast_ahat_bsr(
+            mesh.vertex_data["pos"], mesh.edges, mesh.edge_data["mat"],
+            self._s, mesh.vertex_data["l2wt"],
+        )
+        if fused is not None:
+            # rigid edge blocks scattered straight into sorted BSR, no
+            # (ne, dpv, dpv) temporaries (bitwise equal to the
+            # rigid_edge_blocks + bsr_from_edge_blocks pipeline below)
+            return fused
         nv, dpv = mesh.nv, self.dpv
         i, j = mesh.edges[:, 0], mesh.edges[:, 1]
         Bii, Bij, Bji, Bjj = self._edge_rm_blocks(mesh)
@@ -245,6 +263,9 @@ class ElasticityEnergy(Energy):
         Dv = np.zeros((nv, dpv, dpv))
         idx = np.arange(self.dim)
         Dv[:, idx, idx] = vwt[:, None]
+        nat = native.bsr_from_edge_blocks(mesh.edges, Bii, Bij, Bji, Bjj, Dv)
+        if nat is not None:
+            return nat
         rows = np.concatenate([i, j, i, j, np.arange(nv)])
         cols = np.concatenate([i, j, j, i, np.arange(nv)])
         blocks = np.concatenate([Bii, Bjj, Bij, Bji, Dv], axis=0)
@@ -271,6 +292,12 @@ class ElasticityEnergy(Energy):
         [ -Qjm^T E Qim   Qjm^T E Qjm ]   with E the edge matrix at the
         midpoint frame and Qim/Qjm the half transports.
         """
+        nat = native.rigid_edge_blocks(
+            mesh.vertex_data["pos"], mesh.edges,
+            mesh.edge_data["mat"], self._s,
+        )
+        if nat is not None:
+            return nat
         pos = mesh.vertex_data["pos"]
         i, j = mesh.edges[:, 0], mesh.edges[:, 1]
         E = mesh.edge_data["mat"]
@@ -290,10 +317,15 @@ class ElasticityEnergy(Energy):
     def aux_diagonal(self, mesh: AlgebraicMesh) -> np.ndarray:
         """(nv, dpv, dpv) diagonal of the replacement matrix."""
         nv, dpv = mesh.nv, self.dpv
-        Bii, _Bij, _Bji, Bjj = self._edge_rm_blocks(mesh)
-        D = np.zeros((nv, dpv, dpv))
-        np.add.at(D, mesh.edges[:, 0], Bii)
-        np.add.at(D, mesh.edges[:, 1], Bjj)
+        D = native.elast_rm_diag(
+            mesh.vertex_data["pos"], mesh.edges,
+            mesh.edge_data["mat"], self._s,
+        )
+        if D is None:
+            Bii, _Bij, _Bji, Bjj = self._edge_rm_blocks(mesh)
+            D = np.zeros((nv, dpv, dpv))
+            np.add.at(D, mesh.edges[:, 0], Bii)
+            np.add.at(D, mesh.edges[:, 1], Bjj)
         idx = np.arange(self.dim)
         D[:, idx, idx] += mesh.vertex_data["l2wt"][:, None]
         stab = mesh.vertex_data.get("stab")
@@ -373,9 +405,11 @@ class ElasticityEnergy(Energy):
 
         A = to_frame(e_ik, pos[kk])
         B = to_frame(e_jk, pos[kk])
-        Sinv = np.linalg.pinv(A + B, rcond=1e-10, hermitian=True)
-        T = A @ Sinv @ B
-        T = 0.5 * (T + np.transpose(T, (0, 2, 1)))
+        T = native.harmonic_mean_sym(A, B, rcond=1e-10)
+        if T is None:
+            Sinv = np.linalg.pinv(A + B, rcond=1e-10, hermitian=True)
+            T = A @ Sinv @ B
+            T = 0.5 * (T + np.transpose(T, (0, 2, 1)))
         mid_t = 0.5 * (pos[e[eid_t, 0]] + pos[e[eid_t, 1]])
         Qm = self.transport(mid_t, pos[kk])
         boost = np.swapaxes(Qm, -1, -2) @ (T @ Qm)
@@ -392,7 +426,10 @@ class ElasticityEnergy(Energy):
         midpoint frame), C = harmonic mean d_i (d_i + d_j)^+ d_j of the
         transported aux diagonals; strength = the extreme eigenvalue of the
         pencil (E, C) restricted to range(C). All edges solve as one batched
-        eigendecomposition (numpy LAPACK).
+        eigendecomposition (numpy LAPACK), or one fused native pass per
+        edge (``elast_soc_robust``: transports, series energy and a Jacobi
+        pencil eigensolver) where the batch is below
+        ``DEVICE_SOC_MIN_EDGES``.
 
         Deviation: the default reduction is "max" — the finest-level edge
         matrices are rank-1 tangential projections, for which the
@@ -420,15 +457,31 @@ class ElasticityEnergy(Energy):
                 sub = np.flatnonzero(sub)
             edges = edges[sub]
             E = E[sub]
+        out_sub = None
+        if len(E) < DEVICE_SOC_MIN_EDGES:
+            out_sub = native.elast_soc_robust(
+                pos, edges, E, D, self._s,
+                tol=1e-10, reduction=reduction,
+            )
+        if out_sub is not None:
+            if edge_subset is None:
+                return out_sub
+            out = np.zeros(ne_full)
+            out[sub] = out_sub
+            return out
         i, j = edges[:, 0], edges[:, 1]
         mid = 0.5 * (pos[i] + pos[j])
         Qmi = self.transport(mid, pos[i])  # coeff at m -> coeff at i
         Qmj = self.transport(mid, pos[j])
         di = np.swapaxes(Qmi, -1, -2) @ (D[i] @ Qmi)
         dj = np.swapaxes(Qmj, -1, -2) @ (D[j] @ Qmj)
-        dsum_inv = np.linalg.pinv(di + dj, rcond=1e-12, hermitian=True)
-        C = di @ dsum_inv @ dj
-        C = 0.5 * (C + np.transpose(C, (0, 2, 1)))
+        C = native.harmonic_mean_sym(di, dj, rcond=1e-12)
+        if C is None:
+            dsum_inv = np.linalg.pinv(
+                di + dj, rcond=1e-12, hermitian=True
+            )
+            C = di @ dsum_inv @ dj
+            C = 0.5 * (C + np.transpose(C, (0, 2, 1)))
         res = _pencil_extreme_eig(E, C, reduction=reduction,
                                   device=self.device)
         if edge_subset is None:
@@ -468,17 +521,22 @@ class ElasticityEnergy(Energy):
 
         dpv = self.dpv
         if m.any():
-            fi, fj = mesh.edges[m, 0], mesh.edges[m, 1]
-            mid_f = 0.5 * (pos[fi] + pos[fj])
-            ce = e2ce[m]
-            mid_c = 0.5 * (
-                cpos[coarse_edges[ce, 0]] + cpos[coarse_edges[ce, 1]]
+            Ec = native.elast_map_edge_mats(
+                pos, cpos, mesh.edges[m], e2ce[m], coarse_edges,
+                mesh.edge_data["mat"][m], self._s,
             )
-            # coeff at m_c -> coeff at m_f
-            Q = self.transport(mid_c, mid_f)
-            Ef = mesh.edge_data["mat"][m]
-            Et = np.swapaxes(Q, -1, -2) @ (Ef @ Q)
-            Ec = scatter_add(ce, Et, len(coarse_edges))
+            if Ec is None:
+                fi, fj = mesh.edges[m, 0], mesh.edges[m, 1]
+                mid_f = 0.5 * (pos[fi] + pos[fj])
+                ce = e2ce[m]
+                mid_c = 0.5 * (
+                    cpos[coarse_edges[ce, 0]] + cpos[coarse_edges[ce, 1]]
+                )
+                # coeff at m_c -> coeff at m_f
+                Q = self.transport(mid_c, mid_f)
+                Ef = mesh.edge_data["mat"][m]
+                Et = np.swapaxes(Q, -1, -2) @ (Ef @ Q)
+                Ec = scatter_add(ce, Et, len(coarse_edges))
         else:
             Ec = np.zeros((len(coarse_edges), dpv, dpv))
         cmesh.edge_data["mat"] = Ec
@@ -525,7 +583,9 @@ def _pencil_extreme_eig(E, C, reduction="min", tol=1e-10, device=None):
     min (or max) eigenvalue; null directions of C get a +/-inf sentinel on
     the diagonal so they never win. Batches of ``DEVICE_SOC_MIN_EDGES`` or
     more run in f32 on ``device`` (SOC scores only order candidates) and
-    raise there on failure; the rest in f64 numpy.
+    raise there on failure; the rest in the native Jacobi kernel
+    (``pencil_extreme_eig``), or in f64 numpy with ``native.HAVE_NATIVE``
+    off.
     """
     if len(E) >= DEVICE_SOC_MIN_EDGES:
         import torch
@@ -544,6 +604,9 @@ def _pencil_extreme_eig(E, C, reduction="min", tol=1e-10, device=None):
             reduction=reduction,
         )
         return out.cpu().numpy().astype(np.float64)
+    out = native.pencil_extreme_eig(E, C, tol=tol, reduction=reduction)
+    if out is not None:
+        return out
     lam, V = np.linalg.eigh(C)
     lam_max = np.maximum(lam[:, -1:], 1e-300)
     ok = lam > tol * lam_max

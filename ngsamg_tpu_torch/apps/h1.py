@@ -29,6 +29,8 @@ from .base import Energy
 
 
 class H1Energy(Energy):
+    transport_kind = "identity"  # native truncate_prol kernel dispatch
+
     def __init__(self, bs: int = 1):
         self.bs = bs
         self.dpv = bs

@@ -17,8 +17,9 @@ the reference's `BaseAMGFactory::SetUpLevels` / `VertexAMGFactory`
      aggregation.
 
 Block energies fold the finest-level embedding into P and take the block
-RAP on scipy's BSR products. Element-matrix (ELMAT) finest meshes are not
-ported (the front-end rejects ``elmat_data``). numpy/scipy only.
+RAP in the native fused kernel (``native.rap_bsr``), or with
+``native.HAVE_NATIVE`` off on scipy's BSR products. Element-matrix (ELMAT) finest meshes are not
+ported (the front-end rejects ``elmat_data``).
 """
 
 from __future__ import annotations
@@ -35,9 +36,11 @@ from ..config import (
     ProlType,
     SmootherType,
 )
+from .. import native
 from ..apps.base import Energy
 from ..coarsen import pairwise
 from ..mesh.topo import AlgebraicMesh, map_edges
+from ..sparse.host import to_bsr
 from ..transfer.galerkin import rap
 from ..transfer.prolongation import piecewise_prol, smoothed_prol
 
@@ -562,13 +565,28 @@ def setup_levels(
         # casts to the solve dtype afterwards (an f32 RAP fuzzes exact
         # coarse null modes to ~1e-7, and the 3D-elasticity coarsest
         # matrix then takes a garbage Cholesky inverse)
+        Ac = None
         if energy.dpv > 1 and sp.issparse(P) and P.format == "bsr" \
                 and P.blocksize == (cur.row_bs, energy.dpv):
-            Ac = rap(
-                cur.A, P, dtype=np.float64, bs_r=cur.row_bs,
-                bs_c=energy.dpv,
-            )
-        else:
+            # fused conversion-free block RAP on the cached BSR view of A;
+            # the coarse BSR is seeded into the coarse CSR's cache, so the
+            # block consumers downstream skip csr -> bsr
+            A_b = to_bsr(cur.A, cur.row_bs)
+            Ac_b = native.rap_bsr(A_b, P)
+            if Ac_b is not None:
+                Ac = Ac_b.tocsr()
+                # block storage keeps explicit zeros inside blocks (e.g.
+                # the diagonal kron blocks of vector H1); the scalar route
+                # never stores them
+                Ac.eliminate_zeros()
+                Ac.has_canonical_format = True
+                Ac._amg_bsr_cache = (energy.dpv, Ac_b)
+            else:
+                Ac = rap(
+                    cur.A, P, dtype=np.float64, bs_r=cur.row_bs,
+                    bs_c=energy.dpv,
+                )
+        if Ac is None:
             Ac = rap(cur.A, P, dtype=np.float64)
         cur.P = P
         cur.v2agg = v2agg

@@ -1,8 +1,10 @@
 """Distributed (shard-local) AMG setup for block (elasticity) energies.
 
-Copied from ngsamg_tpu/parallel/dist_elast.py (numpy/scipy only; the
-pencil eigenvalues run ``apps/elasticity._pencil_extreme_eig``'s numpy
-branch). Extends the scalar/vector-H1 distributed setup
+Copied from ngsamg_tpu/parallel/dist_elast.py. As there, it reaches the
+native setup kernels through the host copies it calls (the pencil
+eigenvalues of ``apps/elasticity._pencil_extreme_eig``, ``_frob2T``,
+``transfer/prolongation.truncate_prol``), which take their numpy branches
+with ``native.HAVE_NATIVE`` off. Extends the scalar/vector-H1 distributed setup
 (parallel/dist_setup.py) to energies with non-identity rigid-body
 transports — the counterpart of the reference's distributed elasticity
 stack: EQC-consistent

@@ -22,6 +22,11 @@ row slice, and runs the SAME rank-local level loop
 over OS pipes. The workers are numpy ranks: they start with
 ``CUDA_VISIBLE_DEVICES=""`` so none of them creates a CUDA context.
 
+The host setup's native kernels (``ngsamg_tpu_torch.native``) are built by
+the parent before it spawns, so no rank compiles, and each rank takes the
+parent's ``native.HAVE_NATIVE`` from its task (not the module default).
+Each rank's native call counts come back in ``log.mp_rank_stats``.
+
 SPMD contract: every rank executes an identical sequence of transport
 calls (the setup's loops iterate ``transport.my_shards`` = this rank's
 one shard; all data-dependent control flow branches on replicated
@@ -254,10 +259,14 @@ class MPTransport(Transport):
 # ---------------------------------------------------------------------------
 
 
-def _rank_levels(rank, n, tr, payload, starts, energy, opts):
-    """One rank's level loop under transport ``tr``: its own rows only.
-    Returns (per-level records, log statistics, finest-level extras)."""
+def _rank_levels(rank, n, tr, payload, starts, energy, opts, have_native):
+    """One rank's level loop under transport ``tr``: its own rows only,
+    with the caller's native switch ``have_native``. Returns (per-level
+    records, log statistics, finest-level extras)."""
+    from .. import native
     from .transport import use_transport
+
+    native.HAVE_NATIVE = have_native
 
     with use_transport(tr):
         if isinstance(payload, dict) and "stokes_hdiv" in payload:
@@ -419,16 +428,21 @@ def _rank_levels(rank, n, tr, payload, starts, energy, opts):
         "shards_per_level": log.shards_per_level,
         "transport_calls": tr.calls,
         "moved_bytes": tr.moved_bytes,
+        "native_calls": {
+            k: dict(v) for k, v in native.CALLS.items()
+            if v["native"] or v["declined"]
+        },
     }, extra
 
 
-def _mp_worker(rank, n, conns, parent, payload, starts, energy, opts):
+def _mp_worker(rank, n, conns, parent, payload, starts, energy, opts,
+               have_native):
     """One rank of the pipe mesh."""
     try:
         tr = MPTransport(rank, n, conns)
         parent.send(
             ("ok",) + _rank_levels(rank, n, tr, payload, starts, energy,
-                                   opts)
+                                   opts, have_native)
         )
     except Exception as e:  # surface the rank's failure to the parent
         import traceback
@@ -438,7 +452,7 @@ def _mp_worker(rank, n, conns, parent, payload, starts, energy, opts):
         parent.close()
 
 
-def _collective_rank(mesh, parts, starts, energy, opts):
+def _collective_rank(mesh, parts, starts, energy, opts, have_native):
     """One rank of a ``torch.distributed`` world: the level loop over a
     :class:`~.transport.CollectiveTransport`; rank 0 returns every rank's
     result (collected as pickled objects, not through the transport)."""
@@ -448,7 +462,7 @@ def _collective_rank(mesh, parts, starts, energy, opts):
 
     tr = CollectiveTransport(mesh)
     res = _rank_levels(mesh.rank, mesh.size, tr, parts[mesh.rank], starts,
-                       energy, opts)
+                       energy, opts, have_native)
     got = [None] * mesh.size if mesh.rank == 0 else None
     dist.gather_object(res, got, dst=0)
     return got
@@ -483,6 +497,11 @@ def _mp_spawn_collect(parts, starts, energy, opts, n_ranks, timeout,
     world of ``backend`` whose exchanges run on ``device``."""
     import multiprocessing as mp
 
+    from .. import native
+
+    have_native = native.HAVE_NATIVE
+    if have_native:
+        native.extension()  # build it here, so that no rank compiles
     if transport == "collective":
         if backend is None or device is None:
             raise ValueError(
@@ -493,7 +512,8 @@ def _mp_spawn_collect(parts, starts, energy, opts, n_ranks, timeout,
 
         return spawn_world(
             _collective_rank, n_ranks, backend=backend, device=device,
-            args=(parts, starts, energy, opts), timeout=timeout,
+            args=(parts, starts, energy, opts, have_native),
+            timeout=timeout,
         )
     if transport != "pipes":
         raise ValueError(f"unknown transport {transport!r}")
@@ -524,7 +544,7 @@ def _mp_spawn_collect(parts, starts, energy, opts, n_ranks, timeout,
             p = ctx.Process(
                 target=_mp_worker,
                 args=(r, n_ranks, conns, cc, parts[r], starts, energy,
-                      opts),
+                      opts, have_native),
                 daemon=True,
             )
             p.start()

@@ -15,7 +15,9 @@ partial Dirichlet constraints projected on the kept vertices, with ``b``,
 (component-major) DOF layout, element matrices (``elmat_data``, the ELMAT
 energy mesh) and nodal-P2 midnode embeddings (``nodalp2``).
 
-Setup runs on the host in numpy/scipy (factory/levels.py): the stencil
+Setup runs on the host in numpy/scipy and the port's native C++ extension
+(``ngsamg_tpu_torch.native``, built on first use; ``native.HAVE_NATIVE =
+False`` selects the numpy branches) (factory/levels.py): the stencil
 domain for full lattices, the generic (unstructured) level loop otherwise.
 It stages the hierarchy as torch tensors on ``device``. The solve is
 float64 defect correction around the f32 device PCG. On uniform-stencil
@@ -41,6 +43,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from .. import native
 from ..apps.elasticity import ElasticityEnergy
 from ..apps.h1 import H1Energy
 from ..config import (
@@ -116,17 +119,19 @@ def _block_rows(B: sp.bsr_matrix) -> np.ndarray:
 def _sym_scale(A: sp.spmatrix):
     """Scale a matrix (CSR or BSR, already permuted) to unit diagonal:
     returns (S A S, s) with S = diag(s), s = 1/sqrt(diag(A)). A BSR stays
-    BSR (scaled on its blocks)."""
+    BSR, scaled on its blocks by the native ``bsr_sym_scale`` (numpy with
+    ``native.HAVE_NATIVE`` off); a CSR is scaled in numpy (the original's
+    native ``csr_sym_scale`` is item 10c)."""
     d = A.diagonal()
     s = np.where(d > 0, 1.0 / np.sqrt(np.where(d > 0, d, 1.0)), 1.0)
     if A.format == "bsr":
-        R, C = A.blocksize
-        sr = s[_block_rows(A)[:, None] * R + np.arange(R)]
-        scl = s[A.indices[:, None] * C + np.arange(C)]
-        out = sp.bsr_matrix(
-            (A.data * sr[:, :, None] * scl[:, None, :], A.indices, A.indptr),
-            shape=A.shape,
-        )
+        data = native.bsr_sym_scale(A, s)
+        if data is None:
+            R, C = A.blocksize
+            sr = s[_block_rows(A)[:, None] * R + np.arange(R)]
+            scl = s[A.indices[:, None] * C + np.arange(C)]
+            data = A.data * sr[:, :, None] * scl[:, None, :]
+        out = sp.bsr_matrix((data, A.indices, A.indptr), shape=A.shape)
         out.has_sorted_indices = A.has_sorted_indices
         return out, s
     A = A.tocsr()

@@ -4,8 +4,9 @@ Copied from ngsamg_tpu/smoothers/build.py: the color-sorted row order of
 GS levels (``plan_row_order``), the l1 diagonal modification, and every
 branch of ``build_smoother``: Jacobi and l1-Jacobi (broadcast-scalar on
 uniform stencil levels), Chebyshev (with the host power iteration for
-lambda_max), multicolor GS with its per-color split storage, and dyn-block
-GS. As there, the Hiptmair smoother is not a ``build_smoother`` kind (the
+lambda_max: the native ``rho_power``, or with ``native.HAVE_NATIVE`` off
+the numpy loop beside it), multicolor GS with its per-color split storage,
+and dyn-block GS. As there, the Hiptmair smoother is not a ``build_smoother`` kind (the
 Stokes preconditioners build it, precond/stokes.py): asking for it raises
 ``ValueError``. The result holds numpy arrays (the block GS of
 ``smoothers/block.py`` holds CPU tensors); ``stage_smoother`` moves them to
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 import scipy.sparse as sp
 
+from .. import native
 from ..config import SmootherOptions, SmootherType
 from ..sparse.host import block_diagonal_fast, block_norm_graph, to_bsr
 from .block import BlockGSSmoother
@@ -95,6 +97,9 @@ def _lam_max_estimate(A: sp.spmatrix, bs: int, Dinv: np.ndarray, iters=12):
     # block levels iterate on the cached BSR view (~bs^2 less index work
     # per matvec than the scalar CSR, the same sums)
     Ac = to_bsr(A, bs) if bs > 1 else A.tocsr()
+    nat = native.rho_power(Ac, Dinv, x, iters)
+    if nat is not None:
+        return float(nat) * 1.05  # safety margin
     for _ in range(iters):
         y = Ac @ x
         y = np.einsum("nij,nj->ni", Dinv, y.reshape(-1, bs)).ravel()

@@ -14,10 +14,14 @@ reference's `PWProlMap` and `SemiAuxSProlMap`
   energy kernel (constants for H1, rigid-body modes for elasticity) stays
   exactly preserved.
 
-The original's fused native kernels (``smoothed_prol_scalar``,
-``rho_power``, ``bsr_smooth_update``, ``bsr_mm``, ``truncate_prol_blocks``)
-compute the same P. The block (dpv > 1) smoothing keeps A-hat, the level
-matrix and P in BSR, so scipy's block products do the work.
+The block (dpv > 1) smoothing keeps A-hat, the level matrix and P in BSR
+and runs on the original's native kernels (``rho_power``,
+``bsr_smooth_update``, ``bsr_mm``), and the truncation of an energy with an
+identity or rigid transport on ``truncate_prol_blocks``, as in the
+original; with ``native.HAVE_NATIVE`` off, or for a shape a kernel
+declines, the numpy and scipy branches beside them compute the same P. The
+scalar smoothing runs on scipy here (the original's fused
+``smoothed_prol_scalar`` and ``rho_power_h1`` are item 10c).
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse as sp
 
+from .. import native
 from ..apps.base import Energy
 from ..mesh.topo import AlgebraicMesh
 
@@ -155,7 +160,14 @@ def _smoothed_block(
     truncation: block Dinv = pinv of A-hat's diagonal blocks, rho by power
     iteration, P = P_pw - (omega/rho) Dinv A-hat P_pw; classic rows (only
     where the level matrix already has dpv-blocks) take the level matrix
-    with its own rho instead."""
+    with its own rho instead.
+
+    A-hat stays sorted BSR end to end: rho comes from the native block
+    power iteration (``rho_power``) and the update from the fused native
+    kernel (``bsr_smooth_update``), or, where that declines the shape, from
+    the native block product (``bsr_mm``) with the update assembled on the
+    product's own sorted structure. With ``native.HAVE_NATIVE`` off, scipy's
+    block products do the work."""
     from ..sparse.host import block_diagonal_fast, to_bsr
 
     dpv = energy.dpv
@@ -170,13 +182,20 @@ def _smoothed_block(
     )
     if not Ahat.has_sorted_indices:
         Ahat.sort_indices()
-    Dinv_mat = _block_diag_bsr(
-        np.linalg.pinv(block_diagonal_fast(Ahat, dpv))
-    )
-    rho = _rho_estimate(lambda x: Dinv_mat @ x, Ahat)
-    scale = omega / max(rho, 1e-12)
+    Dinv_b = np.linalg.pinv(block_diagonal_fast(Ahat, dpv))
     Ppw_b = P_pw.tobsr(blocksize=(dpv, dpv))
-    P = (Ppw_b - scale * (Dinv_mat @ (Ahat @ Ppw_b))).tocsr()
+    P = None
+    rho = native.rho_power(
+        Ahat, Dinv_b, np.random.default_rng(0).standard_normal(nf * dpv), 10
+    )
+    if rho is not None:
+        scale = omega / max(float(rho), 1e-12)
+        P = _native_smooth(Ahat, Ppw_b, Dinv_b, scale, nf)
+    if P is None:
+        Dinv_mat = _block_diag_bsr(Dinv_b)
+        rho = _rho_estimate(lambda x: Dinv_mat @ x, Ahat)
+        scale = omega / max(rho, 1e-12)
+        P = (Ppw_b - scale * (Dinv_mat @ (Ahat @ Ppw_b))).tocsr()
 
     classic = None
     if A is not None and row_bs == dpv and max_classic and max_classic > 1:
@@ -185,12 +204,18 @@ def _smoothed_block(
         )
     if classic is not None and classic.any():
         Ar = to_bsr(A, dpv)  # cached on the level matrix object
-        DinvA = _block_diag_bsr(
-            np.linalg.pinv(block_diagonal_fast(Ar, dpv))
+        DinvA_b = np.linalg.pinv(block_diagonal_fast(Ar, dpv))
+        DinvA = _block_diag_bsr(DinvA_b)
+        rho_r = native.rho_power(
+            Ar, DinvA_b, np.random.default_rng(1).standard_normal(nf * dpv),
+            10,
         )
-        rho_r = _rho_estimate(lambda x: DinvA @ x, Ar, seed=1)
+        if rho_r is None:
+            rho_r = _rho_estimate(lambda x: DinvA @ x, Ar, seed=1)
         scale_r = omega / max(float(rho_r), 1e-12)
-        P_real = (Ppw_b - scale_r * (DinvA @ (Ar @ Ppw_b))).tocsr()
+        P_real = _native_smooth(Ar, Ppw_b, DinvA_b, scale_r, nf)
+        if P_real is None:
+            P_real = (Ppw_b - scale_r * (DinvA @ (Ar @ Ppw_b))).tocsr()
         sel = sp.diags(np.repeat(classic.astype(np.float64), dpv))
         inv = sp.diags(np.repeat((~classic).astype(np.float64), dpv))
         P = (sel @ P_real + inv @ P).tocsr()
@@ -198,6 +223,39 @@ def _smoothed_block(
 
     P = P.tobsr(blocksize=(dpv, dpv))
     P.sort_indices()
+    return P
+
+
+def _native_smooth(M, Ppw_b, Dinv_b, scale, nf):
+    """P_pw - scale Dinv M P_pw (M: A-hat or the level matrix, sorted BSR)
+    on the native kernels: the fused update, or where it declines the shape
+    the native product with the update assembled on its sorted structure;
+    None with the switch off."""
+    P = native.bsr_smooth_update(M, Ppw_b, Dinv_b, scale)
+    if P is not None:
+        return P
+    AP = native.bsr_mm(M, Ppw_b)
+    if AP is None:
+        return None
+    dpv = Ppw_b.blocksize[0]
+    nc_b = AP.shape[1] // dpv
+    rows = np.repeat(np.arange(nf, dtype=np.int64), np.diff(AP.indptr))
+    data_new = (-scale) * (Dinv_b[rows] @ AP.data)
+    # += P_pw blocks at their positions (sorted rows => the global
+    # (row, col) keys are ascending)
+    pw_rows = np.repeat(np.arange(nf, dtype=np.int64), np.diff(Ppw_b.indptr))
+    keys = rows * nc_b + AP.indices
+    want = pw_rows * nc_b + Ppw_b.indices
+    pos = np.searchsorted(keys, want)
+    # M's structural diagonal puts every piecewise column in AP; a miss
+    # means an unsorted product
+    if len(want) and not (
+        (pos < len(keys)) & (keys[pos % len(keys)] == want)
+    ).all():
+        raise RuntimeError("bsr_mm returned a product with unsorted rows")
+    data_new[pos] += Ppw_b.data
+    P = sp.bsr_matrix((data_new, AP.indices, AP.indptr), shape=AP.shape)
+    P.has_sorted_indices = True
     return P
 
 
@@ -269,6 +327,22 @@ def truncate_prol(
     """
     dpv = energy.dpv
     nf = P.shape[0] // dpv
+    kind = getattr(energy, "transport_kind", None)
+    if kind in ("identity", "rigid") and P.blocksize == (dpv, dpv):
+        # native kernel (no padded temporaries): the rigid-body or identity
+        # transport is resolved in the kernel; ties and quantization match
+        # the numpy branch below bit for bit
+        if not P.has_sorted_indices:
+            P.sort_indices()
+        pos_c = (
+            energy.vertex_positions(mesh_c) if kind == "rigid" else None
+        )
+        s = float(getattr(energy, "_s", 0.0)) if kind == "rigid" else 0.0
+        out = native.truncate_prol_blocks(
+            P, pos_c, s, max_per_row, min_frac
+        )
+        if out is not None:
+            return out
     data, cols = _bsr_to_padded(P, dpv)  # (nf, K, dpv, dpv), (nf, K) col=-1 pad
     K = data.shape[1]
     if K <= max_per_row and min_frac <= 0:

@@ -12,11 +12,14 @@ setup(
     version="0.1.0",
     packages=["ngsamg_tpu"] + [
         "ngsamg_tpu_torch" + sub
-        for sub in ("", ".apps", ".coarsen", ".factory", ".mesh", ".ops",
-                    ".precond", ".smoothers", ".solve", ".sparse",
-                    ".transfer", ".utils")
+        for sub in ("", ".apps", ".coarsen", ".factory", ".mesh",
+                    ".native", ".ops", ".parallel", ".precond",
+                    ".smoothers", ".solve", ".sparse", ".transfer",
+                    ".utils")
     ],
-    package_data={"ngsamg_tpu_torch": ["csrc/*.cu"]},
+    package_data={
+        "ngsamg_tpu_torch": ["csrc/*.cu", "csrc/*.cuh", "native/kernels.cpp"]
+    },
     ext_modules=[
         Extension(
             "ngsamg_tpu.native._ngsamg_native",

@@ -3,11 +3,11 @@ coarsener.
 
 - `vector_poisson(poisson_2d(32), bs)` for bs 2 and 3 (identity-block
   energies: `H1Energy(bs)`, `block_size > 1`) through both packages'
-  `AMGPreconditioner(...).setup()` and both solves. The JAX package runs
-  its native kernels here, which compute the same aggregation: `v2agg`,
-  level sizes and nnz are compared exactly, P and coarse A to 1e-12.
+  `AMGPreconditioner(...).setup()` and both solves. Both packages run
+  their native kernels here (the port its own build): `v2agg`, level
+  sizes and nnz are compared exactly, P and coarse A to 1e-12.
 - `coarsen.big_soc` on a block problem (`elasticity_2d(10, length=10)`)
-  against the JAX package on its numpy branches: exactly; and on a scalar
+  with both packages on their numpy branches: exactly; and on a scalar
   H1 problem, whose energy has no aux diagonal: both packages raise the
   same `AttributeError`.
 - `coarsen.algo = PLATE` on `thin_plate_elasticity(n=10)`: one aggregate
@@ -24,6 +24,7 @@ import torch
 import ngsamg_tpu
 import ngsamg_tpu.native as jnative
 import ngsamg_tpu_torch
+import ngsamg_tpu_torch.native as tnative
 from ngsamg_tpu.apps.h1 import H1Energy as JH1
 from ngsamg_tpu_torch.apps.h1 import H1Energy as TH1
 from ngsamg_tpu_torch.coarsen import pairwise as tpw
@@ -35,12 +36,13 @@ torch.set_num_threads(2)
 
 @contextlib.contextmanager
 def numpy_branches():
-    old = jnative.HAVE_NATIVE
-    jnative.HAVE_NATIVE = False
+    """Both packages on the numpy branches of their host setup."""
+    old = jnative.HAVE_NATIVE, tnative.HAVE_NATIVE
+    jnative.HAVE_NATIVE = tnative.HAVE_NATIVE = False
     try:
         yield
     finally:
-        jnative.HAVE_NATIVE = old
+        jnative.HAVE_NATIVE, tnative.HAVE_NATIVE = old
 
 
 def _opts(pkg, **coarsen):
@@ -61,10 +63,11 @@ def _both(p, energy, coarsen=None, native=True):
             p.A, energy=energy, block_size=p.block_size, coords=p.coords,
             options=_opts(ngsamg_tpu, **(coarsen or {})),
         ).setup()
-    pt = ngsamg_tpu_torch.AMGPreconditioner(
-        p.A, energy=energy, block_size=p.block_size, coords=p.coords,
-        options=_opts(ngsamg_tpu_torch, **(coarsen or {})), device="cpu",
-    ).setup()
+        pt = ngsamg_tpu_torch.AMGPreconditioner(
+            p.A, energy=energy, block_size=p.block_size, coords=p.coords,
+            options=_opts(ngsamg_tpu_torch, **(coarsen or {})),
+            device="cpu",
+        ).setup()
     return pj, pt
 
 
@@ -170,13 +173,13 @@ def test_big_soc_rejects_an_unstable_pair():
 
     p = fem.elasticity_2d(6, length=6)
     et, ej = TEl(2), JEl(2)
-    mt = et.build_finest_mesh(p.A, p.coords)
     with numpy_branches():
+        mt = et.build_finest_mesh(p.A, p.coords)
         mj = ej.build_finest_mesh(p.A, p.coords)
         v2c_j, n1 = jpw.spw_aggregate_energy(
             ej, mj, rounds=1, adopt_orphans=False)
-    v2c_t, n1t = tpw.spw_aggregate_energy(
-        et, mt, rounds=1, adopt_orphans=False)
+        v2c_t, n1t = tpw.spw_aggregate_energy(
+            et, mt, rounds=1, adopt_orphans=False)
     np.testing.assert_array_equal(v2c_t, v2c_j)
     # pair up neighbouring aggregates 0-1, 2-3, ... and vet them
     partner = np.full(n1, -1, dtype=np.int64)
@@ -185,7 +188,7 @@ def test_big_soc_rejects_an_unstable_pair():
     for rho in (0.05, 5.0):
         with numpy_branches():
             out_j = jpw.big_soc_vet(ej, mj, v2c_j, partner, rho)
-        out_t = tpw.big_soc_vet(et, mt, v2c_t, partner, rho)
+            out_t = tpw.big_soc_vet(et, mt, v2c_t, partner, rho)
         np.testing.assert_array_equal(out_t, out_j)
     assert (out_t == -1).sum() > (partner == -1).sum()  # rho 5 rejects some
 

@@ -11,6 +11,7 @@ port's ``LocalTransport`` one, which tests/test_torch_dist_setup.py and
 tests/test_torch_dist_stokes.py hold to the JAX package's.
 """
 
+import contextlib
 
 import numpy as np
 import pytest
@@ -18,6 +19,7 @@ import pytest
 import ngsamg_tpu
 import ngsamg_tpu.native as jnative
 import ngsamg_tpu_torch
+import ngsamg_tpu_torch.native as tnative
 from ngsamg_tpu.apps.h1 import H1Energy as JH1
 from ngsamg_tpu.parallel import dist_setup as jds
 from ngsamg_tpu_torch.apps.h1 import H1Energy as TH1
@@ -40,6 +42,18 @@ def _opts(pkg):
     return o
 
 
+@contextlib.contextmanager
+def numpy_branches():
+    """Both packages on the numpy branches of their host setup (the port's
+    ranks take the parent's switch)."""
+    old = jnative.HAVE_NATIVE, tnative.HAVE_NATIVE
+    jnative.HAVE_NATIVE = tnative.HAVE_NATIVE = False
+    try:
+        yield
+    finally:
+        jnative.HAVE_NATIVE, tnative.HAVE_NATIVE = old
+
+
 def _csr_equal(a, b, what):
     a, b = a.tocsr(), b.tocsr()
     np.testing.assert_array_equal(a.indptr, b.indptr, err_msg=what)
@@ -51,13 +65,18 @@ def test_collective_transport_parity():
     """The H1 setup over the collective transport reproduces the local
     transport's hierarchy exactly (payloads bit-cast)."""
     prob = tfem.unstructured_poisson(14, dim=2)
-    l_levels, l_log = tds.dist_setup_levels(
-        prob.A, TH1(bs=1), _opts(ngsamg_tpu_torch), N_SHARDS
-    )
-    c_levels, c_log = mp_runtime.mp_dist_setup_levels(
-        prob.A, TH1(bs=1), _opts(ngsamg_tpu_torch), N_SHARDS,
-        transport="collective", backend="gloo", device="cpu",
-    )
+    with numpy_branches():
+        l_levels, l_log = tds.dist_setup_levels(
+            prob.A, TH1(bs=1), _opts(ngsamg_tpu_torch), N_SHARDS
+        )
+        c_levels, c_log = mp_runtime.mp_dist_setup_levels(
+            prob.A, TH1(bs=1), _opts(ngsamg_tpu_torch), N_SHARDS,
+            transport="collective", backend="gloo", device="cpu",
+        )
+        # and the JAX package's local-transport hierarchy
+        j_levels, j_log = jds.dist_setup_levels(
+            prob.A, JH1(bs=1), _opts(ngsamg_tpu), N_SHARDS
+        )
     stats = c_log.mp_rank_stats
     assert len(stats) == N_SHARDS
     assert all(s["transport_calls"] > 0 for s in stats), (
@@ -70,15 +89,6 @@ def test_collective_transport_parity():
         if ll.P is not None:
             _csr_equal(ll.P, cl.P, f"P{i}")
             np.testing.assert_array_equal(ll.v2agg, cl.v2agg)
-    # and the JAX package's local-transport hierarchy (numpy branches)
-    old = jnative.HAVE_NATIVE
-    jnative.HAVE_NATIVE = False
-    try:
-        j_levels, j_log = jds.dist_setup_levels(
-            prob.A, JH1(bs=1), _opts(ngsamg_tpu), N_SHARDS
-        )
-    finally:
-        jnative.HAVE_NATIVE = old
     assert j_log.nvs == c_log.nvs
     for i, (jl, cl) in enumerate(zip(j_levels, c_levels)):
         _csr_equal(jl.A, cl.A, f"JAX A{i}")

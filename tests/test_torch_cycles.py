@@ -11,8 +11,9 @@ whole solves on the JAX package's default options.
   (multicolor GS, V) on ``poisson_2d(48)``, ``poisson_3d(12)`` and
   ``unstructured_poisson(12, 3)``; W and BS on ``poisson_2d(48)``;
   Jacobi and l1-Jacobi on a lattice and on an unstructured mesh; dyn-block
-  GS on ``poisson_2d(32)`` in f64; ``elasticity_3d(4)`` with block GS (the
-  reference on its numpy branches, its coloring on the native kernel).
+  GS on ``poisson_2d(32)`` in f64; ``elasticity_3d(4)`` with block GS (both
+  packages on their numpy branches, the reference's coloring on its native
+  kernel).
   Level sizes and operator complexity equal, iterations within one, true
   relative residual <= tol.
 """
@@ -30,6 +31,7 @@ import ngsamg_tpu.native as jnative
 from ngsamg_tpu.solve import cycle as jcycle
 from ngsamg_tpu.solve import pcg as jpcg
 import ngsamg_tpu_torch
+import ngsamg_tpu_torch.native as tnative
 from ngsamg_tpu_torch.precond.convert import from_jax_operator
 from ngsamg_tpu_torch.solve import cycle as tcycle
 from ngsamg_tpu_torch.solve import pcg as tpcg
@@ -55,14 +57,15 @@ def _native_color(indptr, indices):
 
 @contextlib.contextmanager
 def reference_branches(numpy_setup: bool):
-    """The reference's host setup on its numpy branches when asked (as the
-    port runs them), its coloring always on the native greedy kernel."""
+    """Both packages' host setup on their numpy branches when asked, the
+    reference's coloring always on its native greedy kernel."""
     if getattr(jnative, "_nat", None) is None:
         pytest.skip("the JAX package's native extension is not built")
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jnative, "greedy_color", _native_color)
         if numpy_setup:
             mp.setattr(jnative, "HAVE_NATIVE", False)
+            mp.setattr(tnative, "HAVE_NATIVE", False)
         yield
 
 
@@ -83,11 +86,11 @@ def _pair(problem, smoother=None, cycle="V", dtype="float32", **kw):
             p.A, coords=p.coords,
             options=_options(ngsamg_tpu, smoother, cycle, dtype), **kw
         ).setup()
-    pt = ngsamg_tpu_torch.AMGPreconditioner(
-        p.A, coords=p.coords,
-        options=_options(ngsamg_tpu_torch, smoother, cycle, dtype),
-        device="cpu", **kw
-    ).setup()
+        pt = ngsamg_tpu_torch.AMGPreconditioner(
+            p.A, coords=p.coords,
+            options=_options(ngsamg_tpu_torch, smoother, cycle, dtype),
+            device="cpu", **kw
+        ).setup()
     return p, pj, pt
 
 

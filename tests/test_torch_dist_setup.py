@@ -28,6 +28,7 @@ import torch
 import ngsamg_tpu
 import ngsamg_tpu.native as jnative
 import ngsamg_tpu_torch
+import ngsamg_tpu_torch.native as tnative
 from ngsamg_tpu.apps.elasticity import ElasticityEnergy as JEl
 from ngsamg_tpu.apps.h1 import H1Energy as JH1
 from ngsamg_tpu.parallel import dist_setup as jds
@@ -43,6 +44,19 @@ LOG_FIELDS = (
     "nvs", "nnzs", "peak_shard_bytes", "finest_global_bytes",
     "contract_decisions", "shards_per_level",
 )
+
+
+@pytest.fixture(autouse=True, scope="module")
+def port_numpy_branches():
+    """The port on the numpy branches of its host setup for this whole
+    file: its hierarchies are held to the JAX package's numpy branches
+    (``numpy_branches``), and where a test compares with the JAX package's
+    native run it holds the port's numpy hierarchy to it. The native
+    branches are held to the JAX package's native run by
+    tests/test_torch_native.py."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tnative, "HAVE_NATIVE", False)
+        yield
 
 
 @contextlib.contextmanager

@@ -23,12 +23,26 @@ import scipy.sparse as sp
 import ngsamg_tpu
 import ngsamg_tpu.native as jnative
 import ngsamg_tpu_torch
+import ngsamg_tpu_torch.native as tnative
 from ngsamg_tpu.parallel import dist_stokes as jdst
 from ngsamg_tpu.precond import stokes as jpre
 from ngsamg_tpu.utils import stokes_fem as jsf
 from ngsamg_tpu_torch.parallel import dist_stokes as tdst
 from ngsamg_tpu_torch.precond import stokes as tpre
 from ngsamg_tpu_torch.utils import stokes_fem as tsf
+
+
+@pytest.fixture(autouse=True, scope="module")
+def port_numpy_branches():
+    """The port on the numpy branches of its host setup for this whole
+    file: its hierarchies are held to the JAX package's numpy branches
+    (``numpy_branches``), and where a test compares with the JAX package's
+    native run it holds the port's numpy hierarchy to it. The native
+    branches are held to the JAX package's native run by
+    tests/test_torch_native.py."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tnative, "HAVE_NATIVE", False)
+        yield
 
 
 @contextlib.contextmanager

@@ -31,6 +31,7 @@ import torch
 import ngsamg_tpu
 import ngsamg_tpu.native as jnative
 import ngsamg_tpu_torch
+import ngsamg_tpu_torch.native as tnative
 from ngsamg_tpu.solve import cycle as jcycle
 from ngsamg_tpu_torch.precond.convert import from_jax_operator
 from ngsamg_tpu_torch.solve import cycle as tcycle
@@ -45,6 +46,19 @@ CASES = {
     "el3d8": lambda: fem.elasticity_3d(8),
     "unstr3d": lambda: fem.unstructured_elasticity(8, dim=3),
 }
+
+
+@pytest.fixture(autouse=True, scope="module")
+def port_numpy_branches():
+    """The port on the numpy branches of its host setup for this whole
+    file: its hierarchies are held to the JAX package's numpy branches
+    (``numpy_branches``), and where a test compares with the JAX package's
+    native run it holds the port's numpy hierarchy to it. The native
+    branches are held to the JAX package's native run by
+    tests/test_torch_native.py."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tnative, "HAVE_NATIVE", False)
+        yield
 
 
 @contextlib.contextmanager

@@ -8,9 +8,9 @@ most 1e-8 wherever the JAX package reaches it, and otherwise within a
 factor 2 of the JAX package's; solutions within 1e-6 relative. The JAX
 package sets up on the numpy branches of its host setup
 (``ngsamg_tpu.native.HAVE_NATIVE = False``, its coloring kept on the native
-greedy kernel), the branches the port copies; the vector-H1 case on its
-native kernels, which give the same aggregates (its numpy branch corrupts
-a cached BSR view there).
+greedy kernel), and so does the port; the vector-H1 case runs both on their
+native kernels (the JAX package's numpy branch corrupts a cached BSR view
+there).
 
 The cases mirror the JAX package's tests:
 - ``freedofs`` as a DOF subset, and as partial Dirichlet constraints (the
@@ -36,6 +36,7 @@ import torch
 import ngsamg_tpu
 import ngsamg_tpu.native as jnative
 import ngsamg_tpu_torch
+import ngsamg_tpu_torch.native as tnative
 from ngsamg_tpu.apps import elmat as jelmat
 from ngsamg_tpu.factory import levels as jlevels
 from ngsamg_tpu.utils import fem as jfem
@@ -54,10 +55,12 @@ def _native_color(indptr, indices):
 
 @contextlib.contextmanager
 def numpy_branches():
-    """The JAX package on the numpy branches of its host setup; its GS
-    coloring stays on the native greedy kernel, which the port copies."""
+    """Both packages on the numpy branches of their host setup; the JAX
+    package's GS coloring stays on the native greedy kernel, which the
+    port copies."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jnative, "HAVE_NATIVE", False)
+        mp.setattr(tnative, "HAVE_NATIVE", False)
         if getattr(jnative, "_nat", None) is not None:
             mp.setattr(jnative, "greedy_color", _native_color)
         yield
@@ -184,8 +187,8 @@ def _pair(name):
     ctx = contextlib.nullcontext() if name == "compound" else numpy_branches()
     with ctx:
         pj = ngsamg_tpu.AMGPreconditioner(A, **kw(ngsamg_tpu)).setup()
-    pt = ngsamg_tpu_torch.AMGPreconditioner(
-        A, device="cpu", **kw(ngsamg_tpu_torch)).setup()
+        pt = ngsamg_tpu_torch.AMGPreconditioner(
+            A, device="cpu", **kw(ngsamg_tpu_torch)).setup()
     return pj, pt, A_ext, b_ext
 
 

@@ -25,6 +25,7 @@ import torch
 import ngsamg_tpu
 import ngsamg_tpu.native as jnative
 import ngsamg_tpu_torch
+import ngsamg_tpu_torch.native as tnative
 from ngsamg_tpu.apps.elasticity import ElasticityEnergy as JEl
 from ngsamg_tpu.apps.h1 import H1Energy as JH1
 from ngsamg_tpu.parallel import dist_setup as jds
@@ -35,6 +36,19 @@ from ngsamg_tpu_torch.parallel import mp_runtime
 from ngsamg_tpu_torch.utils import fem as tfem
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def port_numpy_branches():
+    """The port on the numpy branches of its host setup for this whole
+    file: its hierarchies are held to the JAX package's numpy branches
+    (``numpy_branches``), and where a test compares with the JAX package's
+    native run it holds the port's numpy hierarchy to it. The native
+    branches are held to the JAX package's native run by
+    tests/test_torch_native.py."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tnative, "HAVE_NATIVE", False)
+        yield
 
 
 @contextlib.contextmanager
@@ -342,14 +356,16 @@ def test_mp_ranks_take_host_data_only():
 
 
 def test_rank_modules_import_without_torch():
-    """What a rank imports (the level loops, the energies, the options)
-    loads no torch: a spawned rank starts in about the time numpy and
-    scipy take."""
+    """What a rank imports (the level loops, the energies, the options,
+    the native setup extension, loaded) loads no torch: a spawned rank
+    starts in about the time numpy and scipy take."""
     code = (
         "import sys\n"
         "import ngsamg_tpu_torch.parallel.mp_runtime\n"
         "import ngsamg_tpu_torch.parallel.dist_elast\n"
         "import ngsamg_tpu_torch.apps.elasticity\n"
+        "import ngsamg_tpu_torch.native\n"
+        "ngsamg_tpu_torch.native.extension()\n"
         "assert 'torch' not in sys.modules\n"
     )
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -50,7 +50,8 @@ SCRIPT = textwrap.dedent(
                  "parallel.dist_elast", "parallel.mp_runtime",
                  "utils.timers", "api", "parallel.world",
                  "parallel.shard", "parallel.halo",
-                 "parallel.sharded_run", "parallel.dist_stokes"):
+                 "parallel.sharded_run", "parallel.dist_stokes",
+                 "native", "native.build"):
         assert "ngsamg_tpu_torch." + name in mods, name
 
     p = fem.poisson_3d(34)  # 35,937 DoF: the uniform-stencil branches

@@ -12,8 +12,9 @@ the JAX package's ``test_h1.py::test_eig_bounds``,
 ``test_elasticity.py::test_elast_eig_bounds`` and
 ``test_frontend.py::test_per_level_two_grid_bounds``, with their bands;
 ``test`` in the external space of a partial-Dirichlet problem, and
-``options.do_test``, besides. The JAX package sets up on the numpy
-branches of its host setup (its coloring on the native greedy kernel).
+``options.do_test``, besides. Both packages set up on the numpy branches
+of their host setup (the JAX package's coloring on its native greedy
+kernel).
 """
 
 import contextlib
@@ -25,6 +26,7 @@ import torch
 import ngsamg_tpu
 import ngsamg_tpu.native as jnative
 import ngsamg_tpu_torch
+import ngsamg_tpu_torch.native as tnative
 from ngsamg_tpu_torch.utils import fem as tfem
 
 torch.set_num_threads(2)
@@ -42,6 +44,7 @@ def _native_color(indptr, indices):
 def numpy_branches():
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jnative, "HAVE_NATIVE", False)
+        mp.setattr(tnative, "HAVE_NATIVE", False)
         if getattr(jnative, "_nat", None) is not None:
             mp.setattr(jnative, "greedy_color", _native_color)
         yield
@@ -67,8 +70,7 @@ def _build(name, dtype, **extra):
         opts = pkg.AMGOptions(dtype=dtype, **extra)
         if max_coarse is not None:
             opts.levels.max_coarse_size = max_coarse
-        ctx = numpy_branches() if pkg is ngsamg_tpu else contextlib.nullcontext()
-        with ctx:
+        with numpy_branches():
             pcs.append(pkg.AMGPreconditioner(
                 p.A, coords=p.coords, options=opts, **kw, **dev).setup())
     return p, *pcs
@@ -128,8 +130,7 @@ def test_eig_bounds_external_space():
     for pkg, dev in ((ngsamg_tpu, {}), (ngsamg_tpu_torch, {"device": "cpu"})):
         opts = pkg.AMGOptions(dtype="float64")
         opts.levels.max_coarse_size = 60
-        ctx = numpy_branches() if pkg is ngsamg_tpu else contextlib.nullcontext()
-        with ctx:
+        with numpy_branches():
             pcs.append(pkg.AMGPreconditioner(
                 p.A, energy="elasticity", block_size=2, coords=p.coords,
                 freedofs=fd, options=opts, **dev).setup())
@@ -152,8 +153,7 @@ def test_do_test_prints_the_bounds(cheb, capsys):
         if cheb:
             opts.smoother = pkg.config.SmootherOptions(
                 type=pkg.config.SmootherType.CHEBYSHEV)
-        ctx = numpy_branches() if pkg is ngsamg_tpu else contextlib.nullcontext()
-        with ctx:
+        with numpy_branches():
             pc = pkg.AMGPreconditioner(p.A, coords=p.coords, options=opts,
                                        **dev).setup()
         line = capsys.readouterr().out.strip().splitlines()[-1]

@@ -10,7 +10,8 @@ The same seeded problems go through the JAX package and ngsamg_tpu_torch:
   and ``_curl_smooth_prol`` agree exactly, or to 1e-12 where sums
   reorder;
 - the level loops of ``StokesAMG`` and ``StokesHDivAMG`` build the levels
-  of the JAX package's numpy branches (``native.HAVE_NATIVE = False``):
+  of the JAX package's numpy branches (``native.HAVE_NATIVE = False`` in
+  both packages):
   operators, aggregates and curl matrices exactly, prolongations to
   1e-12;
 - the invariants of the JAX package's ``tests/test_stokes.py`` and
@@ -32,6 +33,7 @@ import torch
 import ngsamg_tpu
 import ngsamg_tpu.native as jnative
 import ngsamg_tpu_torch
+import ngsamg_tpu_torch.native as tnative
 from ngsamg_tpu.apps import stokes as jst
 from ngsamg_tpu.apps import stokes_hdiv as jhd
 from ngsamg_tpu.mesh.topo import map_edges as jmap_edges
@@ -48,12 +50,13 @@ torch.set_num_threads(2)
 
 @contextlib.contextmanager
 def reference_numpy():
-    """The JAX package on its numpy branches (its native RAP sums in
-    another order, and ``_truncate_columns`` then breaks the lattice's
-    exact ties differently: P differs by a few per cent on curl-smoothed
-    levels)."""
+    """Both packages on their numpy branches (the JAX package's native RAP
+    sums in another order, and ``_truncate_columns`` then breaks the
+    lattice's exact ties differently: P differs by a few per cent on
+    curl-smoothed levels)."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jnative, "HAVE_NATIVE", False)
+        mp.setattr(tnative, "HAVE_NATIVE", False)
         yield
 
 
@@ -467,7 +470,7 @@ def test_stokes_levels_match(name):
     pj, pt = mk(jsf), mk(tsf)
     with reference_numpy():
         jl = _amg(ngsamg_tpu, jpre, pj, mcs, geo).setup().setup_levels_
-    pc = _amg(ngsamg_tpu_torch, tpre, pt, mcs, geo, device="cpu").setup()
+        pc = _amg(ngsamg_tpu_torch, tpre, pt, mcs, geo, device="cpu").setup()
     tl = pc.setup_levels_
     assert [c.A.shape for c in tl] == [c.A.shape for c in jl]
     assert len(tl) >= 3
