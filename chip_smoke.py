@@ -35,8 +35,14 @@ Phases, each of which raises (nonzero exit) on failure:
    (48,660 DoF; ``native/parity.py``): integer outputs equal, float
    outputs within the wrapper's tolerance (``parity.TOLERANCES``, the one
    tests/test_torch_native.py holds; none looser than 1e-8), and the
-   native branch called. Every later host setup runs on the native
-   branches (``native.HAVE_NATIVE``, the default); a failed build raises.
+   native branch called; and each of the sixteen scalar-setup and staging
+   wrappers the same way on the finest and the first coarse level of
+   ``unstructured_poisson(16, dim=3, refine=1)`` (32,720 DoF;
+   ``parity.SCALAR_TOLERANCES``: edges, partners, aggregates, colours,
+   cluster sets, permutations and tile columns equal, values to at most
+   1e-10). All 31 wrappers are held. Every later host setup and staging
+   runs on the native branches (``native.HAVE_NATIVE``, the default); a
+   failed build raises.
 3. main path — resets the kernel launch counters, assembles
    ``fem.poisson_3d(216)``, runs ``AMGPreconditioner(..., device="cuda")
    .setup()`` and ``solve(b, tol=1e-8, return_device=True)``, reads the
@@ -67,7 +73,10 @@ Phases, each of which raises (nonzero exit) on failure:
    1e-8 (host defect correction), reads the counters; checks the level
    count, operator complexity, iterations, true relative residual and
    that every level and transfer is tile-ELL or dense; a warm second
-   solve.
+   solve. Prints the setup's native calls (``native.CALLS``): each
+   wrapper the JAX package's native run reaches on this path must have
+   been called natively; the host setup and staging beside their record
+   on the numpy branches, and the card's name and power limit.
 6. tile-ELL — the median time per call (>= 20 calls, CUDA events) of the
    plain torch tile-ELL matvec of every tile-ELL level and transfer of that
    hierarchy (there is no hand-written tile-ELL kernel yet).
@@ -115,7 +124,9 @@ Phases, each of which raises (nonzero exit) on failure:
    ``torch.profiler``; and the ratio of the two warm solves. GS must give
    the JAX package's 5 levels, operator complexity 2.076 (0.5%), colors
    2, 16, 56, 199, at most 16 iterations and true relres <= 1e-8, with
-   every staged tensor on the card.
+   every staged tensor on the card. Each setup's native calls are printed
+   and checked as in phase 5 (GS: the native coloring among them), with
+   the GS run's host setup and staging beside their numpy-branch record.
 13. cycles — the same problem on the lattice path with the W-cycle and
    the BS cycle (Chebyshev), and Jacobi and l1-Jacobi V-cycles: iterations
    within one of the JAX package's (9, 6, 23, 23), true relres <= 1e-8,
@@ -200,7 +211,9 @@ Phases, each of which raises (nonzero exit) on failure:
    full DIA whose K2 plan reads x through the read-only cache (``ldg``: its
    x window, 20,032 values, exceeds the shared-memory budget); then K2 at
    level 0 against its plain version, timed like phase 4. Its row joins
-   the kernels line (``"path": "dist"``).
+   the kernels line (``"path": "dist"``). The native calls of the setup
+   and staging are checked as in phase 5, and the host setup and staging
+   printed beside their numpy-branch record.
 23. dist-elasticity — ``unstructured_elasticity(140, dim=2)`` (39,480
    DoF), ``dist_setup=8``, SPW, Chebyshev, ``max_coarse_size`` 60 on the
    card and on the CPU: the JAX package's levels 19,740 / 3,051 / 862 /
@@ -214,9 +227,9 @@ Phases, each of which raises (nonzero exit) on failure:
    with the card hidden) for ``poisson_3d(41)`` (64,000 DoF) and the
    problem of phase 23: bitwise the single controller's
    ``dist_setup_levels``; the per-rank peak shard bytes, transport calls,
-   moved bytes and native calls (each elasticity rank must call the
-   native kernels); then the scalar MP hierarchy staged on the card and
-   solved to a true relres <= 1e-8.
+   moved bytes and native calls (each scalar and each elasticity rank
+   must call the native kernels); then the scalar MP hierarchy staged on
+   the card and solved to a true relres <= 1e-8.
 25. api (after phase 16, on the headline problem) —
    ``api.h1_scal(A, coords=..., ngs_amg_sm_type="chebyshev")`` on the
    card: 6 levels (``GetNDof``), ``GetOC`` 1.762, <= 15 iterations, true
@@ -312,6 +325,19 @@ UNSTRUCT_LEVELS = 7
 UNSTRUCT_OC = 2.09  # the JAX package's operator complexity, to 2 places
 UNSTRUCT_MAX_IT = 25
 UNSTRUCT_FORMATS = {"TileELLStack", "TileELL", "DenseMatrix"}
+# the scalar-setup and staging wrappers (and rho_power) the JAX package's
+# native run reaches on the unstructured path (tests/test_torch_native.py
+# holds the port's native calls equal to the JAX package's there)
+UNSTRUCT_NATIVE_WRAPPERS = (
+    "finest_mesh_scal", "spw_round_h1", "map_edges_agg", "edges_to_adj",
+    "rho_power_h1", "smoothed_prol_scalar", "rap_csr", "csr_permute",
+    "csr_sym_scale", "tile_chunk_counts", "tile_ell_fill_range",
+    "tile_ell_pack", "cluster_detect", "rho_power",
+)
+# this phase's host setup and staging on the numpy branches of the scalar
+# setup, seconds: the range of the recorded runs (PERF.md section 5)
+UNSTRUCT_NUMPY_RECORD = {"setup_host_s": [45.990, 60.450],
+                         "setup_staging_s": [38.8, 46.1]}
 # the headline's level-0 stencil (P1 on Kuhn tetrahedra), in its order
 HEADLINE_STENCIL = [
     (-1, -1, -1), (-1, -1, 0), (-1, 0, -1), (-1, 0, 0), (0, -1, -1),
@@ -648,6 +674,9 @@ def phase_native(native_build):
                          text=True, check=True).stdout.splitlines()[0]
     p = fem.unstructured_elasticity(NATIVE_N, dim=3, refine=1)
     rows = parity.block_setup_parity(p.A, p.coords, 3)
+    q = fem.unstructured_poisson(NATIVE_SCALAR_N, dim=3, refine=1)
+    t1 = time.perf_counter()
+    scalar_rows = parity.scalar_setup_parity(q.A, q.coords)
     out = {
         "build_s": native.build_seconds,
         "library": os.path.relpath(ext.__file__),
@@ -656,13 +685,38 @@ def phase_native(native_build):
         "python_include": include,
         "dofs": int(p.n),
         "wrappers": rows,
+        "scalar_dofs": int(q.n),
+        "scalar_wrappers": scalar_rows,
+        "scalar_s": time.perf_counter() - t1,
         "s": time.perf_counter() - t0,
     }
     print("[native] " + json.dumps(out), flush=True)
     bad = [r["wrapper"] for r in rows if not r["ok"] or r["tol"] > 1e-8]
-    if bad or len(rows) != len(parity.TOLERANCES):
+    bad += [r["wrapper"] for r in scalar_rows
+            if not r["ok"] or r["tol"] > 1e-10]
+    if bad or len(rows) != len(parity.TOLERANCES) or len(scalar_rows) != len(
+            parity.SCALAR_TOLERANCES):
         raise AssertionError(f"native: wrappers off their numpy branch: {bad}")
+    if len(rows) + len(scalar_rows) != len(native.WRAPPERS):
+        raise AssertionError("native: not every wrapper was held")
     return out
+
+
+def _native_calls() -> dict:
+    """The native setup calls counted since the last reset, per wrapper."""
+    from ngsamg_tpu_torch import native
+
+    return {k: dict(v) for k, v in native.CALLS.items()
+            if v["native"] or v["declined"]}
+
+
+def _check_native(label, calls, wrappers):
+    """Each wrapper of ``wrappers`` must have been called natively."""
+    missing = [k for k in wrappers
+               if calls.get(k, {}).get("native", 0) == 0]
+    if missing:
+        raise AssertionError(f"{label}: no native call of {missing} in the "
+                             f"setup: {calls}")
 
 
 def phase_main_path():
@@ -999,17 +1053,19 @@ def phase_unstructured():
     """The unstructured path at 1,411,632 DoF on the card."""
     import torch
 
-    from ngsamg_tpu_torch import AMGPreconditioner
+    from ngsamg_tpu_torch import AMGPreconditioner, native
     from ngsamg_tpu_torch.utils import fem
 
     _reset_counts()
     t0 = time.perf_counter()
     p = fem.unstructured_poisson(55, dim=3, refine=1)
     t1 = time.perf_counter()
+    native.reset_calls()
     pc = AMGPreconditioner(
         p.A, coords=p.coords, options=_cheb_opts(), device="cuda"
     ).setup()
     t2 = time.perf_counter()
+    native_calls = _native_calls()
     x, info = pc.solve(p.b, tol=1e-8, return_device=True)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
@@ -1034,6 +1090,9 @@ def phase_unstructured():
         "setup_s": t2 - t1,
         "setup_host_s": pc.setup_time_host,
         "setup_staging_s": pc.setup_time_device,
+        "setup_numpy_record": UNSTRUCT_NUMPY_RECORD,
+        "card": _nvidia_smi(),
+        "native_calls": native_calls,
         "solve_s": t3 - t2,
         "warm_solve_s": warm,
         "iterations": int(info.iterations),
@@ -1071,6 +1130,7 @@ def phase_unstructured():
     for k in sorted(_path_kernels(pc)):
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} never launched on this path")
+    _check_native("unstructured", native_calls, UNSTRUCT_NATIVE_WRAPPERS)
     return p, pc, out
 
 
@@ -1273,6 +1333,8 @@ ELAST_NATIVE_WRAPPERS = (
     "truncate_prol_blocks", "bsr_sym_scale",
 )
 NATIVE_N = 12  # unstructured_elasticity(12, dim=3, refine=1): 48,660 DoF
+# unstructured_poisson(16, dim=3, refine=1): 32,720 DoF
+NATIVE_SCALAR_N = 16
 
 
 def _operator_tensors(op):
@@ -1310,8 +1372,7 @@ def phase_elasticity():
         options=_cheb_opts(),
     ).setup()
     t2 = time.perf_counter()
-    native_calls = {k: dict(v) for k, v in native.CALLS.items()
-                    if v["native"] or v["declined"]}
+    native_calls = _native_calls()
     pc.solve(p.b, maxiter=2, mixed=True)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
@@ -1382,10 +1443,7 @@ def phase_elasticity():
     if abs(int(info.iterations) - ELAST_JAX_NATIVE_IT) > 1:
         raise AssertionError(f"{info.iterations} iterations, the JAX "
                              f"package's native run {ELAST_JAX_NATIVE_IT}")
-    missing = [k for k in ELAST_NATIVE_WRAPPERS
-               if native_calls.get(k, {}).get("native", 0) == 0]
-    if missing:
-        raise AssertionError(f"no native call of {missing} in the setup")
+    _check_native("elasticity", native_calls, ELAST_NATIVE_WRAPPERS)
     return p, pc, out
 
 
@@ -1542,6 +1600,18 @@ GS_LEVELS = 5
 GS_OC = 2.076
 GS_COLORS = [2, 16, 56, 199]
 GS_MAX_IT = 16  # the JAX package takes 15
+# the native wrappers the JAX package's native run reaches with the default
+# options (GS) and with Chebyshev on the lattice path (the CPU test's
+# h1_gs and h1_lattice problems)
+GS_NATIVE_WRAPPERS = (
+    "greedy_color", "finest_mesh_scal", "map_edges_agg", "rap_csr",
+    "csr_permute", "tile_ell_pack",
+)
+CHEB_NATIVE_WRAPPERS = ("rap_csr", "rho_power")
+# the GS run's host setup and staging on the numpy branches, seconds
+# (PERF.md section 5)
+GS_NUMPY_RECORD = {"setup_host_s": [3.438, 4.303],
+                   "setup_staging_s": [6.127, 7.502]}
 # the JAX package's iterations on the lattice path of poisson_3d(101)
 CYCLE_RUNS = {  # label: (smoother, cycle, iterations)
     "W": ("chebyshev", "W", 9),
@@ -1594,13 +1664,15 @@ def _solve_run(p, opts, label, warm=3, profile=True):
     solve counted by the profiler. Returns (pc, out)."""
     import torch
 
-    from ngsamg_tpu_torch import AMGPreconditioner
+    from ngsamg_tpu_torch import AMGPreconditioner, native
 
     _reset_counts()
+    native.reset_calls()
     t0 = time.perf_counter()
     pc = AMGPreconditioner(p.A, coords=p.coords, options=opts,
                            device="cuda").setup()
     t1 = time.perf_counter()
+    native_calls = _native_calls()
 
     def solve():
         return pc.solve(p.b, tol=1e-8, return_device=True)
@@ -1638,6 +1710,7 @@ def _solve_run(p, opts, label, warm=3, profile=True):
         "setup_host_s": pc.setup_time_host,
         "setup_staging_s": pc.setup_time_device,
         "staging_stages_s": pc._device_stage_times,
+        "native_calls": native_calls,
         "first_solve_s": t2 - t1,
         "warm_solves_s": walls,
         "warm_solve_s": float(np.median(walls)),
@@ -1663,8 +1736,12 @@ def phase_gs(p):
     on_path = sorted(_path_kernels(_pc))
     del _pc
     out = {"gs": gs, "chebyshev": cheb,
-           "solve_ratio_gs_over_cheb": gs["warm_solve_s"] / cheb["warm_solve_s"]}
+           "solve_ratio_gs_over_cheb": gs["warm_solve_s"] / cheb["warm_solve_s"],
+           "gs_setup_numpy_record": GS_NUMPY_RECORD, "card": _nvidia_smi()}
     print("[gs] " + json.dumps(out), flush=True)
+    _check_native("gs", gs["native_calls"], GS_NATIVE_WRAPPERS)
+    _check_native("gs (Chebyshev)", cheb["native_calls"],
+                  CHEB_NATIVE_WRAPPERS)
     for k in on_path:
         if cheb["kernel_launches_warm"][k] <= 0:
             raise AssertionError(f"kernel {k} never launched (Chebyshev)")
@@ -2519,6 +2596,15 @@ DIST_JAX_IT = 16
 # the sharded solve's (shards=8: plain tile-ELL, every level padded to a
 # multiple of 64 rows)
 DIST_FORMATS = ["DiaMatrix"] + ["TileELLStack"] * 3 + ["DenseMatrix"] * 3
+# the native wrappers the JAX package's native run reaches through the
+# distributed setup and its staging (the CPU test's h1_dist problem)
+DIST_NATIVE_WRAPPERS = (
+    "truncate_prol_blocks", "csr_permute", "csr_sym_scale",
+    "tile_chunk_counts", "tile_ell_fill_range", "tile_ell_pack",
+    "cluster_detect",
+)
+DIST_NUMPY_RECORD = {"setup_host_s": [22.353, 27.849],
+                     "setup_staging_s": [10.322, 11.879]}
 SHARDED_FORMATS = ["DiaMatrix"] + ["TileELL"] * 3 + ["DenseMatrix"] * 3
 # ... and on unstructured_elasticity(140, dim=2), max_coarse_size 60
 DIST_ELAST_N = 140
@@ -2582,7 +2668,10 @@ def phase_dist_setup(p):
                      "sym_half": bool(getattr(A0, "sym_half", False)),
                      "offsets": list(getattr(A0, "offsets", ())),
                      "plan": _variant(A0) if hasattr(A0, "launch") else None}
+    out["setup_numpy_record"] = DIST_NUMPY_RECORD
+    out["card"] = _nvidia_smi()
     print("[dist-setup] " + json.dumps(out), flush=True)
+    _check_native("dist-setup", out["native_calls"], DIST_NATIVE_WRAPPERS)
     _check_dist_log("dist-setup", out, DIST_LEVELS, DIST_OC, DIST_CONTRACT,
                     DIST_SHARDS_PER_LEVEL, 4)
     if not out["peak_shard_bytes"] < 4 * out["finest_global_bytes"] \
@@ -2730,7 +2819,9 @@ def phase_mp_setup(q_elast):
                       for st in log.mp_rank_stats],
         }
         mp[label] = (levels, log)
-        if label.startswith("unstructured_elasticity") and not all(
+        # a scalar rank's level loop and an elasticity rank's both truncate
+        # P in the native kernel
+        if not all(
                 st["native_calls"].get("truncate_prol_blocks", {}).get(
                     "native") for st in log.mp_rank_stats):
             raise AssertionError(f"mp-setup {label}: a rank made no native "

@@ -1,10 +1,12 @@
 """H1 (scalar / vector diffusion) AMG energy.
 
-Copied from ngsamg_tpu/apps/h1.py, numpy branches only (the original's
-fused native passes ``finest_mesh_scal`` and ``spw_round_h1`` compute the
-same results; without ``spw_round`` the pairwise coarsener takes its numpy
-matching round). Following the reference's H1 component (h1_energy.hpp,
-h1.hpp:45-138, h1_impl.hpp:384-431):
+Copied from ngsamg_tpu/apps/h1.py with its native branches: the finest
+mesh comes from one fused pass (``native.finest_mesh_scal``) and
+``spw_round`` gives the pairwise coarsener a fused matching round
+(``native.spw_round_h1``); with ``native.HAVE_NATIVE`` off the numpy code
+beside each call runs, and the coarsener takes its numpy round. Following
+the reference's H1 component (h1_energy.hpp, h1.hpp:45-138,
+h1_impl.hpp:384-431):
 
 * mesh edge data: SIGNED edge weight -a_ij (attractive couplings positive)
 * mesh vertex data: L2 weight = max(signed row sum, 0) — the zero-order
@@ -23,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse as sp
 
+from .. import native
 from ..mesh.topo import AlgebraicMesh
 from ..sparse.host import to_bsr
 from .base import Energy
@@ -39,37 +42,45 @@ class H1Energy(Energy):
     def build_finest_mesh(self, A, coords=None) -> AlgebraicMesh:
         bs = self.bs
         if bs == 1:
-            T = A.tocsr().copy()
+            T = A.tocsr()
         else:
             B = to_bsr(A, bs)
             tr = np.einsum("nii->n", B.data)
             nv = B.shape[0] // bs
-            # own copies of the structure: setdiag/eliminate_zeros below
-            # mutate them in place, and B is the cached view of A
-            T = sp.csr_matrix(
-                (tr, B.indices.copy(), B.indptr.copy()), shape=(nv, nv)
-            )
+            T = sp.csr_matrix((tr, B.indices, B.indptr), shape=(nv, nv))
         # Edges keep every off-diagonal coupling with SIGNED weight
         # -trace(a_ij): attractive couplings positive, repulsive negative.
         # Strength/energy consumers clamp to the attractive part (the
         # standard SA strength filter), while coarse-level Galerkin weight
         # sums (map_data) stay signed so repulsive couplings CANCEL
         # attractive ones between aggregates.
-        # vertex weight: signed row sum incl. diagonal == L2 part
-        rsum = np.asarray(T.sum(axis=1)).ravel()
-        vwt = np.maximum(rsum, 0.0)
-        diag = T.diagonal().copy()
-        T.setdiag(0.0)
-        T.eliminate_zeros()
-        # edge list + signed weight -a_ij, upper triangle
-        U = sp.triu(T, k=1).tocoo()
-        mesh = AlgebraicMesh(
-            nv=T.shape[0],
-            edges=np.stack([U.row, U.col], axis=1).astype(np.int64),
-        )
+        res = native.finest_mesh_scal(T, signed_wt=True)
+        if res is not None:
+            # fused native pass (diag, signed rowsum, upper edges, wt)
+            diag, rsum, edges, ewt = res
+            vwt = np.maximum(rsum, 0.0)
+            mesh = AlgebraicMesh(nv=T.shape[0], edges=edges)
+        else:
+            # own copies of the structure: setdiag/eliminate_zeros below
+            # mutate them in place, and T may be A or share the index
+            # arrays of A's cached BSR view
+            T = T.copy()
+            # vertex weight: signed row sum incl. diagonal == L2 part
+            rsum = np.asarray(T.sum(axis=1)).ravel()
+            vwt = np.maximum(rsum, 0.0)
+            diag = T.diagonal().copy()
+            T.setdiag(0.0)
+            T.eliminate_zeros()
+            # edge list + signed weight -a_ij, upper triangle
+            U = sp.triu(T, k=1).tocoo()
+            mesh = AlgebraicMesh(
+                nv=T.shape[0],
+                edges=np.stack([U.row, U.col], axis=1).astype(np.int64),
+            )
+            ewt = -U.data
         mesh.vertex_data["l2wt"] = vwt
         mesh.vertex_data["diag"] = diag
-        mesh.edge_data["wt"] = -U.data
+        mesh.edge_data["wt"] = ewt
         if coords is not None:
             mesh.vertex_data["pos"] = np.asarray(coords, dtype=np.float64)
         return mesh
@@ -91,6 +102,22 @@ class H1Energy(Energy):
         )
         d = np.maximum(d, 1e-300)
         return w * 0.5 * (1.0 / d[i] + 1.0 / d[j])
+
+    # -- fused native matching round ---------------------------------------
+    def spw_round(self, mesh: AlgebraicMesh, theta: float, can_match):
+        """One fused matching round: the partner of every vertex, or None.
+
+        ``native.spw_round_h1`` computes soc() + edge_graph() +
+        pairwise.handshake_match in one C++ pass. None with
+        ``native.HAVE_NATIVE`` off, and on a mesh without the H1 data
+        (``wt``, ``l2wt``; counted as declined): the coarsener then takes
+        its numpy round.
+        """
+        w = mesh.edge_data.get("wt")
+        l2 = mesh.vertex_data.get("l2wt")
+        if w is None or l2 is None:
+            return native.declined("spw_round_h1")
+        return native.spw_round_h1(mesh.edges, w, l2, can_match, theta)
 
     # -- transport --------------------------------------------------------
     def transport(self, pos_from, pos_to) -> np.ndarray:

@@ -1,8 +1,11 @@
 """Successive pairwise-agglomeration coarsening (SPW), data-parallel form.
 
-Copied from ngsamg_tpu/coarsen/pairwise.py with its numpy code (the
-original's native ``handshake_match``, ``collapse_graph`` and fused H1
-matching round compute the same results). The reference's
+Copied from ngsamg_tpu/coarsen/pairwise.py with its native branches: as
+there, the matching round runs in ``native.handshake_match`` (with its
+tie-break jitter in the kernel), the strength-graph collapse in
+``native.collapse_graph``, and an energy with a fused round (H1:
+``native.spw_round_h1``) matches in one pass; with ``native.HAVE_NATIVE``
+off the numpy code beside each call runs. The reference's
 `SPWAgglomerator` (spw_agg.hpp:15-165, spw_agg_impl.hpp:1440-1831) runs
 `numRounds` rounds of greedy pairwise matching; here each round is
 *handshake matching*:
@@ -22,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse as sp
 
+from .. import native
 from ..sparse.host import csr_rowwise_argmax, csr_rowwise_max
 
 
@@ -34,6 +38,11 @@ def handshake_match(S: sp.csr_matrix, theta: float, can_match: np.ndarray):
     """
     n = S.shape[0]
     indptr, indices, vals = S.indptr, S.indices, S.data
+    nat = native.handshake_match(
+        indptr, indices, vals, can_match, theta, 8, jitter=True
+    )
+    if nat is not None:
+        return np.asarray(nat)
     rowmax = csr_rowwise_max(indptr, vals)
     # Symmetric tie-break jitter: on structured grids all strengths tie and
     # deterministic argmax yields zero mutual proposals (every vertex points
@@ -95,6 +104,9 @@ def aggregates_from_partner(partner: np.ndarray, active: np.ndarray):
 
 def coarse_strength_graph(S: sp.csr_matrix, v2agg: np.ndarray, n_agg: int):
     """Galerkin-collapse the strength graph onto aggregates (sum weights)."""
+    Sc = native.collapse_graph(S, v2agg, n_agg)
+    if Sc is not None:
+        return Sc
     n = S.shape[0]
     act = v2agg >= 0
     rows = np.flatnonzero(act)
@@ -374,6 +386,10 @@ def spw_aggregate_energy(
         if diag_stab_boost
         else {}
     )
+    # the fused native round (None where the robust SOC scores the pairs)
+    # reads the mesh's l2wt, so the scalar stab retention (applied in
+    # map_data) composes with it unchanged
+    fast_round = None if use_robust else getattr(energy, "spw_round", None)
     # big-SOC vets on the FINE mesh: its full aux diagonal is
     # round-invariant, compute it once outside the round loop
     big_soc_D = (
@@ -389,15 +405,19 @@ def spw_aggregate_energy(
             cm = cm & (sizes * 2 <= max_agg)
         if not cm.any():
             break
-        soc = (
-            _robust_soc_prefiltered(
-                energy, cur_mesh, rob_kw, scal_rel_thresh
+        partner = None
+        if fast_round is not None:
+            partner = fast_round(cur_mesh, theta, None if cm.all() else cm)
+        if partner is None:
+            soc = (
+                _robust_soc_prefiltered(
+                    energy, cur_mesh, rob_kw, scal_rel_thresh
+                )
+                if use_robust
+                else energy.soc(cur_mesh)
             )
-            if use_robust
-            else energy.soc(cur_mesh)
-        )
-        S = cur_mesh.edge_graph(weights=soc)
-        partner = handshake_match(S, theta, can_match=cm)
+            S = cur_mesh.edge_graph(weights=soc)
+            partner = handshake_match(S, theta, can_match=cm)
         if big_soc and _round >= 1 and hasattr(energy, "transport"):
             # agglomerate-wide acceptance (checkBigSOC, !FIRST_ROUND
             # like the reference): vet merged unions on the

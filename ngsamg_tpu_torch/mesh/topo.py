@@ -3,8 +3,9 @@
 Copied from ngsamg_tpu/mesh/topo.py: vertices + undirected edges with
 per-vertex and per-edge energy data in plain numpy arrays (host side,
 setup only), the edge-graph and scatter helpers, and the aggregation edge
-map. Only the numpy branches are kept: the native extension calls of the
-original (``edges_to_adj``, ``map_edges_agg``) compute the same results.
+map. As in the original, the edge graph and the edge map first ask the
+native extension (``native.edges_to_adj``, ``native.map_edges_agg``); the
+numpy code beside each call runs where ``native.HAVE_NATIVE`` is off.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import scipy.sparse as sp
 
+from .. import native
 
 @dataclass
 class AlgebraicMesh:
@@ -35,6 +37,9 @@ class AlgebraicMesh:
         """
         i, j = self.edges[:, 0], self.edges[:, 1]
         w = weights if weights is not None else np.arange(self.ne) + 1.0
+        G = native.edges_to_adj(self.edges, w, self.nv)
+        if G is not None:
+            return G
         G = sp.coo_matrix(
             (np.concatenate([w, w]), (np.concatenate([i, j]), np.concatenate([j, i]))),
             shape=(self.nv, self.nv),
@@ -80,6 +85,9 @@ def map_edges(mesh: AlgebraicMesh, v2agg: np.ndarray, n_agg: int):
 
     Returns (coarse_edges (nec,2), e2ce (ne,) int64 with -1 for collapsed).
     """
+    nat = native.map_edges_agg(mesh.edges, v2agg, n_agg)
+    if nat is not None:
+        return nat
     ci = v2agg[mesh.edges[:, 0]]
     cj = v2agg[mesh.edges[:, 1]]
     lo = np.minimum(ci, cj)

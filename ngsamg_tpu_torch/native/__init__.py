@@ -15,11 +15,16 @@ False) without building anything, and the caller runs its numpy branch.
 Apart from that a wrapper returns None only where the original does for the
 input's shape (``bsr_mm``, ``rap_bsr``, ``bsr_smooth_update``,
 ``truncate_prol_blocks``): the caller then takes its numpy branch, as the
-JAX package does, and the hierarchy stays the JAX package's.
+JAX package does, and the hierarchy stays the JAX package's. A caller that
+does not send an input to its wrapper, where the original's caller does not
+either (``H1Energy.spw_round`` on a mesh without ``wt`` or ``l2wt``,
+``_smoothed_prol_scalar_native`` without a scalar level matrix), says so
+with :func:`declined`.
 
 ``CALLS[name]`` counts each wrapper's calls: ``native`` where the C++ ran,
-``declined`` where the wrapper returned None for the input's shape. Two
-methods of the extension have no wrapper (``ell_slots``,
+``declined`` where the wrapper or its caller returned None for the input's
+shape, so the counts say where the JAX package's native run takes numpy.
+Two methods of the extension have no wrapper (``ell_slots``,
 ``collapse_signed``); ``extension()`` reaches them.
 
 This module imports neither torch nor the JAX package: the host-setup ranks
@@ -79,6 +84,15 @@ def _run(name, *args):
 def _declined(name):
     """None for an input shape the method does not take, counted."""
     CALLS[name]["declined"] += 1
+    return None
+
+
+def declined(name):
+    """None for an input its caller does not send to wrapper ``name``,
+    counted as a decline where ``HAVE_NATIVE`` is on (with it off the
+    caller takes its numpy branch anyway, and nothing is counted)."""
+    if HAVE_NATIVE:
+        CALLS[name]["declined"] += 1
     return None
 
 

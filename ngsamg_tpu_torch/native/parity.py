@@ -1,19 +1,29 @@
-"""Each block-setup wrapper against its numpy branch, on one problem.
+"""Each native setup wrapper against its numpy branch, on one problem.
 
-The elasticity setup (ROADMAP item 10b) reaches fifteen wrappers of
-``ngsamg_tpu_torch.native``. :func:`block_setup_parity` sets up the host
-hierarchy of an elasticity problem with the native branches, takes its
+:func:`block_setup_parity`: the elasticity setup (ROADMAP item 10b)
+reaches fifteen wrappers of ``ngsamg_tpu_torch.native``. It sets up the
+host hierarchy of an elasticity problem with the native branches, takes its
 finest level (matrix, mesh, aggregation, prolongation) and the next
 level's mesh, and runs every one of those wrappers' callers twice on the
 same inputs: with ``native.HAVE_NATIVE`` on, and off (the numpy branch
-beside the call). Integer outputs (indptr, indices) must be equal; float
-outputs agree within ``TOLERANCES[wrapper]`` (max |native - numpy| over
-max |numpy|). The native robust SOC and pencil eigenvalues come from a
-Jacobi eigensolver, numpy's from LAPACK, and the power iteration and the
-products sum in another order, hence the tolerances.
+beside the call). Integer outputs (indptr, indices, integer arrays) must be
+equal; float outputs agree within ``TOLERANCES[wrapper]`` (max |native -
+numpy| over max |numpy|). The native robust SOC and pencil eigenvalues come
+from a Jacobi eigensolver, numpy's from LAPACK, and the power iteration and
+the products sum in another order, hence the tolerances.
 
-tests/test_torch_native.py runs it on a small problem; chip_smoke.py's
-``[native]`` phase on ``unstructured_elasticity(12, dim=3, refine=1)``.
+:func:`scalar_setup_parity` does the same for the sixteen scalar-setup and
+staging wrappers (item 10c) on the finest level and the first coarse level
+of a scalar H1 hierarchy: the finest mesh, the matching rounds, the edge
+maps, the smoothed prolongation, the Galerkin product, the coloring, the
+cluster detection, the row permutation, the scaling and the tile-ELL
+packers. Edges, partners, aggregates, colours, cluster sets, permutations
+and tile columns are integers and must be equal; values agree within
+``SCALAR_TOLERANCES``.
+
+tests/test_torch_native.py runs both on small problems; chip_smoke.py's
+``[native]`` phase on ``unstructured_elasticity(12, dim=3, refine=1)`` and
+``unstructured_poisson(16, dim=3, refine=1)``.
 """
 
 from __future__ import annotations
@@ -73,11 +83,13 @@ def _parts(x):
             ints += i
             floats += f
         return ints, floats
-    x = np.asarray(x, dtype=np.float64)
-    return [], [x]
+    x = np.asarray(x)
+    if x.dtype.kind in "iub":
+        return [x.astype(np.int64)], []
+    return [], [x.astype(np.float64)]
 
 
-def _compare(name, native_out, numpy_out) -> dict:
+def _compare(name, native_out, numpy_out, tolerances=TOLERANCES) -> dict:
     ia, fa = _parts(native_out)
     ib, fb = _parts(numpy_out)
     ints_equal = len(ia) == len(ib) and all(
@@ -91,7 +103,7 @@ def _compare(name, native_out, numpy_out) -> dict:
         scale = np.abs(b).max(initial=0.0)
         d = np.abs(a - b).max(initial=0.0)
         rel = max(rel, d / scale if scale > 0 else d)
-    tol = TOLERANCES[name]
+    tol = tolerances[name]
     return {
         "wrapper": name,
         "ints_equal": bool(ints_equal),
@@ -232,3 +244,176 @@ def block_setup_parity(A, coords, dim: int) -> list[dict]:
         row["ok"] = row["ok"] and calls > 0
         rows.append(row)
     return rows
+
+
+# per scalar wrapper: the bound on max |native - numpy| / max |numpy|
+SCALAR_TOLERANCES = {
+    "finest_mesh_scal": 1e-12,
+    "edges_to_adj": 0.0,
+    "map_edges_agg": 0.0,
+    "spw_round_h1": 0.0,
+    "handshake_match": 0.0,
+    "collapse_graph": 1e-12,
+    "rho_power_h1": 1e-10,
+    "smoothed_prol_scalar": 1e-10,
+    "rap_csr": 1e-12,
+    "greedy_color": 0.0,
+    "cluster_detect": 1e-10,
+    "csr_permute": 0.0,
+    "csr_sym_scale": 1e-15,
+    "tile_chunk_counts": 0.0,
+    "tile_ell_fill_range": 0.0,
+    "tile_ell_pack": 0.0,
+}
+
+
+def _cluster_sets(cc):
+    """The clusters of a correction as integers: each cluster's sorted
+    rows followed by -1, clusters in ascending order, and the inverses'
+    entries in the same cluster order (or empty arrays without one)."""
+    if cc is None:
+        return np.zeros(0, dtype=np.int64), np.zeros(0)
+    idx, inv = cc.idx.cpu().numpy(), cc.inv.cpu().numpy()
+    used = np.abs(inv).sum(axis=2) > 0
+    clusters = sorted(
+        (tuple(sorted(int(v) for v in r[u])), k)
+        for k, (r, u) in enumerate(zip(idx, used))
+    )
+    flat = [v for c, _ in clusters for v in (*c, -1)]
+    # each inverse in the ascending order of its cluster's rows
+    invs = []
+    for c, k in clusters:
+        rows = idx[k][used[k]]
+        order = np.argsort(rows)
+        sel = np.flatnonzero(used[k])[order]
+        invs.append(inv[k][np.ix_(sel, sel)].ravel())
+    return np.asarray(flat, dtype=np.int64), np.concatenate(invs)
+
+
+def _tile_arrays(te):
+    """(cols, data) of a plain or stacked tile-ELL as host arrays."""
+    blocks = te.blocks if hasattr(te, "blocks") else (te,)
+    return [
+        (b.cols.cpu().numpy(), b.data.cpu().numpy()) for b in blocks
+    ]
+
+
+def scalar_setup_parity(A, coords, theta: float = 0.08) -> list[dict]:
+    """One row per scalar-setup and staging wrapper: its callers with the
+    switch on and off on the finest level and the first coarse level of
+    ``A``'s scalar H1 hierarchy (Chebyshev options, host setup with the
+    native branches), the integer outputs compared exactly, the float ones
+    against ``SCALAR_TOLERANCES``, and the native calls the switch-on runs
+    made (``native_calls``, > 0)."""
+    from .. import native
+    from ..apps.h1 import H1Energy
+    from ..coarsen.pairwise import coarse_strength_graph, handshake_match
+    from ..config import AMGOptions, SmootherOptions, SmootherType
+    from ..factory.levels import setup_levels
+    from ..mesh.topo import map_edges
+    from ..precond.amg import _sym_scale
+    from ..smoothers.cluster_corr import detect_clusters
+    from ..smoothers.coloring import jones_plassmann_coloring
+    from ..sparse import formats
+    from ..transfer.galerkin import rap
+    from ..transfer.prolongation import (
+        _rho_estimate_h1_edges,
+        piecewise_prol,
+        smoothed_prol,
+    )
+
+    en = H1Energy()
+    opts = AMGOptions(
+        smoother=SmootherOptions(type=SmootherType.CHEBYSHEV)
+    )
+    with _switch(True):
+        levels, _log = setup_levels(A.tocsr(), en, opts, coords)
+    if len(levels) < 3:
+        raise ValueError("the problem must coarsen at least twice")
+
+    def level_cases(i):
+        lev, nxt = levels[i], levels[i + 1]
+        mesh, cmesh, v2agg, n_agg = lev.mesh, nxt.mesh, lev.v2agg, nxt.mesh.nv
+        Ai = lev.A.tocsr()
+        n = Ai.shape[0]
+        with _switch(True):
+            soc = en.soc(mesh)
+            S = mesh.edge_graph(weights=soc)
+            perm = formats.plan_reorder(Ai, 1)
+            Ap = formats.permute(Ai, perm, perm)
+            As = _sym_scale(Ap)[0]
+        Ppw = piecewise_prol(en, mesh, cmesh, v2agg)
+        cm = np.ones(n, dtype=bool)
+        cm[:: 7] = False
+        W = abs(Ai).tocsr()
+        W.setdiag(0.0)
+        W.eliminate_zeros()
+        T = -(-n // formats.TILE_M)
+
+        def numpy_round():
+            return handshake_match(
+                mesh.edge_graph(weights=en.soc(mesh)), theta,
+                np.ones(n, dtype=bool),
+            )
+
+        def finest_mesh():
+            m = en.build_finest_mesh(Ai, None)
+            return (m.edges, m.edge_data["wt"], m.vertex_data["l2wt"],
+                    m.vertex_data["diag"])
+
+        return {
+            "finest_mesh_scal": (finest_mesh,) * 2,
+            "edges_to_adj": (lambda: mesh.edge_graph(weights=soc),) * 2,
+            "map_edges_agg": (lambda: map_edges(mesh, v2agg, n_agg),) * 2,
+            "spw_round_h1": (lambda: en.spw_round(mesh, theta, None),
+                             numpy_round),
+            "handshake_match": (lambda: handshake_match(S, theta, cm),) * 2,
+            "collapse_graph": (
+                lambda: coarse_strength_graph(S, v2agg, n_agg),) * 2,
+            "rho_power_h1": (
+                lambda: _rho_estimate_h1_edges(
+                    mesh.edges, mesh.edge_data["wt"],
+                    mesh.vertex_data["l2wt"],
+                ),) * 2,
+            "smoothed_prol_scalar": (
+                lambda: smoothed_prol(
+                    en, mesh, cmesh, v2agg, Ppw, A=Ai, row_bs=1,
+                ),) * 2,
+            "rap_csr": (lambda: rap(Ai, lev.P, dtype=np.float64),) * 2,
+            "greedy_color": (lambda: jones_plassmann_coloring(W),) * 2,
+            "cluster_detect": (
+                lambda: _cluster_sets(detect_clusters(As)),) * 2,
+            "csr_permute": (lambda: formats.permute(Ai, perm, perm),) * 2,
+            "csr_sym_scale": (lambda: _sym_scale(Ap)[0],) * 2,
+            "tile_chunk_counts": (
+                lambda: formats._tile_chunk_counts(
+                    Ap, formats.TILE_CHUNK, T),) * 2,
+            "tile_ell_fill_range": (
+                lambda: _tile_arrays(
+                    formats.tile_ell_stack_from_scipy(Ap, np.float32)),) * 2,
+            "tile_ell_pack": (
+                lambda: _tile_arrays(
+                    formats.tile_ell_from_scipy(lev.P, np.float32)),) * 2,
+        }
+
+    rows = {}
+    for i in (0, 1):
+        for name, (fn_native, fn_numpy) in level_cases(i).items():
+            before = native.CALLS[name]["native"]
+            with _switch(True):
+                a = fn_native()
+            calls = native.CALLS[name]["native"] - before
+            with _switch(False):
+                b = fn_numpy()
+            row = _compare(name, a, b, SCALAR_TOLERANCES)
+            row["native_calls"] = calls
+            row["ok"] = row["ok"] and calls > 0
+            prev = rows.get(name)
+            if prev is not None:
+                row["ints_equal"] &= prev["ints_equal"]
+                row["max_rel_diff"] = max(row["max_rel_diff"],
+                                          prev["max_rel_diff"])
+                row["native_calls"] += prev["native_calls"]
+                row["ok"] &= prev["ok"]
+            rows[name] = row
+    return list(rows.values())

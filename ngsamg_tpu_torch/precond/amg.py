@@ -119,9 +119,8 @@ def _block_rows(B: sp.bsr_matrix) -> np.ndarray:
 def _sym_scale(A: sp.spmatrix):
     """Scale a matrix (CSR or BSR, already permuted) to unit diagonal:
     returns (S A S, s) with S = diag(s), s = 1/sqrt(diag(A)). A BSR stays
-    BSR, scaled on its blocks by the native ``bsr_sym_scale`` (numpy with
-    ``native.HAVE_NATIVE`` off); a CSR is scaled in numpy (the original's
-    native ``csr_sym_scale`` is item 10c)."""
+    BSR, scaled on its blocks by the native ``bsr_sym_scale``, and a CSR by
+    the native ``csr_sym_scale`` (numpy with ``native.HAVE_NATIVE`` off)."""
     d = A.diagonal()
     s = np.where(d > 0, 1.0 / np.sqrt(np.where(d > 0, d, 1.0)), 1.0)
     if A.format == "bsr":
@@ -135,8 +134,10 @@ def _sym_scale(A: sp.spmatrix):
         out.has_sorted_indices = A.has_sorted_indices
         return out, s
     A = A.tocsr()
-    rows = np.repeat(np.arange(A.shape[0]), np.diff(A.indptr))
-    dat = A.data * (s[rows] * s[A.indices])
+    dat = native.csr_sym_scale(A, s)
+    if dat is None:
+        rows = np.repeat(np.arange(A.shape[0]), np.diff(A.indptr))
+        dat = A.data * (s[rows] * s[A.indices])
     return sp.csr_matrix((dat, A.indices, A.indptr), shape=A.shape), s
 
 
@@ -144,10 +145,8 @@ def _stage_prolongation(P, perm_f, perm_c, s_f, s_c) -> sp.csr_matrix:
     """A level's host prolongation in the device row orders of both levels
     and, on scaled hierarchies, as P' = S_f^-1 P S_c."""
     P = P.tocsr()
-    if perm_f is not None:
-        P = P[perm_f]
-    if perm_c is not None:
-        P = P[:, perm_c]
+    if perm_f is not None or perm_c is not None:
+        P = formats.permute(P, perm_f, perm_c)
     if s_f is None and s_c is None:
         return P
     dat = P.data.copy()
@@ -604,7 +603,7 @@ class AMGPreconditioner:
                 p = (
                     perms[i][:, None] * lev.row_bs + np.arange(lev.row_bs)
                 ).ravel()
-                A = A[p][:, p].tocsr()
+                A = formats.permute(A, p, p)
             if use_scaling:
                 A, svecs[i] = _sym_scale(A)
             _mark("permute")

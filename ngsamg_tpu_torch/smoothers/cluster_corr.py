@@ -12,12 +12,13 @@ multigrid cycle (solve/cycle.py ``amg_apply``):
     z += V(b - A z)               (the usual AMG cycle)
     z += C (b - A z)
 
-Detection (host, setup phase, numpy copy of the original's fallback; its
-native ``cluster_detect`` finds the same clusters): connected components of
-the magnitude-strength graph |a_ij| >= beta * sqrt(a_ii a_jj), keep
-components of size 2..max_size whose local block has lambda_min <
-eig_ratio * max(diag). Application (device): one gather, one batched
-product, one ``index_add_``.
+Detection (host, setup phase): connected components of the
+magnitude-strength graph |a_ij| >= beta * sqrt(a_ii a_jj), keep components
+of size 2..max_size whose local block has lambda_min < eig_ratio *
+max(diag). As in the original, one fused native pass
+(``native.cluster_detect``) finds and extracts the candidate clusters; the
+numpy code beside it runs with ``native.HAVE_NATIVE`` off. Application
+(device): one gather, one batched product, one ``index_add_``.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from .. import native
 
 @dataclass(frozen=True)
 class ClusterCorrection:
@@ -88,6 +90,25 @@ def detect_clusters(
     n = A.shape[0]
     if n == 0:
         return None
+    nat = native.cluster_detect(A, beta, eig_ratio, max_size)
+    if nat is not None:
+        blocks, members, csz = nat
+        res = _finish(blocks, members, csz.astype(np.int64), eig_ratio)
+    else:
+        res = _detect_numpy(A, beta, eig_ratio, max_size)
+    if res is None:
+        return None
+    idx, inv = res
+    return ClusterCorrection(
+        idx=torch.from_numpy(idx).to(device),
+        inv=torch.from_numpy(inv.astype(dtype)).to(device),
+    )
+
+
+def _detect_numpy(A: sp.csr_matrix, beta, eig_ratio, max_size):
+    """The numpy branch of :func:`detect_clusters`: the host arrays of
+    :func:`_finish`, or None."""
+    n = A.shape[0]
     d = A.diagonal()
     coo = A.tocoo()
     off = coo.row != coo.col
@@ -129,14 +150,7 @@ def detect_clusters(
     blocks[vcid[br], vslot[br], vslot[bc]] = bv
     members = np.zeros((ncl, K), dtype=np.int64)
     members[cl_of, slot] = memb_sorted
-    res = _finish(blocks, members, sizes[elig], eig_ratio)
-    if res is None:
-        return None
-    idx, inv = res
-    return ClusterCorrection(
-        idx=torch.from_numpy(idx).to(device),
-        inv=torch.from_numpy(inv.astype(dtype)).to(device),
-    )
+    return _finish(blocks, members, sizes[elig], eig_ratio)
 
 
 def cluster_apply(cc: ClusterCorrection, r: torch.Tensor) -> torch.Tensor:

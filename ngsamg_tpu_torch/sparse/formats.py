@@ -22,6 +22,13 @@ hierarchies stage (see ``format_from_stencil`` and ``choose_format``):
 * :class:`~ngsamg_tpu_torch.sparse.bell.BlockELL` (sparse/bell.py) — block
   (bs > 1) unstructured levels and their transfers.
 
+The host packers of tile-ELL run in the native extension, as in the JAX
+package (``native.tile_chunk_counts``, ``tile_ell_fill_range``,
+``tile_ell_pack``, and ``csr_permute`` for ``plan_reorder``'s tile sort);
+the numpy code beside each call runs with ``native.HAVE_NATIVE`` off and
+packs the same arrays. Column slots are stored as int64 on the device
+(the kernels emit int32; one cast after the fill).
+
 Vectors are (nrows_pad, bs) tensors, as in the JAX package. The matvec of
 a CUDA tensor always runs the hand-written kernel where there is one (at
 every size); a CPU tensor takes the kernel's plain PyTorch version. The
@@ -39,6 +46,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from .. import native
 from ..ops import dia_cuda, stencil_cuda
 from . import bell as _bell
 
@@ -406,6 +414,9 @@ _STACK_MIN_TILES = 512  # merge smaller bucket runs (bounds op count)
 
 def _tile_chunk_counts(C: sp.csr_matrix, chunk: int, T: int):
     """Distinct column-chunk count per tile (tiles = TILE_M-row groups)."""
+    cnt = native.tile_chunk_counts(C.indptr, C.indices, TILE_M, chunk, T)
+    if cnt is not None:
+        return cnt
     n = C.shape[0]
     t_rows = min(T * TILE_M, n)
     nnz_head = int(C.indptr[t_rows])
@@ -497,9 +508,9 @@ def tile_ell_from_scipy(
     """Pack a scalar matrix into a plain :class:`TileELL` (chunk 1, one
     slot count K = the largest distinct-column count of any tile).
 
-    A numpy copy of the JAX package's native packer (ngsamg_tpu/native/
-    kernels.cpp ``tile_ell_pack``): tile t stores its rows' values at the
-    tile's distinct columns in ascending order. ``nr_pad``/``nc_pad`` pin
+    Tile t stores its rows' values at the tile's distinct columns in
+    ascending order: the native packer (``native.tile_ell_pack``), or its
+    numpy copy with ``native.HAVE_NATIVE`` off. ``nr_pad``/``nc_pad`` pin
     the interface sizes for rectangular transfers.
     """
     C = A.tocsr()
@@ -508,10 +519,40 @@ def tile_ell_from_scipy(
     if nc_pad is None:
         nc_pad = _round_up(nc, TILE_M)
     T = nr_pad // TILE_M
-    slots = _tile_slots(C, 1, T)
-    K = max(int(slots[-1].max(initial=1)), 1)
-    data, cols = _fill_tiles(slots, 0, T, K, 1, np.dtype(dtype))
+    dt = np.dtype(dtype)
+    res = native.tile_ell_pack(C, TILE_M, T)
+    if res is not None:
+        data, cols, _K = res
+        data = data.astype(dt, copy=False)
+        cols = cols.astype(np.int64)
+    else:
+        slots = _tile_slots(C, 1, T)
+        K = max(int(slots[-1].max(initial=1)), 1)
+        data, cols = _fill_tiles(slots, 0, T, K, 1, dt)
     return _tile_ell(data, cols, nr, nc_pad, 1, device)
+
+
+def _fill_buckets_native(C: sp.csr_matrix, bounds, Ks, dtype):
+    """(data, cols) of each bucket of tiles [bounds[b], bounds[b + 1]) with
+    Ks[b] slots, filled by ``native.tile_ell_fill_range`` into zeroed
+    arrays; None with ``native.HAVE_NATIVE`` off, and (counted as
+    declined) for a value type the kernel does not take."""
+    if dtype not in (np.dtype(np.float32), np.dtype(np.float64)):
+        return native.declined("tile_ell_fill_range")
+    if C.data.dtype != dtype:
+        C = sp.csr_matrix(
+            (C.data.astype(dtype), C.indices, C.indptr), shape=C.shape
+        )
+    out = []
+    for t0, t1, K in zip(bounds[:-1], bounds[1:], Ks):
+        data = np.zeros((t1 - t0, K, TILE_CHUNK, TILE_M), dtype=dtype)
+        cols = np.zeros((t1 - t0, K), dtype=np.int32)
+        if not native.tile_ell_fill_range(
+            C, TILE_M, TILE_CHUNK, t0, t1, K, data, cols
+        ):
+            return None
+        out.append((data, cols.astype(np.int64)))
+    return out
 
 
 def tile_ell_stack_from_scipy(
@@ -553,16 +594,19 @@ def tile_ell_stack_from_scipy(
         int(max(cnt[bounds[b]: bounds[b + 1]].max(initial=1), 1))
         for b in range(len(bounds) - 1)
     ]
-    # global slot assignment (rank of each (tile, chunk) pair within its
-    # tile), then one scatter per bucket
-    slots = _tile_slots(C, TILE_CHUNK, T)
+    dt = np.dtype(dtype)
+    fills = _fill_buckets_native(C, bounds, Ks, dt)
+    if fills is None:
+        # global slot assignment (rank of each (tile, chunk) pair within
+        # its tile), then one scatter per bucket
+        slots = _tile_slots(C, TILE_CHUNK, T)
+        fills = [
+            _fill_tiles(slots, t0, t1, K, TILE_CHUNK, dt)
+            for t0, t1, K in zip(bounds[:-1], bounds[1:], Ks)
+        ]
     blocks = []
-    for b in range(len(bounds) - 1):
-        t0, t1 = bounds[b], bounds[b + 1]
-        data, cols = _fill_tiles(
-            slots, t0, t1, Ks[b], TILE_CHUNK, np.dtype(dtype)
-        )
-        rows = min(max(nr - t0 * TILE_M, 0), (t1 - t0) * TILE_M)
+    for t0, (data, cols) in zip(bounds, fills):
+        rows = min(max(nr - t0 * TILE_M, 0), data.shape[0] * TILE_M)
         blocks.append(
             _tile_ell(data, cols, rows, nc_pad, TILE_CHUNK, device)
         )
@@ -573,6 +617,21 @@ def tile_ell_stack_from_scipy(
         ncols_pad=nc_pad,
         tile_m=TILE_M,
     )
+
+
+def permute(A: sp.spmatrix, rowperm, colperm) -> sp.csr_matrix:
+    """``A[rowperm][:, colperm]`` as a CSR (either permutation may be
+    None; both map new indices to old): the native ``csr_permute``, or
+    scipy's fancy indexing with ``native.HAVE_NATIVE`` off."""
+    out = native.csr_permute(A, rowperm, colperm)
+    if out is not None:
+        return out
+    out = A.tocsr()
+    if rowperm is not None:
+        out = out[rowperm]
+    if colperm is not None:
+        out = out[:, colperm]
+    return out.tocsr()
 
 
 def plan_reorder(A: sp.spmatrix, bs: int, tile_sort: bool = True):
@@ -602,8 +661,7 @@ def plan_reorder(A: sp.spmatrix, bs: int, tile_sort: bool = True):
     Tfull = n // TILE_M
     if Tfull < 2 or not tile_sort:
         return rcm
-    Ar = A.tocsr()[rcm][:, rcm].tocsr()
-    cnt = _tile_chunk_counts(Ar, TILE_CHUNK, Tfull)
+    cnt = _tile_chunk_counts(permute(A, rcm, rcm), TILE_CHUNK, Tfull)
     order = np.argsort(-cnt, kind="stable")
     head = rcm[: Tfull * TILE_M].reshape(Tfull, TILE_M)[order].ravel()
     return np.concatenate([head, rcm[Tfull * TILE_M:]])

@@ -1,10 +1,11 @@
 """Galerkin triple product (RAP) — setup-phase coarse operator assembly.
 
-Copied from ngsamg_tpu/transfer/galerkin.py. A block-structured product
-(``bs_r``/``bs_c``) runs as two native block Gustavson passes (``bsr_mm``),
-as in the original; with ``native.HAVE_NATIVE`` off, or for a blocking the
-BSR conversions refuse, it runs on scipy's BSR products. The scalar product
-runs on scipy (the original's native ``rap_csr`` is item 10c). Symmetry is
+Copied from ngsamg_tpu/transfer/galerkin.py. As in the original, a
+block-structured product (``bs_r``/``bs_c``) runs as two native block
+Gustavson passes (``native.bsr_mm``), and any other product (or a blocking
+the BSR conversions refuse) in the fused native scalar kernel
+(``native.rap_csr``: f64 sums, symmetrized and cast in the kernel). With
+``native.HAVE_NATIVE`` off both run on scipy's products. Symmetry is
 restored exactly afterwards (the product is symmetric in exact arithmetic
 since A is).
 """
@@ -12,6 +13,8 @@ since A is).
 from __future__ import annotations
 
 import scipy.sparse as sp
+
+from .. import native
 
 
 def rap(
@@ -31,13 +34,18 @@ def rap(
     (P^T (A P)) with ``A`` in (bs_r, bs_r) and ``P`` in (bs_r, bs_c)
     blocks, the same sums; entries that are exactly zero inside stored
     blocks are then dropped, as the scalar route never stores them.
-    ``dtype`` is the emitted precision.
+    ``dtype`` is the emitted precision. Other products run in the native
+    scalar Gustavson kernel (``native.rap_csr``), or on scipy with the
+    switch off.
     """
     blocked = bs_r > 1 or (bs_c or 1) > 1
     if blocked:
         Ac = _rap_bsr_mm(A, P, bs_r, bs_c or bs_r)
         if Ac is not None:
             return Ac if dtype is None else Ac.astype(dtype)
+    Ac = native.rap_csr(A, P, dtype=dtype, symmetrize=True)
+    if Ac is not None:
+        return Ac  # symmetrized and cast in the kernel, canonical CSR
     if dtype is not None:
         # astype would copy (and drop the cached BSR view of) a matrix
         # that already has the dtype
@@ -67,8 +75,6 @@ def _rap_bsr_mm(A, P, bs_r: int, bc: int):
     """The original's native block RAP: (P^T (A P)) by ``native.bsr_mm``
     in f64, symmetrized; None where the switch is off or the blocking does
     not fit."""
-    from .. import native
-
     # only the BSR conversions may legitimately fail (irregular blocking);
     # kernel errors propagate
     try:

@@ -14,14 +14,16 @@ reference's `PWProlMap` and `SemiAuxSProlMap`
   energy kernel (constants for H1, rigid-body modes for elasticity) stays
   exactly preserved.
 
-The block (dpv > 1) smoothing keeps A-hat, the level matrix and P in BSR
-and runs on the original's native kernels (``rho_power``,
-``bsr_smooth_update``, ``bsr_mm``), and the truncation of an energy with an
-identity or rigid transport on ``truncate_prol_blocks``, as in the
-original; with ``native.HAVE_NATIVE`` off, or for a shape a kernel
-declines, the numpy and scipy branches beside them compute the same P. The
-scalar smoothing runs on scipy here (the original's fused
-``smoothed_prol_scalar`` and ``rho_power_h1`` are item 10c).
+The scalar (dpv 1) smoothing, spectral radius and truncation run in one
+fused native pass from the H1 mesh data (``native.smoothed_prol_scalar``,
+with ``rho_power_h1`` for the radius), as in the original. The block
+(dpv > 1) smoothing keeps A-hat, the level matrix and P in BSR and runs on
+the original's native kernels (``rho_power``, ``bsr_smooth_update``,
+``bsr_mm``), and the truncation of an energy with an identity or rigid
+transport on ``truncate_prol_blocks``. With ``native.HAVE_NATIVE`` off, or
+for an input a kernel declines (counted in ``native.CALLS``), the numpy and
+scipy branches beside them compute P: the same structure, the values to
+rounding.
 """
 
 from __future__ import annotations
@@ -109,6 +111,13 @@ def smoothed_prol(
         return truncate_prol(
             energy, mesh_c, P, max_per_row=max_per_row, min_frac=min_frac
         )
+    P = _smoothed_prol_scalar_native(
+        mesh_f, v2agg, P_pw.shape[1],
+        omega=omega, max_per_row=max_per_row, min_frac=min_frac,
+        A=A if row_bs == 1 else None, max_classic=max_classic,
+    )
+    if P is not None:
+        return P
     Ahat = energy.replacement_matrix(mesh_f).tocsr()
     d = Ahat.diagonal()
     dinv = np.where(d > 0, 1.0 / np.maximum(d, 1e-300), 0.0)
@@ -282,6 +291,96 @@ def _filter_pos_offdiag(A: sp.csr_matrix) -> sp.csr_matrix:
     ).tocsr()
     out.sum_duplicates()
     return out
+
+
+def _rho_estimate_h1_edges(
+    edges: np.ndarray,
+    w_signed: np.ndarray,
+    l2: np.ndarray,
+    iters: int = 10,
+    seed: int = 0,
+) -> float:
+    """rho(Dhat^-1 A-hat) without assembling A-hat (edge-scatter matvecs).
+
+    ``w_signed`` are the mesh's SIGNED edge weights; the aux matrix takes
+    the attractive part and d = l2 + incident sums (in the kernel on the
+    native path, ``native.rho_power_h1``). The numpy loop is
+    :func:`_rho_estimate`'s on the H1 replacement matrix
+    A-hat x = d*x - sum_edges w (x_j e_i + x_i e_j); its sums associate
+    differently from the assembled-CSR path (about 1e-15 apart).
+    """
+    n = len(l2)
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(n)
+    nat = native.rho_power_h1(edges, w_signed, l2, x, iters)
+    if nat is not None:
+        return nat
+    ei, ej = edges[:, 0], edges[:, 1]
+    w = np.maximum(w_signed, 0.0)
+    d = l2.astype(np.float64, copy=True)
+    if len(ei):
+        np.add.at(d, ei, w)
+        np.add.at(d, ej, w)
+    dinv = np.where(d > 0, 1.0 / np.maximum(d, 1e-300), 0.0)
+    lam = 1.0
+    for _ in range(iters):
+        y = d * x
+        if len(ei):
+            y -= np.bincount(ei, weights=w * x[ej], minlength=n)
+            y -= np.bincount(ej, weights=w * x[ei], minlength=n)
+        x = dinv * y
+        nrm = np.linalg.norm(x)
+        if nrm == 0:
+            return 2.0
+        lam = nrm
+        x /= nrm
+    return float(lam)
+
+
+def _smoothed_prol_scalar_native(
+    mesh_f: AlgebraicMesh,
+    v2agg: np.ndarray,
+    nc: int,
+    *,
+    omega: float,
+    max_per_row: int,
+    min_frac: float,
+    A: sp.spmatrix | None,
+    max_classic: int,
+) -> sp.bsr_matrix | None:
+    """The scalar H1 semi-aux smoothed and truncated P in one native pass
+    (``native.smoothed_prol_scalar``).
+
+    None with ``native.HAVE_NATIVE`` off; None, counted as declined, where
+    the mesh lacks the H1 data (edge ``wt``, vertex ``l2wt``: the inputs
+    of ``H1Energy.replacement_matrix``) or there is no scalar level matrix
+    ``A`` (row blocks > 1), and where the wrapper returns None. The numpy
+    path of :func:`smoothed_prol` then runs.
+    """
+    if not native.HAVE_NATIVE:
+        return None
+    w = mesh_f.edge_data.get("wt")
+    l2 = mesh_f.vertex_data.get("l2wt")
+    if w is None or l2 is None or A is None:
+        return native.declined("smoothed_prol_scalar")
+    # edge weights are SIGNED (attractive positive); the aux matrix takes
+    # the attractive part in the kernel (SA filtered-matrix convention)
+    rho = _rho_estimate_h1_edges(mesh_f.edges, w, l2)
+    scale_aux = omega / max(rho, 1e-12)
+    # classic rows smooth with the FILTERED real matrix (filter_pos below);
+    # for H1 the filtered matrix equals the aux replacement matrix up to
+    # the rowsum clamping, so the aux spectral-radius estimate serves both
+    scale_real = scale_aux
+    use_classic = bool(max_classic and max_classic > 1)
+    P = native.smoothed_prol_scalar(
+        A.tocsr(), mesh_f.edges, w, l2, v2agg, nc,
+        scale_aux, scale_real, max_per_row,
+        max_classic if use_classic else 0, min_frac,
+        filter_pos=True,
+    )
+    if P is None:
+        return native.declined("smoothed_prol_scalar")
+    return P.tobsr(blocksize=(1, 1))
 
 
 def _classic_rows(

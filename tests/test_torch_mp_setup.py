@@ -357,13 +357,19 @@ def test_mp_ranks_take_host_data_only():
 
 def test_rank_modules_import_without_torch():
     """What a rank imports (the level loops, the energies, the options,
-    the native setup extension, loaded) loads no torch: a spawned rank
-    starts in about the time numpy and scipy take."""
+    the scalar-setup modules that call the native wrappers, the native
+    setup extension, loaded) loads no torch: a spawned rank starts in
+    about the time numpy and scipy take."""
     code = (
         "import sys\n"
         "import ngsamg_tpu_torch.parallel.mp_runtime\n"
         "import ngsamg_tpu_torch.parallel.dist_elast\n"
         "import ngsamg_tpu_torch.apps.elasticity\n"
+        "import ngsamg_tpu_torch.apps.h1\n"
+        "import ngsamg_tpu_torch.mesh.topo\n"
+        "import ngsamg_tpu_torch.coarsen.pairwise\n"
+        "import ngsamg_tpu_torch.transfer.prolongation\n"
+        "import ngsamg_tpu_torch.transfer.galerkin\n"
         "import ngsamg_tpu_torch.native\n"
         "ngsamg_tpu_torch.native.extension()\n"
         "assert 'torch' not in sys.modules\n"

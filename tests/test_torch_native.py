@@ -10,14 +10,25 @@
 - The four checks of tests/test_native_kernels.py on the port, at their
   tolerances: ``rap_bsr`` for four block shapes, ``truncate_prol_blocks``,
   ``elast_ahat_bsr``, ``rho_power`` against the port's numpy branches.
-- The elasticity (2D, 3D) and vector-H1 hierarchies with ``HAVE_NATIVE``
-  on in both packages: level sizes, operator complexity and nnz equal,
-  every A and P to 1e-12 relative, the same native calls, and the mixed
-  PCG's iteration count within one.
+- Every block-setup wrapper (``native/parity.py``
+  ``block_setup_parity``) and every scalar-setup and staging wrapper
+  (``scalar_setup_parity``) against the numpy branch beside its call.
+- The hierarchies with ``HAVE_NATIVE`` on in both packages: elasticity
+  (2D, 3D) and vector H1, and the scalar problems (unstructured Poisson
+  with Chebyshev, a lattice Poisson with the default Gauss-Seidel options,
+  a lattice Poisson with a CSR tail, the distributed setup): level sizes,
+  operator complexity, nnz and aggregates equal, every A and P to 1e-12
+  relative (in fact bitwise on this machine), the same native calls as the
+  JAX package, the staged row orders, colours, cluster sets and tile-ELL
+  columns equal, and the mixed PCG's iteration count within one.
+- Declines: a caller that does not send an input to its wrapper, where
+  the JAX package's caller does not either, counts it as declined and
+  takes its numpy branch.
 - Faults: ``greedy_color`` on a 257-vertex clique raises; a compiler that
   does not exist, or fails, raises ``RuntimeError`` and leaves no library;
-  with ``HAVE_NATIVE`` off nothing is built; an MP setup takes the
-  parent's switch on every rank.
+  with ``HAVE_NATIVE`` off nothing is built, for a block or a scalar setup;
+  an MP setup takes the parent's switch on every rank, and a scalar rank's
+  hierarchy is the JAX package's native one.
 - The module imports neither ``jax``, the JAX package nor ``torch``.
 """
 
@@ -516,22 +527,63 @@ def test_block_setup_wrappers_match_numpy_branches():
 # the hierarchies against the JAX package's native run
 # ---------------------------------------------------------------------------
 
-PROBLEMS = {
-    "el2d": (lambda: tfem.unstructured_elasticity(40, dim=2), "elasticity",
-             None),
-    "el3d": (lambda: tfem.unstructured_elasticity(10, dim=3), "elasticity",
-             40),
-    "vh1": (lambda: tfem.vector_poisson(tfem.poisson_2d(32), 2), "h1",
-            None),
-}
-
-
 def _opts(pkg, max_coarse):
     o = pkg.AMGOptions(smoother=pkg.config.SmootherOptions(
         type=pkg.config.SmootherType.CHEBYSHEV))
     if max_coarse is not None:
         o.levels.max_coarse_size = max_coarse
     return o
+
+
+def _cheb(pkg):
+    return _opts(pkg, None)
+
+
+def _dist(pkg):
+    o = _opts(pkg, None)
+    o.dist_setup = 4
+    return o
+
+
+# the scalar-setup and staging wrappers (ROADMAP item 10c) the unstructured
+# scalar setup reaches with its staging
+SCALAR_STAGING = {"finest_mesh_scal", "spw_round_h1", "map_edges_agg",
+                  "edges_to_adj", "rho_power_h1", "smoothed_prol_scalar",
+                  "rap_csr", "csr_permute", "csr_sym_scale",
+                  "tile_chunk_counts", "tile_ell_fill_range",
+                  "tile_ell_pack", "cluster_detect"}
+
+# name: (problem, energy, options, wrappers the setup must reach)
+PROBLEMS = {
+    "el2d": (lambda: tfem.unstructured_elasticity(40, dim=2), "elasticity",
+             _cheb, {"rap_bsr", "rho_power", "bsr_sym_scale",
+                     "truncate_prol_blocks"}),
+    "el3d": (lambda: tfem.unstructured_elasticity(10, dim=3), "elasticity",
+             lambda pkg: _opts(pkg, 40),
+             {"rap_bsr", "rho_power", "bsr_sym_scale",
+              "truncate_prol_blocks"}),
+    "vh1": (lambda: tfem.vector_poisson(tfem.poisson_2d(32), 2), "h1",
+            _cheb, {"rap_bsr", "rho_power", "bsr_sym_scale",
+                    "truncate_prol_blocks", "finest_mesh_scal"}),
+    # the generic level loop and the tile-ELL staging
+    "h1_unstructured": (
+        lambda: tfem.unstructured_poisson(16, dim=3, refine=1), "h1", _cheb,
+        SCALAR_STAGING | {"rho_power"}),
+    # AMGOptions() unchanged: multicolor GS levels
+    "h1_gs": (lambda: tfem.poisson_3d(16), "h1",
+              lambda pkg: pkg.AMGOptions(),
+              {"greedy_color", "finest_mesh_scal", "map_edges_agg",
+               "rap_csr", "csr_permute", "tile_ell_pack"}),
+    # the stencil domain with a CSR tail
+    "h1_lattice": (lambda: tfem.poisson_3d(24), "h1", _cheb,
+                   {"rap_csr", "rho_power"}),
+    # the host-distributed level loop (4 shards) and the tile-ELL staging
+    "h1_dist": (
+        lambda: tfem.unstructured_poisson(16, dim=3, refine=1), "h1", _dist,
+        {"truncate_prol_blocks", "csr_permute", "csr_sym_scale",
+         "tile_chunk_counts", "tile_ell_fill_range", "tile_ell_pack",
+         "cluster_detect"}),
+}
 
 
 @contextlib.contextmanager
@@ -552,7 +604,7 @@ def counting_jax_wrappers(counts):
 
 @pytest.fixture(scope="module", params=sorted(PROBLEMS))
 def native_pair(request):
-    make, energy, mc = PROBLEMS[request.param]
+    make, energy, options, _reach = PROBLEMS[request.param]
     p = make()
     _jax_ext()
     jcalls = {}
@@ -560,12 +612,12 @@ def native_pair(request):
         with counting_jax_wrappers(jcalls):
             pj = ngsamg_tpu.AMGPreconditioner(
                 p.A, energy=energy, block_size=p.block_size,
-                coords=p.coords, options=_opts(ngsamg_tpu, mc),
+                coords=p.coords, options=options(ngsamg_tpu),
             ).setup()
         tnative.reset_calls()
         pt = ngsamg_tpu_torch.AMGPreconditioner(
             p.A, energy=energy, block_size=p.block_size, coords=p.coords,
-            options=_opts(ngsamg_tpu_torch, mc), device="cpu",
+            options=options(ngsamg_tpu_torch), device="cpu",
         ).setup()
         tcalls = {
             k: v["native"] + v["declined"] for k, v in tnative.CALLS.items()
@@ -594,20 +646,56 @@ def test_hierarchy_equals_jax_native_run(native_pair):
 
 
 def test_same_native_calls_as_jax(native_pair):
-    """The port makes the JAX package's native calls: every 10b wrapper the
-    JAX package reaches, as often; the scalar and staging wrappers (ROADMAP
-    item 10c) are not dispatched by the port yet."""
-    item_10c = {"greedy_color", "rap_csr", "handshake_match",
-                "edges_to_adj", "map_edges_agg", "rho_power_h1",
-                "tile_chunk_counts", "tile_ell_fill_range", "tile_ell_pack",
-                "collapse_graph", "smoothed_prol_scalar", "finest_mesh_scal",
-                "csr_permute", "cluster_detect", "spw_round_h1",
-                "csr_sym_scale"}
+    """The port makes the JAX package's native calls: every wrapper the
+    JAX package reaches, as often, and none it does not."""
     name, _p, _pj, _pt, jcalls, tcalls = native_pair
-    want = {k: v for k, v in jcalls.items() if k not in item_10c}
-    assert tcalls == want, name
-    assert {"rap_bsr", "rho_power", "bsr_sym_scale",
-            "truncate_prol_blocks"} <= set(tcalls), name
+    assert tcalls == jcalls, name
+    assert PROBLEMS[name][3] <= set(tcalls), name
+    assert not any(v["declined"] for v in tnative.CALLS.values()), name
+
+
+def _same_ints(a, b, what):
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.shape == b.shape and np.array_equal(a, b), what
+
+
+def test_staging_equals_jax_native_run(native_pair):
+    """The staged hierarchy: the finest row order, each level's format and
+    its column indices (tile-ELL slots, block-ELL blocks), every GS level's
+    colours (bounds and per-colour columns), the transfers' columns and the
+    cluster sets, all equal to the JAX package's."""
+    name, _p, pj, pt, _jc, _tc = native_pair
+    if pj._perm0 is None:
+        assert pt._perm0 is None, name
+    else:
+        _same_ints(pt._perm0, pj._perm0, (name, "perm0"))
+    for i, (dj, dt) in enumerate(zip(pj.op.levels, pt.op.levels)):
+        for what in ("A", "P", "R"):
+            Fj, Ft = getattr(dj, what), getattr(dt, what)
+            assert type(Ft).__name__ == type(Fj).__name__, (name, i, what)
+            bj = getattr(Fj, "blocks", (Fj,))
+            bt = getattr(Ft, "blocks", (Ft,))
+            assert len(bt) == len(bj), (name, i, what)
+            for k, (fj, ft) in enumerate(zip(bj, bt)):
+                if hasattr(fj, "cols"):  # tile-ELL slots, block-ELL blocks
+                    _same_ints(ft.cols.numpy(), fj.cols, (name, i, what, k))
+        sj, st = dj.smoother, dt.smoother
+        if hasattr(sj, "color_bounds"):
+            assert tuple(st.color_bounds) == tuple(sj.color_bounds), (name, i)
+            assert len(st.ccols) == len(sj.ccols), (name, i)
+            for c, (cj, ct) in enumerate(zip(sj.ccols, st.ccols)):
+                _same_ints(ct.numpy(), cj, (name, i, "colour", c))
+    cj, ct = pj.op.cluster_corr, pt.op.cluster_corr
+    assert (cj is None) == (ct is None), name
+    if cj is not None:
+        assert _clusters(ct) == _clusters(cj), name
+
+
+def _clusters(cc):
+    """A cluster correction's clusters, as sets of (permuted) rows."""
+    idx, inv = np.asarray(cc.idx), np.asarray(cc.inv)
+    used = np.abs(inv).sum(axis=2) > 0
+    return {tuple(sorted(int(v) for v in r[u])) for r, u in zip(idx, used)}
 
 
 def test_mixed_solve_within_one_iteration(native_pair):
@@ -691,8 +779,15 @@ def test_failed_compile_raises_with_the_output(tmp_path):
 
 
 def test_switch_off_builds_nothing(monkeypatch):
-    """With ``HAVE_NATIVE`` off a whole block setup runs without asking
-    for the extension, and counts no call."""
+    """With ``HAVE_NATIVE`` off a whole block setup, and every caller of the
+    scalar-setup and staging wrappers (a scalar setup with Chebyshev and
+    with GS, and with them the tile-ELL staging, the cluster detection and
+    the coloring; the graph matcher, the collapse and the edge-list
+    spectral radius called directly), run without asking for the
+    extension, and count no call."""
+    from ngsamg_tpu_torch.apps.h1 import H1Energy as TH1
+    from ngsamg_tpu_torch.coarsen import pairwise as tpw
+    from ngsamg_tpu_torch.transfer.prolongation import _rho_estimate_h1_edges
 
     def no_build():
         raise AssertionError("the extension was asked for")
@@ -706,8 +801,232 @@ def test_switch_off_builds_nothing(monkeypatch):
         options=_opts(ngsamg_tpu_torch, 40), device="cpu",
     ).setup()
     assert pc.num_levels >= 2
+    q = tfem.unstructured_poisson(12, dim=3, refine=1)
+    pc = ngsamg_tpu_torch.AMGPreconditioner(
+        q.A, coords=q.coords, options=_cheb(ngsamg_tpu_torch), device="cpu",
+    ).setup()
+    assert pc.num_levels >= 3 and pc.op.cluster_corr is not None
+    assert isinstance(pc.op.levels[0].A,
+                      ngsamg_tpu_torch.sparse.formats.TileELLStack)
+    g = tfem.poisson_3d(12)
+    pc = ngsamg_tpu_torch.AMGPreconditioner(
+        g.A, options=ngsamg_tpu_torch.AMGOptions(), device="cpu",
+    ).setup()
+    assert len(pc.op.levels[0].smoother.color_bounds) > 2
+    mesh = TH1().build_finest_mesh(q.A.tocsr())
+    S = mesh.edge_graph(weights=TH1().soc(mesh))
+    v2agg, n_agg = tpw.spw_aggregate(S, rounds=2)
+    assert n_agg < mesh.nv
+    assert tpw.coarse_strength_graph(S, v2agg, n_agg).shape == (n_agg,) * 2
+    assert _rho_estimate_h1_edges(
+        mesh.edges, mesh.edge_data["wt"], mesh.vertex_data["l2wt"]
+    ) > 1.0
     assert all(v == {"native": 0, "declined": 0}
                for v in tnative.CALLS.values())
+
+
+# ---------------------------------------------------------------------------
+# declines: the callers' numpy branches where the JAX package takes them
+# ---------------------------------------------------------------------------
+
+
+def _declines():
+    return {k: dict(v) for k, v in tnative.CALLS.items()}
+
+
+def test_spw_round_on_a_mesh_without_l2wt_takes_the_numpy_round():
+    """``H1Energy.spw_round`` declines a mesh without ``l2wt`` (counted);
+    the coarsener then takes the numpy matching round (soc, edge graph and
+    the native ``handshake_match``), as the JAX package's does, and
+    aggregates as a coarsener without a fused round."""
+    from ngsamg_tpu.apps.h1 import H1Energy as JH1
+    from ngsamg_tpu.coarsen import pairwise as jpw
+    from ngsamg_tpu_torch.apps.h1 import H1Energy as TH1
+    from ngsamg_tpu_torch.coarsen import pairwise as tpw
+
+    def bare(mesh):
+        return AlgebraicMesh(nv=mesh.nv, edges=mesh.edges,
+                             edge_data=dict(mesh.edge_data))
+
+    class BareT(TH1):
+        def spw_round(self, mesh, theta, can_match):
+            return super().spw_round(bare(mesh), theta, can_match)
+
+    class BareJ(JH1):
+        def spw_round(self, mesh, theta, can_match):
+            return super().spw_round(bare(mesh), theta, can_match)
+
+    class NoRound(TH1):
+        spw_round = None
+
+    q = tfem.unstructured_poisson(10, dim=3, refine=1)
+    mesh = TH1().build_finest_mesh(q.A.tocsr())
+    with switches(True):
+        c0 = _declines()
+        assert TH1().spw_round(bare(mesh), 0.08, None) is None
+        assert tnative.CALLS["spw_round_h1"]["declined"] == (
+            c0["spw_round_h1"]["declined"] + 1)
+        c0 = _declines()
+        vt, nt = tpw.spw_aggregate_energy(BareT(), mesh, rounds=3)
+        c1 = _declines()
+        vn, nn = tpw.spw_aggregate_energy(NoRound(), mesh, rounds=3)
+        vj, nj = jpw.spw_aggregate_energy(BareJ(), mesh, rounds=3)
+    rounds = c1["spw_round_h1"]["declined"] - c0["spw_round_h1"]["declined"]
+    assert rounds >= 2
+    assert c1["spw_round_h1"]["native"] == c0["spw_round_h1"]["native"]
+    assert c1["handshake_match"]["native"] == (
+        c0["handshake_match"]["native"] + rounds)
+    assert nt == nn == nj < mesh.nv
+    np.testing.assert_array_equal(vt, vn)
+    np.testing.assert_array_equal(vt, vj)
+
+
+@pytest.fixture(scope="module")
+def scalar_level():
+    """The finest level of a small scalar H1 hierarchy (native setup): the
+    level, its energy and the next level's mesh."""
+    from ngsamg_tpu_torch.apps.h1 import H1Energy as TH1
+    from ngsamg_tpu_torch.factory.levels import setup_levels
+    from ngsamg_tpu_torch.transfer.prolongation import piecewise_prol
+
+    q = tfem.unstructured_poisson(10, dim=3, refine=1)
+    en = TH1()
+    with switches(True):
+        levels, _log = setup_levels(q.A.tocsr(), en,
+                                    _cheb(ngsamg_tpu_torch), q.coords)
+    lev0, lev1 = levels[0], levels[1]
+    Ppw = piecewise_prol(en, lev0.mesh, lev1.mesh, lev0.v2agg)
+    return en, lev0, lev1.mesh, Ppw
+
+
+def _same_prolongation(Pa, Pb):
+    Pa, Pb = Pa.tocsr(), Pb.tocsr()
+    Pa.sort_indices()
+    Pb.sort_indices()
+    assert np.array_equal(Pa.indptr, Pb.indptr)
+    assert np.array_equal(Pa.indices, Pb.indices)
+    assert abs(Pa - Pb).max() <= 1e-12 * abs(Pb).max()
+
+
+@pytest.mark.parametrize("cause", ["no_level_matrix", "wrapper_none"])
+def test_scalar_prolongation_declines_take_the_numpy_branch(
+    scalar_level, cause
+):
+    """``_smoothed_prol_scalar_native`` declines a level without a scalar
+    matrix (``A=None``: row blocks > 1), and a None from
+    ``smoothed_prol_scalar``; each is counted, and ``smoothed_prol`` then
+    computes P on its numpy branch: the P of the switch-off run (the
+    structure equal, the values to 1e-12: the truncation stays native)
+    and, for ``A=None``, the JAX package's own P on the same inputs."""
+    from ngsamg_tpu.transfer.prolongation import smoothed_prol as jsp
+    from ngsamg_tpu_torch.transfer.prolongation import smoothed_prol as tsp
+
+    en, lev0, mesh1, Ppw = scalar_level
+    A = None if cause == "no_level_matrix" else lev0.A
+
+    def run(fn, energy):
+        return fn(energy, lev0.mesh, mesh1, lev0.v2agg, Ppw, A=A, row_bs=1)
+
+    with switches(True), pytest.MonkeyPatch.context() as mp:
+        if cause == "wrapper_none":
+            mp.setattr(tnative, "smoothed_prol_scalar",
+                       lambda *a, **k: None)
+        c0 = _declines()
+        Pt = run(tsp, en)
+        c1 = _declines()
+        if cause == "no_level_matrix":
+            from ngsamg_tpu.apps.h1 import H1Energy as JH1
+
+            _same_prolongation(Pt, run(jsp, JH1()))
+    assert c1["smoothed_prol_scalar"]["declined"] == (
+        c0["smoothed_prol_scalar"]["declined"] + 1)
+    assert c1["smoothed_prol_scalar"]["native"] == (
+        c0["smoothed_prol_scalar"]["native"])
+    assert c1["truncate_prol_blocks"]["native"] == (
+        c0["truncate_prol_blocks"]["native"] + 1)
+    with switches(False):
+        Pn = run(tsp, en)
+    _same_prolongation(Pt, Pn)
+
+
+def test_bf16_staging_packs_the_same_with_the_switch_on_and_off():
+    """A bfloat16 level is packed in f32 (numpy has no bfloat16) and cast
+    once on the device: the native tile-ELL packers and their numpy
+    branches give the same f32 arrays, hence the same bf16 tensors."""
+    from ngsamg_tpu_torch.precond.amg import _cast_floats
+    from ngsamg_tpu_torch.sparse import formats
+
+    A = tfem.unstructured_poisson(12, dim=3, refine=1).A.tocsr()
+    perm = formats.plan_reorder(A, 1)
+    Ap = A[perm][:, perm].tocsr()
+    packed = {}
+    for on in (True, False):
+        with switches(on):
+            packed[on] = [
+                _cast_floats(pack(Ap, np.float32), torch.bfloat16, {})
+                for pack in (formats.tile_ell_stack_from_scipy,
+                             formats.tile_ell_from_scipy)
+            ]
+    for a, b in zip(packed[True], packed[False]):
+        pairs = list(zip(getattr(a, "blocks", (a,)), getattr(b, "blocks",
+                                                             (b,))))
+        assert pairs and len(pairs) == len(getattr(b, "blocks", (b,)))
+        for ba, bb in pairs:
+            assert ba.data.dtype == bb.data.dtype == torch.bfloat16
+            assert ba.cols.dtype == bb.cols.dtype == torch.int64
+            assert torch.equal(ba.data, bb.data)
+            assert torch.equal(ba.cols, bb.cols)
+
+
+def test_scalar_setup_wrappers_match_numpy_branches():
+    """Every scalar-setup and staging wrapper against the numpy branch
+    beside its call, on the finest and the first coarse level of a 3D
+    unstructured Poisson hierarchy, at the tolerances chip_smoke.py's
+    ``[native]`` phase holds on the card's host (``native/parity.py``):
+    integers (edges, partners, aggregates, colours, cluster sets,
+    permutations, tile columns) equal, values to at most 1e-10."""
+    from ngsamg_tpu_torch.native import parity
+
+    p = tfem.unstructured_poisson(16, dim=3, refine=1)
+    rows = parity.scalar_setup_parity(p.A, p.coords)
+    assert [r["wrapper"] for r in rows] == list(parity.SCALAR_TOLERANCES)
+    assert len(rows) == 16
+    assert set(parity.SCALAR_TOLERANCES) | set(parity.TOLERANCES) == set(
+        tnative.WRAPPERS)
+    assert max(parity.SCALAR_TOLERANCES.values()) <= 1e-10
+    for r in rows:
+        assert r["ok"], r
+
+
+def test_mp_scalar_ranks_build_the_jax_native_hierarchy():
+    """A scalar distributed setup on 2 MP ranks with the switch on: the
+    hierarchy is bitwise the JAX package's native one (its single
+    controller), and every rank reports the native calls of its level loop
+    (the kernel-preserving truncation) and no decline."""
+    from ngsamg_tpu.apps.h1 import H1Energy as JH1
+    from ngsamg_tpu.parallel import dist_setup as jds
+    from ngsamg_tpu_torch.apps.h1 import H1Energy as TH1
+    from ngsamg_tpu_torch.parallel import mp_runtime
+
+    q = tfem.unstructured_poisson(12, dim=3, refine=1)
+    with switches(True):
+        ref, ref_log = jds.dist_setup_levels(
+            q.A, JH1(), _cheb(ngsamg_tpu), 2, coords=q.coords
+        )
+        got, log = mp_runtime.mp_dist_setup_levels(
+            q.A, TH1(), _cheb(ngsamg_tpu_torch), 2, coords=q.coords
+        )
+    assert log.nvs == ref_log.nvs and log.nnzs == ref_log.nnzs
+    assert len(got) == len(ref) >= 3
+    for a, b in zip(ref, got):
+        assert (a.A != b.A).nnz == 0
+        if a.P is not None:
+            assert (a.P.tocsr() != b.P.tocsr()).nnz == 0
+    assert len(log.mp_rank_stats) == 2
+    for st in log.mp_rank_stats:
+        calls = st["native_calls"]
+        assert calls.get("truncate_prol_blocks", {}).get("native"), calls
+        assert not any(c["declined"] for c in calls.values()), calls
 
 
 @pytest.mark.parametrize("on", [False, True], ids=["numpy", "native"])

@@ -5,8 +5,9 @@ Two perturbed-Delaunay P1 Poisson problems made from a numpy seed,
 `unstructured_poisson(40, dim=2, refine=1)` (6,241 DoF), go through both
 packages' `AMGPreconditioner(..., Chebyshev).setup()`.
 
-The port copies the numpy branches of the host setup; the JAX package may
-run its optional native kernels instead, which compute the same results:
+Both packages run their native setup and staging kernels here (the
+default switch; tests/test_torch_native.py holds that run bitwise), and
+the bounds below also hold either package's numpy branches:
 - the finest mesh's edges and edge weights, every level's aggregation
   (`v2agg`), the level sizes and nnz, the row orders and the cluster sets
   are compared exactly;
