@@ -238,9 +238,10 @@ Phases, each of which raises (nonzero exit) on failure:
    device matvec (rtol 1e-5; levels 1-2 are symmetric-half), ``CINV`` on
    the coarsest level, and ``GetBF(level=2)`` raising the ValueError of
    an implicit (lattice) transfer.
-26. timers — one warm headline solve inside ``timers.trace`` and
-   ``timers.device_region("solve")``: the trace file must hold the region
-   and K1's tiled kernel; ``timers.report()`` must list the host timer.
+26. timers — one warm headline solve with tracing on under
+   ``torch.profiler``, written through ``Recorder.export_chrome``: the
+   merged trace must hold ``cycle.level`` spans on the host track and K1's
+   tiled kernel.
 27. api reference (last) — card against CPU: ``h1_scal`` on
    ``poisson_2d(24)`` (GS) with ``GetBF``, the ``DOFMap`` transfers and
    ``ToSparseMatrix`` of every level, ``elast_3d`` on ``elasticity_3d(8)``
@@ -3049,37 +3050,46 @@ def phase_api_reference():
 
 
 def phase_timers(pc, p):
-    """One warm headline solve inside ``timers.trace`` and
-    ``timers.device_region``: the trace file holds the region and K1's
-    tiled kernel; ``timers.report`` lists the host timer around it."""
-    import glob
+    """One warm headline solve with tracing on under ``torch.profiler``,
+    written through ``Recorder.export_chrome``: the merged trace holds the
+    program's ``cycle.level`` spans on their host track and K1's tiled
+    kernel, and the spans add no device event."""
     import os
     import tempfile
 
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     from ngsamg_tpu_torch.utils import timers
 
+    rec = pc.trace_
+    n0 = len(rec.spans)
+    with timers.tracing(True), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _x, info = pc.solve(p.b, tol=1e-8, return_device=True)
+        torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as logdir:
-        with timers.timer("headline_solve"):
-            with timers.trace(logdir):
-                with timers.device_region("solve"):
-                    pc.solve(p.b, tol=1e-8, return_device=True)
-        files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
-        if len(files) != 1:
-            raise AssertionError(f"timers: trace files {files}")
-        with open(files[0]) as fh:
+        path = os.path.join(logdir, "solve.json")
+        rec.export_chrome(path, prof)
+        with open(path) as fh:
             events = json.load(fh)["traceEvents"]
-        size = os.path.getsize(files[0])
+        size = os.path.getsize(path)
+    spans = [e for e in events if e.get("cat") == "ngsamg_span"]
     names = {str(e.get("name")) for e in events}
     k1 = sorted(n for n in names if "stencil3d_kernel" in n)
-    report = timers.report()
+    levels = sorted({e["args"]["level"] for e in spans
+                     if e["name"] == "cycle.level"})
     out = {"trace_bytes": size, "events": len(events),
-           "region": "solve" in names, "k1_names": k1[:2],
-           "report": report.splitlines()}
+           "spans": len(spans), "spans_recorded": len(rec.spans) - n0,
+           "cycle_levels": levels, "k1_names": k1[:2],
+           "host_syncs": info.host_syncs,
+           "span_pids": sorted({e["pid"] for e in spans})}
     print("[timers] " + json.dumps(out), flush=True)
-    if not out["region"] or not k1:
-        raise AssertionError("timers: the trace lacks the region or K1")
-    if not any(ln.split()[0] == "headline_solve" for ln in out["report"][1:]):
-        raise AssertionError(f"timers: report {report}")
+    if not levels or not k1:
+        raise AssertionError("timers: the trace lacks cycle.level or K1")
+    if out["span_pids"] != [os.getpid()] or any(
+            e["ph"] != "X" for e in spans):
+        raise AssertionError("timers: a span left the host track")
     return out
 
 

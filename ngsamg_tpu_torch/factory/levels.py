@@ -1,7 +1,7 @@
 """AMG factory: the setup-phase level loop (host side).
 
 Copied from ngsamg_tpu/factory/levels.py: the level capsule, the setup log,
-CSR pruning, the structured fast path ``_stencil_setup`` (the whole
+CSR pruning, the structured fast path ``_stencil_levels`` (the whole
 hierarchy of a full-lattice scalar H1 problem in the stencil domain,
 transfer/stencil.py, plus a short scipy CSR tail), and the generic level
 loop of ``setup_levels`` with its coarse-map and prolongation dispatch,
@@ -43,6 +43,7 @@ from ..mesh.topo import AlgebraicMesh, map_edges
 from ..sparse.host import to_bsr
 from ..transfer.galerkin import rap
 from ..transfer.prolongation import piecewise_prol, smoothed_prol
+from ..utils import timers
 
 
 @dataclass
@@ -266,15 +267,14 @@ def _lattice_transfer_plan(energy, cur, mesh_c, v2agg, n_agg, opts, lvl):
     return P.tobsr(blocksize=(1, 1)), meta
 
 
-def _stencil_setup(
-    A: sp.csr_matrix, energy, opts: AMGOptions, coords
-) -> tuple[list[SetupLevel], FactoryLog] | None:
-    """Structured fast path: the whole hierarchy in stencil form.
+def _stencil_finest(A: sp.spmatrix, energy, opts: AMGOptions, coords):
+    """The structured fast path's finest level in stencil form, or None
+    where the path does not apply.
 
     Eligible when the finest level is a full row-major lattice, the energy
     is scalar ALG H1, coarsening is AUTO/LATTICE, prolongation is smoothed,
     and no level asks for a GS smoother (GS needs color permutations that
-    break implicit transfers). Returns None when ineligible.
+    break implicit transfers).
     """
     from ..apps.h1 import H1Energy
     from ..coarsen.lattice import detect_lattice, detect_lattice_rowmajor
@@ -368,11 +368,29 @@ def _stencil_setup(
         ):
             return None
     if vals is not None and nv > 32768:
-        cur = st.compress_uniform(tuple(int(x) for x in dims), offs_u, vals)
-    elif op is not None:
-        cur = op
-    else:  # small uniform lattice: materialize (cheap at this size)
-        cur = st.synth_uniform(tuple(int(x) for x in dims), offs_u, vals)
+        return st.compress_uniform(tuple(int(x) for x in dims), offs_u, vals)
+    if op is not None:
+        return op
+    # small uniform lattice: materialize (cheap at this size)
+    return st.synth_uniform(tuple(int(x) for x in dims), offs_u, vals)
+
+
+def _stencil_levels(A, cur, opts: AMGOptions, level):
+    """Structured fast path: the whole hierarchy in stencil form from the
+    finest stencil ``cur`` (:func:`_stencil_finest`). ``level`` is the
+    finest level's open ``setup.level`` span; each level's span closes when
+    its coarse level is made, and the coarsest one's at the end.
+
+    Phases: ``setup.prol`` is the Gershgorin bound and omega; on stencil
+    levels ``setup.rap`` is the fused smoothed RAP (``rap_clamped``, or
+    ``smoothed_rap`` and ``prune``), which also builds the implicit
+    prolongation, and the last stencil level's CSR form; on the CSR tail
+    ``setup.coarsen`` is the index blocking, ``setup.prol`` the explicit
+    lattice prolongation and ``setup.rap`` scipy's RAP and pruning.
+    """
+    from ..transfer import stencil as st
+
+    lc = opts.levels
 
     def ph_mesh(n):
         return AlgebraicMesh(nv=n, edges=np.zeros((0, 2), dtype=np.int64))
@@ -380,10 +398,10 @@ def _stencil_setup(
     log = FactoryLog()
     levels = [
         SetupLevel(
-            index=0, A=A, row_bs=1, mesh=ph_mesh(nv), stencil=cur
+            index=0, A=A, row_bs=1, mesh=ph_mesh(A.shape[0]), stencil=cur
         )
     ]
-    log.nvs.append(nv)
+    log.nvs.append(A.shape[0])
     log.nnzs.append(cur.nnz)
     lvl = 0
     # stencil-domain loop for the big levels; once patches stop compressing
@@ -394,13 +412,15 @@ def _stencil_setup(
         and cur.n > lc.max_coarse_size
         and cur.n > SMALL
     ):
-        rho = cur.gershgorin()
-        omega = float(opts.prol.omega.get(lvl)) / max(rho, 1e-12)
-        if isinstance(cur, st.ClampedOp):
-            opc = st.rap_clamped(cur, omega, opts.stencil_prune_tol)
-        else:
-            opc, _dinv = st.smoothed_rap(cur, omega)
-            opc = st.prune(opc, opts.stencil_prune_tol)
+        with timers.span("setup.prol"):
+            rho = cur.gershgorin()
+            omega = float(opts.prol.omega.get(lvl)) / max(rho, 1e-12)
+        with timers.span("setup.rap"):
+            if isinstance(cur, st.ClampedOp):
+                opc = st.rap_clamped(cur, omega, opts.stencil_prune_tol)
+            else:
+                opc, _dinv = st.smoothed_rap(cur, omega)
+                opc = st.prune(opc, opts.stencil_prune_tol)
         levels[-1].lattice_transfer = {
             "dims_f": tuple(int(x) for x in cur.dims),
             "dims_c": tuple(int(x) for x in opc.dims),
@@ -419,34 +439,40 @@ def _stencil_setup(
         log.nnzs.append(opc.nnz)
         cur = opc
         lvl += 1
+        level.close()
+        level = timers.span("setup.level", level=lvl)
 
     # explicit CSR tail (scipy RAP + explicit/implicit lattice transfers)
     from ..transfer.lattice_transfer import host_lattice_prol
 
-    cur_full = st.expand(cur) if isinstance(cur, st.ClampedOp) else cur
-    A_cur = st.to_csr(cur_full)
+    with timers.span("setup.rap"):
+        cur_full = st.expand(cur) if isinstance(cur, st.ClampedOp) else cur
+        A_cur = st.to_csr(cur_full)
     levels[-1].A = A_cur
     dims_cur = np.asarray(cur.dims, dtype=np.int64)
     while lvl + 1 < lc.max_levels and A_cur.shape[0] > lc.max_coarse_size:
-        grids = np.meshgrid(
-            *[np.arange(d) for d in dims_cur], indexing="ij"
-        )
-        idx = np.stack([g.ravel() for g in grids], axis=1)
-        cdims = (dims_cur + 1) // 2
-        cidx = idx // 2
-        key = np.zeros(len(idx), dtype=np.int64)
-        for k in range(idx.shape[1]):
-            key = key * cdims[k] + cidx[:, k]
-        nc = int(np.prod(cdims))
-        diag = A_cur.diagonal()
-        rowsum = np.asarray(abs(A_cur).sum(axis=1)).ravel()
-        rho = float(
-            (rowsum / np.where(diag > 0, diag, 1.0)).max(initial=1.0)
-        )
-        omega = float(opts.prol.omega.get(lvl)) / max(rho, 1e-12)
-        P, _ = host_lattice_prol(A_cur, idx, dims_cur, key, nc, omega)
-        Ac = rap(A_cur, P, dtype=np.float64)
-        Ac = prune_csr(Ac, opts.stencil_prune_tol)
+        with timers.span("setup.coarsen"):
+            grids = np.meshgrid(
+                *[np.arange(d) for d in dims_cur], indexing="ij"
+            )
+            idx = np.stack([g.ravel() for g in grids], axis=1)
+            cdims = (dims_cur + 1) // 2
+            cidx = idx // 2
+            key = np.zeros(len(idx), dtype=np.int64)
+            for k in range(idx.shape[1]):
+                key = key * cdims[k] + cidx[:, k]
+            nc = int(np.prod(cdims))
+        with timers.span("setup.prol"):
+            diag = A_cur.diagonal()
+            rowsum = np.asarray(abs(A_cur).sum(axis=1)).ravel()
+            rho = float(
+                (rowsum / np.where(diag > 0, diag, 1.0)).max(initial=1.0)
+            )
+            omega = float(opts.prol.omega.get(lvl)) / max(rho, 1e-12)
+            P, _ = host_lattice_prol(A_cur, idx, dims_cur, key, nc, omega)
+        with timers.span("setup.rap"):
+            Ac = rap(A_cur, P, dtype=np.float64)
+            Ac = prune_csr(Ac, opts.stencil_prune_tol)
         levels[-1].P = P.tobsr(blocksize=(1, 1))
         levels[-1].lattice_transfer = {
             "dims_f": tuple(int(x) for x in dims_cur),
@@ -463,6 +489,9 @@ def _stencil_setup(
         A_cur = Ac
         dims_cur = cdims
         lvl += 1
+        level.close()
+        level = timers.span("setup.level", level=lvl)
+    level.close()
     return levels, log
 
 
@@ -516,19 +545,30 @@ def setup_levels(
     ``finest_mesh`` overrides that mesh: the ELMAT mode, where the mesh
     energies come from element matrices (apps/elmat.py), and which always
     takes the generic loop.
+
+    In the current recorder (utils/timers.py) each level gets one
+    ``setup.level`` span; its phases are ``setup.mesh`` (the finest
+    level's: lattice detection and compression, or the energy's mesh),
+    ``setup.coarsen`` (the coarse map, ``map_edges``, ``map_data``),
+    ``setup.prol`` (the prolongation, with the finest embedding) and
+    ``setup.rap`` (the Galerkin product).
     """
     lc = opts.levels
-    if finest_mesh is None:
+    # a level's span opens before its work and closes when its coarse
+    # level is made; the coarsest level's closes at the end
+    level = timers.span("setup.level", level=0)
+    with timers.span("setup.mesh"):
         # the fast path accepts DIA input directly (no CSR conversion)
-        res = _stencil_setup(A, energy, opts, coords)
-        if res is not None:
-            return res
-    A = A.tocsr()
-    if A.dtype != np.float64:
-        A = A.astype(np.float64)
+        cur = (_stencil_finest(A, energy, opts, coords)
+               if finest_mesh is None else None)
+        if cur is None:
+            A = A.tocsr()
+            if A.dtype != np.float64:
+                A = A.astype(np.float64)
+            mesh = finest_mesh or energy.build_finest_mesh(A, coords)
+    if cur is not None:
+        return _stencil_levels(A, cur, opts, level)
     log = FactoryLog()
-
-    mesh = finest_mesh or energy.build_finest_mesh(A, coords)
     row_bs = A.shape[0] // mesh.nv
     levels = [SetupLevel(index=0, A=A, row_bs=row_bs, mesh=mesh)]
     log.nvs.append(mesh.nv)
@@ -540,54 +580,57 @@ def setup_levels(
         and levels[-1].mesh.nv > lc.max_coarse_size
     ):
         cur = levels[-1]
-        v2agg, n_agg = build_coarse_map(energy, cur.mesh, opts, lvl)
-        if n_agg >= lc.min_coarsen_ratio * cur.mesh.nv or n_agg == 0:
-            break  # coarsening stuck (TryCoarseStep rejection)
-        coarse_edges, e2ce = map_edges(cur.mesh, v2agg, n_agg)
-        mesh_c = energy.map_data(cur.mesh, v2agg, n_agg, coarse_edges, e2ce)
-
-        lat = _lattice_transfer_plan(
-            energy, cur, mesh_c, v2agg, n_agg, opts, lvl
-        )
-        if lat is not None:
-            P, meta = lat
-            cur.lattice_transfer = meta
-        else:
-            P = build_prolongation(
-                energy, cur.mesh, mesh_c, v2agg, opts, lvl,
-                A=cur.A, row_bs=cur.row_bs,
+        with timers.span("setup.coarsen"):
+            v2agg, n_agg = build_coarse_map(energy, cur.mesh, opts, lvl)
+            if n_agg >= lc.min_coarsen_ratio * cur.mesh.nv or n_agg == 0:
+                break  # coarsening stuck (TryCoarseStep rejection)
+            coarse_edges, e2ce = map_edges(cur.mesh, v2agg, n_agg)
+            mesh_c = energy.map_data(cur.mesh, v2agg, n_agg, coarse_edges,
+                                     e2ce)
+        with timers.span("setup.prol"):
+            lat = _lattice_transfer_plan(
+                energy, cur, mesh_c, v2agg, n_agg, opts, lvl
             )
-        E = energy.embedding_matrix(cur.mesh) if lvl == 0 else None
-        if E is not None:
-            cur.P_amg = P  # pre-embedding (dpv-space) prolongation
-            P = (E @ P).tobsr(blocksize=(cur.row_bs, energy.dpv))
+            if lat is not None:
+                P, meta = lat
+                cur.lattice_transfer = meta
+            else:
+                P = build_prolongation(
+                    energy, cur.mesh, mesh_c, v2agg, opts, lvl,
+                    A=cur.A, row_bs=cur.row_bs,
+                )
+            E = energy.embedding_matrix(cur.mesh) if lvl == 0 else None
+            if E is not None:
+                cur.P_amg = P  # pre-embedding (dpv-space) prolongation
+                P = (E @ P).tobsr(blocksize=(cur.row_bs, energy.dpv))
         # Galerkin products ALWAYS in f64 on the host: the device staging
         # casts to the solve dtype afterwards (an f32 RAP fuzzes exact
         # coarse null modes to ~1e-7, and the 3D-elasticity coarsest
         # matrix then takes a garbage Cholesky inverse)
-        Ac = None
-        if energy.dpv > 1 and sp.issparse(P) and P.format == "bsr" \
-                and P.blocksize == (cur.row_bs, energy.dpv):
-            # fused conversion-free block RAP on the cached BSR view of A;
-            # the coarse BSR is seeded into the coarse CSR's cache, so the
-            # block consumers downstream skip csr -> bsr
-            A_b = to_bsr(cur.A, cur.row_bs)
-            Ac_b = native.rap_bsr(A_b, P)
-            if Ac_b is not None:
-                Ac = Ac_b.tocsr()
-                # block storage keeps explicit zeros inside blocks (e.g.
-                # the diagonal kron blocks of vector H1); the scalar route
-                # never stores them
-                Ac.eliminate_zeros()
-                Ac.has_canonical_format = True
-                Ac._amg_bsr_cache = (energy.dpv, Ac_b)
-            else:
-                Ac = rap(
-                    cur.A, P, dtype=np.float64, bs_r=cur.row_bs,
-                    bs_c=energy.dpv,
-                )
-        if Ac is None:
-            Ac = rap(cur.A, P, dtype=np.float64)
+        with timers.span("setup.rap"):
+            Ac = None
+            if energy.dpv > 1 and sp.issparse(P) and P.format == "bsr" \
+                    and P.blocksize == (cur.row_bs, energy.dpv):
+                # fused conversion-free block RAP on the cached BSR view of
+                # A; the coarse BSR is seeded into the coarse CSR's cache,
+                # so the block consumers downstream skip csr -> bsr
+                A_b = to_bsr(cur.A, cur.row_bs)
+                Ac_b = native.rap_bsr(A_b, P)
+                if Ac_b is not None:
+                    Ac = Ac_b.tocsr()
+                    # block storage keeps explicit zeros inside blocks
+                    # (e.g. the diagonal kron blocks of vector H1); the
+                    # scalar route never stores them
+                    Ac.eliminate_zeros()
+                    Ac.has_canonical_format = True
+                    Ac._amg_bsr_cache = (energy.dpv, Ac_b)
+                else:
+                    Ac = rap(
+                        cur.A, P, dtype=np.float64, bs_r=cur.row_bs,
+                        bs_c=energy.dpv,
+                    )
+            if Ac is None:
+                Ac = rap(cur.A, P, dtype=np.float64)
         cur.P = P
         cur.v2agg = v2agg
         levels.append(
@@ -596,5 +639,7 @@ def setup_levels(
         log.nvs.append(mesh_c.nv)
         log.nnzs.append(Ac.nnz)
         lvl += 1
-
+        level.close()
+        level = timers.span("setup.level", level=lvl)
+    level.close()
     return levels, log

@@ -62,6 +62,7 @@ from ..solve.pcg import pcg, pcg_mixed
 from ..sparse import bell, formats
 from ..sparse.host import bsr_permute, to_bsr
 from ..transfer.lattice_transfer import LatticeProlongation, LatticeRestriction
+from ..utils import timers
 
 ROW_ALIGN = 8
 
@@ -227,11 +228,18 @@ def _spd_inverse(Ad: np.ndarray) -> np.ndarray:
 
 @dataclass
 class SolveInfo:
+    """What a solve reports. ``host_syncs``: its blocking reads and copies
+    (each a ``timers.blocking`` call); ``sync_wait_s``: the host's time
+    blocked in them; ``dispatch_s``: the solve's host time less that."""
+
     iterations: int
     relres: float
     outer_iterations: int = 1
     converged: bool = True
     history: list = field(default_factory=list)
+    host_syncs: int = 0
+    sync_wait_s: float = 0.0
+    dispatch_s: float = 0.0
 
 
 class AMGPreconditioner:
@@ -393,12 +401,39 @@ class AMGPreconditioner:
             acc.add_batch(np.asarray(dnums), np.asarray(elmats))
             self._finest_mesh = acc.finalize(self.coords)
         self._is_setup = False
+        self.trace_ = timers.Recorder()
 
     # ------------------------------------------------------------------
     # setup (BuildAMGMat)
     # ------------------------------------------------------------------
     def setup(self) -> "AMGPreconditioner":
-        t0 = time.perf_counter()
+        """Builds the hierarchy on the host and stages it. A new recorder,
+        ``trace_`` (utils/timers.py), holds the set-up's spans and then the
+        solves'; ``setup_time_host`` and ``setup_time_device`` are the
+        durations of its ``setup.host`` and ``setup.staging`` spans."""
+        self.trace_ = timers.Recorder()
+        with timers.recording(self.trace_), timers.span("setup"):
+            with timers.span("setup.host") as host:
+                self._setup_host()
+            with timers.span("setup.staging") as staging:
+                self._compile_device()
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+        self.setup_time_host = host.seconds
+        self.setup_time_device = staging.seconds
+        self._is_setup = True
+        if self.options.log_level >= 1:
+            print(self.log_.summary())
+            print(
+                f"setup: host {self.setup_time_host:.3f}s, "
+                f"device staging {self.setup_time_device:.3f}s"
+            )
+        if self.options.do_test:
+            lmin, lmax = self.test()
+            print(f"eigenvalue bounds of M^-1 A: [{lmin:.4g}, {lmax:.4g}]")
+        return self
+
+    def _setup_host(self):
         if self._nodalp2 is not None:
             self._setup_nodalp2_levels()
         elif (
@@ -417,24 +452,6 @@ class AMGPreconditioner:
                 self.A_host, self.energy, self.options, self.coords,
                 finest_mesh=self._finest_mesh,
             )
-        t1 = time.perf_counter()
-        self._compile_device()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t2 = time.perf_counter()
-        self.setup_time_host = t1 - t0
-        self.setup_time_device = t2 - t1
-        self._is_setup = True
-        if self.options.log_level >= 1:
-            print(self.log_.summary())
-            print(
-                f"setup: host {self.setup_time_host:.3f}s, "
-                f"device staging {self.setup_time_device:.3f}s"
-            )
-        if self.options.do_test:
-            lmin, lmax = self.test()
-            print(f"eigenvalue bounds of M^-1 A: [{lmin:.4g}, {lmax:.4g}]")
-        return self
 
     def _setup_nodalp2_levels(self):
         """Nodal-P2 hierarchy: midnodes embed into their parent vertices.
@@ -517,8 +534,9 @@ class AMGPreconditioner:
     def _compile_device(self):
         """Stage the hierarchy: row orders, symmetric scaling, formats,
         smoothers, transfers, coarse inverse, cluster correction and the
-        f64 finest stencil. Host seconds per stage, under the JAX
-        package's stage names, go to ``_device_stage_times``."""
+        f64 finest stencil. Each stage is a ``staging.<stage>`` span of
+        ``trace_`` under the JAX package's stage names, from the end of
+        the stage before (``_device_stage_times`` sums them by name)."""
         opts = self.options
         levels = self.setup_levels_
         nlev = len(levels)
@@ -528,13 +546,16 @@ class AMGPreconditioner:
         # single-device placements: the row sharding (parallel/shard.py,
         # parallel/halo.py) cuts uniform per-level arrays
         stack = int(opts.shards) <= 1
-        stages = self._device_stage_times = {}
-        t_last = time.perf_counter()
+        t_last = time.perf_counter_ns()
 
         def _mark(name):
+            # the tensors are made on the device as they are packed: a
+            # stage ends once the copies and casts in flight are done
             nonlocal t_last
-            t = time.perf_counter()
-            stages[name] = stages.get(name, 0.0) + (t - t_last)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t = time.perf_counter_ns()
+            self.trace_.add("staging." + name, t_last, t)
             t_last = t
 
         def _need_smoother(i):
@@ -749,10 +770,6 @@ class AMGPreconditioner:
         if self.dtype == torch.bfloat16:
             # staged in f32 (numpy has no bfloat16): one cast on the device
             op = _cast_floats(op, self.dtype, {})
-        if dev.type == "cuda":
-            # the tensors were made on the device as they were packed; this
-            # waits for the copies and casts still in flight
-            torch.cuda.synchronize(dev)
         _mark("device_put")
         self.op = op
         self.A_dev = self.op.levels[0].A
@@ -842,6 +859,12 @@ class AMGPreconditioner:
     # apply / solve
     # ------------------------------------------------------------------
     @property
+    def _device_stage_times(self) -> dict[str, float]:
+        """Staging seconds by stage, under the JAX package's stage names:
+        the ``staging.<stage>`` spans of ``trace_``, summed by name."""
+        return self.trace_.by_name("staging.")
+
+    @property
     def operator_complexity(self) -> float:
         return self.log_.operator_complexity
 
@@ -856,17 +879,16 @@ class AMGPreconditioner:
             v = v * self._scale0  # r' = S_0 r (scaled hierarchy boundary)
         if self._perm0 is not None:
             v = v[self._perm0]
-        return formats.block_vec(
-            v, bs, self.A_dev.nrows_pad, self.dtype, self.device
+        return timers.blocking(
+            formats.block_vec, v, bs, self.A_dev.nrows_pad, self.dtype,
+            self.device,
         )
 
     def _from_dev(self, v: torch.Tensor) -> np.ndarray:
-        out = (
-            formats.flat_vec(v, self.A_dev.nrows)
-            .to(torch.float64)
-            .cpu()
-            .numpy()
-        )
+        out = timers.blocking(
+            torch.Tensor.cpu,
+            formats.flat_vec(v, self.A_dev.nrows).to(torch.float64),
+        ).numpy()
         if self._iperm0 is not None:
             out = out[self._iperm0]
         if self._scale0 is not None:
@@ -931,8 +953,20 @@ class AMGPreconditioner:
         f32 inner pass stalls at its accuracy floor. ``None`` keeps the
         automatic behavior (defect correction, with the mixed PCG as the
         fallback when it stagnates).
+
+        The solve's counters go to the returned ``SolveInfo``; with
+        tracing on (``utils.timers.tracing``) its spans go to ``trace_``.
         """
         self._require_setup()
+        with timers.solving(self.trace_) as scope:
+            x, info = self._solve(b, tol, maxiter, use_refinement,
+                                  return_device, mixed)
+        info.host_syncs = scope.host_syncs
+        info.sync_wait_s = scope.sync_wait_s
+        info.dispatch_s = scope.dispatch_s
+        return x, info
+
+    def _solve(self, b, tol, maxiter, use_refinement, return_device, mixed):
         b = self._expand_ext(np.asarray(b, dtype=np.float64))
         bnorm = np.linalg.norm(b)
         device_path = self._A64_dev is not None
@@ -979,25 +1013,27 @@ class AMGPreconditioner:
         history = []
         stagnated = False
         for outer in range(max_outer):
-            r = b - self.A_host @ x
-            relres = np.linalg.norm(r) / bnorm
-            history.append(relres)
-            if relres <= tol:
-                break
-            if len(history) >= 2 and relres > 0.5 * history[-2]:
-                stagnated = True
-                break  # refinement stagnated (f32 accuracy floor)
-            res = pcg(
-                self.op,
-                self.A_dev,
-                self._to_dev(r),
-                # ask only for the reachable reduction (see
-                # _solve_device_refined)
-                tol=float(max(inner_tol, 0.5 * tol / relres)),
-                maxiter=maxiter,
-            )
-            x = x + self._from_dev(res.x)
-            total_it += int(res.iterations)
+            with (timers.span("solve.pass", index=outer) if timers.ON
+                  else timers.NULL):
+                r = b - self.A_host @ x
+                relres = np.linalg.norm(r) / bnorm
+                history.append(relres)
+                if relres <= tol:
+                    break
+                if len(history) >= 2 and relres > 0.5 * history[-2]:
+                    stagnated = True
+                    break  # refinement stagnated (f32 accuracy floor)
+                res = pcg(
+                    self.op,
+                    self.A_dev,
+                    self._to_dev(r),
+                    # ask only for the reachable reduction (see
+                    # _solve_device_refined)
+                    tol=float(max(inner_tol, 0.5 * tol / relres)),
+                    maxiter=maxiter,
+                )
+                x = x + self._from_dev(res.x)
+                total_it += timers.blocking(int, res.iterations)
         r = b - self.A_host @ x
         relres = float(np.linalg.norm(r) / bnorm)
         history.append(relres)
@@ -1090,7 +1126,9 @@ class AMGPreconditioner:
             v = v * self._scale0
         if self._perm0 is not None:
             v = v[self._perm0]
-        b64 = formats.block_vec(v, bs, n_pad, torch.float64, dev)
+        b64 = timers.blocking(
+            formats.block_vec, v, bs, n_pad, torch.float64, dev
+        )
         # stopping criterion in the UNSCALED space: the hierarchy solves
         # A-hat = SAS, whose residual norm can sit an order of magnitude
         # off the honest ||r||/||b||; weight = S^-1 makes the recurrence
@@ -1105,11 +1143,16 @@ class AMGPreconditioner:
             )
             sinv = np.zeros(_scalar_pad(self.A_dev, bs), dtype=np.float64)
             sinv[: len(s_perm)] = 1.0 / s_perm
-            sinv_dev = torch.from_numpy(sinv.reshape(-1, bs)).to(dev)
-        res = pcg_mixed(
-            self.op, A64, b64, tol=tol, maxiter=maxiter,
-            cycle_dt=self.dtype, weight=sinv_dev,
-        )
+            sinv_dev = timers.blocking(
+                torch.Tensor.to, torch.from_numpy(sinv.reshape(-1, bs)), dev
+            )
+        with (timers.span("solve.pass", index=0) if timers.ON
+              else timers.NULL):
+            res = pcg_mixed(
+                self.op, A64, b64, tol=tol, maxiter=maxiter,
+                cycle_dt=self.dtype, weight=sinv_dev,
+            )
+            total_iters = timers.blocking(int, res.iterations)
         # true-residual verification on the device (recursive residuals
         # drift; one extra f64 matvec), in the UNSCALED space, with
         # DEFECT-CORRECTION RESTARTS when the drift leaves the true
@@ -1117,27 +1160,31 @@ class AMGPreconditioner:
         # ~1-2x under the true residual at 1e-8; a restart costs 1-2 extra
         # iterations and makes ``converged`` trustworthy)
         x64 = res.x
-        total_iters = int(res.iterations)
         outer = 1
         relres = np.inf
         history = []
         for _restart in range(3):
-            r_true = b64 - formats.matvec(A64, x64)
-            r_ver = r_true if sinv_dev is None else r_true * sinv_dev
-            relres = float(torch.linalg.vector_norm(r_ver)) / bnorm
-            history.append(relres)
-            if relres <= tol or total_iters >= maxiter:
-                break
-            sub = pcg_mixed(
-                self.op, A64, r_true,
-                tol=min(0.8 * tol / relres, 0.5),
-                maxiter=maxiter - total_iters,
-                cycle_dt=self.dtype, weight=sinv_dev,
-            )
-            x64 = x64 + sub.x
-            total_iters += int(sub.iterations)
-            outer += 1
-        x = formats.flat_vec(x64, self.A_dev.nrows).cpu().numpy()
+            with (timers.span("solve.pass", index=outer) if timers.ON
+                  else timers.NULL):
+                r_true = b64 - formats.matvec(A64, x64)
+                r_ver = r_true if sinv_dev is None else r_true * sinv_dev
+                relres = timers.blocking(
+                    float, torch.linalg.vector_norm(r_ver)) / bnorm
+                history.append(relres)
+                if relres <= tol or total_iters >= maxiter:
+                    break
+                sub = pcg_mixed(
+                    self.op, A64, r_true,
+                    tol=min(0.8 * tol / relres, 0.5),
+                    maxiter=maxiter - total_iters,
+                    cycle_dt=self.dtype, weight=sinv_dev,
+                )
+                x64 = x64 + sub.x
+                total_iters += timers.blocking(int, sub.iterations)
+                outer += 1
+        x = timers.blocking(
+            torch.Tensor.cpu, formats.flat_vec(x64, self.A_dev.nrows)
+        ).numpy()
         if self._iperm0 is not None:
             x = x[self._iperm0]
         if self._scale0 is not None:
@@ -1196,39 +1243,43 @@ class AMGPreconditioner:
         A64 = self._A64_dev
         n, n_pad = A64.nrows, A64.nrows_pad
         b64 = torch.zeros((n_pad, 1), dtype=torch.float64, device=self.device)
-        b64[:n, 0] = torch.from_numpy(b).to(self.device)
+        b64[:n, 0] = timers.blocking(
+            torch.Tensor.to, torch.from_numpy(b), self.device
+        )
         x64 = torch.zeros_like(b64)
         total_it = 0
         history = []
         relres = 1.0
         for outer in range(max_outer):
-            r64, rn2 = _refine_residual(A64, b64, x64)
-            rn = float(torch.sqrt(rn2))
-            relres = rn / bnorm
-            history.append(relres)
-            if relres <= tol or not np.isfinite(relres):
-                break
-            if len(history) >= 2 and relres > 0.5 * history[-2]:
-                break  # stagnated at the f32 accuracy floor
-            r32 = _refine_scale(r64, 1.0 / rn, self.dtype)
-            res = pcg(
-                self.op,
-                self.A_dev,
-                r32,
-                # ask only for the reachable reduction: the f32 floor caps
-                # what one inner pass delivers, and near convergence only
-                # tol/relres is needed
-                tol=float(max(inner_tol, 0.5 * tol / relres)),
-                maxiter=maxiter,
-            )
-            x64 = _refine_accumulate(x64, res.x, rn)
-            total_it += int(res.iterations)
+            with (timers.span("solve.pass", index=outer) if timers.ON
+                  else timers.NULL):
+                r64, rn2 = _refine_residual(A64, b64, x64)
+                rn = timers.blocking(float, torch.sqrt(rn2))
+                relres = rn / bnorm
+                history.append(relres)
+                if relres <= tol or not np.isfinite(relres):
+                    break
+                if len(history) >= 2 and relres > 0.5 * history[-2]:
+                    break  # stagnated at the f32 accuracy floor
+                r32 = _refine_scale(r64, 1.0 / rn, self.dtype)
+                res = pcg(
+                    self.op,
+                    self.A_dev,
+                    r32,
+                    # ask only for the reachable reduction: the f32 floor
+                    # caps what one inner pass delivers, and near
+                    # convergence only tol/relres is needed
+                    tol=float(max(inner_tol, 0.5 * tol / relres)),
+                    maxiter=maxiter,
+                )
+                x64 = _refine_accumulate(x64, res.x, rn)
+                total_it += timers.blocking(int, res.iterations)
         _r64, rn2 = _refine_residual(A64, b64, x64)
-        relres = float(torch.sqrt(rn2)) / bnorm
+        relres = timers.blocking(float, torch.sqrt(rn2)) / bnorm
         history.append(relres)
         x = x64[:n, 0]
         if not return_device:
-            x = x.cpu().numpy()
+            x = timers.blocking(torch.Tensor.cpu, x).numpy()
         info = SolveInfo(
             iterations=total_it,
             relres=relres,

@@ -15,6 +15,10 @@ On a rank of the sharded solve (parallel/shard.py) the same code runs on
 the rank's rows: the sharded operators and transfers carry their own
 collectives (``formats.matvec``'s hook), and the coarse inverse and the
 cluster correction, which are replicated, take the gathered vector.
+
+With tracing on (utils/timers.py) each level's visit is a ``cycle.level``
+span, whose self time is the level's smoothing, residual and transfers,
+and the coarse solve a ``cycle.coarse`` span.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch
 from ..smoothers.cluster_corr import ClusterCorrection, cluster_apply
 from ..smoothers.core import Smoother, smooth, smooth_back
 from ..sparse.formats import matvec
+from ..utils import timers
 
 
 @dataclass(frozen=True)
@@ -49,6 +54,13 @@ class AMGOperator:
 
 
 def coarse_solve(op: AMGOperator, b: torch.Tensor) -> torch.Tensor:
+    if not timers.ON:
+        return _coarse_solve(op, b)
+    with timers.span("cycle.coarse"):
+        return _coarse_solve(op, b)
+
+
+def _coarse_solve(op: AMGOperator, b: torch.Tensor) -> torch.Tensor:
     lev = op.levels[-1]
     if op.coarse_inv is None:
         if lev.smoother is None:
@@ -74,6 +86,7 @@ def _cycle(op: AMGOperator, b: torch.Tensor, l: int) -> torch.Tensor:
     levels = op.levels
     if l == len(levels) - 1:
         return coarse_solve(op, b)
+    sp = timers.span("cycle.level", level=l) if timers.ON else None
     lev = levels[l]
     x = smooth(lev.smoother, lev.A, None, b)
     r = b - matvec(lev.A, x)
@@ -83,7 +96,10 @@ def _cycle(op: AMGOperator, b: torch.Tensor, l: int) -> torch.Tensor:
         rc = bc - matvec(levels[l + 1].A, xc)
         xc = xc + _cycle(op, rc, l + 1)
     x = x + matvec(lev.P, xc)
-    return smooth_back(lev.smoother, lev.A, x, b)
+    x = smooth_back(lev.smoother, lev.A, x, b)
+    if sp is not None:
+        sp.close()
+    return x
 
 
 def amg_apply(op: AMGOperator, b: torch.Tensor) -> torch.Tensor:

@@ -7,7 +7,9 @@ residual drops below tolerance the state freezes and ``k`` counts accepted
 steps only, as in the JAX package), and the host reads the residual scalar
 after every step and stops early. A device-to-host read of one scalar
 costs microseconds on the card, against a V-cycle of milliseconds, so a
-longer chunk would only spend frozen iterations.
+longer chunk would only spend frozen iterations. Every read goes through
+``utils.timers.blocking``, and with tracing on each iteration is a
+``pcg.iter`` span.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from ..sparse.formats import matvec
+from ..utils import timers
 from .cycle import AMGOperator, amg_apply
 
 
@@ -83,18 +86,21 @@ def pcg(
     maxiter: int = 200,
 ) -> SolveResult:
     """PCG with the AMG cycle as preconditioner. Zero initial guess."""
-    bnorm2 = float(_dot(b, b, A))
+    bnorm2 = timers.blocking(float, _dot(b, b, A))
     if bnorm2 == 0.0:
         z = torch.zeros_like(b)
         return SolveResult(
             z, torch.zeros((), dtype=torch.int32), b.new_zeros(())
         )
     tol_abs2 = torch.tensor(tol * tol * bnorm2, dtype=b.dtype, device=b.device)
-    tol_abs2_host = float(tol_abs2)
+    tol_abs2_host = timers.blocking(float, tol_abs2)
     state = _pcg_init(b, A)
-    for _ in range(maxiter):
+    for it in range(maxiter):
+        sp = timers.span("pcg.iter", index=it) if timers.ON else None
         state = _pcg_step(op, A, state, tol_abs2)
-        rn = float(state[4])
+        rn = timers.blocking(float, state[4])
+        if sp is not None:
+            sp.close()
         if not np.isfinite(rn) or rn <= tol_abs2_host:
             break
     x, _r, _p, _rz, rn, k = state
@@ -163,7 +169,7 @@ def pcg_mixed(
     :func:`_pcg_mixed_step`.
     """
     wb = b64 if weight is None else b64 * weight
-    bnorm2 = float(_dot(wb, wb, A64))
+    bnorm2 = timers.blocking(float, _dot(wb, wb, A64))
     if bnorm2 == 0.0:
         z = torch.zeros_like(b64)
         return SolveResult(
@@ -172,7 +178,7 @@ def pcg_mixed(
     tol_abs2 = torch.tensor(
         tol * tol * bnorm2, dtype=torch.float64, device=b64.device
     )
-    tol_abs2_host = float(tol_abs2)
+    tol_abs2_host = timers.blocking(float, tol_abs2)
     state = (
         torch.zeros_like(b64),
         b64,
@@ -181,9 +187,12 @@ def pcg_mixed(
         torch.tensor(bnorm2, dtype=torch.float64, device=b64.device),
         torch.zeros((), dtype=torch.int32, device=b64.device),
     )
-    for _ in range(maxiter):
+    for it in range(maxiter):
+        sp = timers.span("pcg.iter", index=it) if timers.ON else None
         state = _pcg_mixed_step(op, A64, state, tol_abs2, weight, cycle_dt)
-        rn = float(state[4])
+        rn = timers.blocking(float, state[4])
+        if sp is not None:
+            sp.close()
         if not np.isfinite(rn) or rn <= tol_abs2_host:
             break
     x, _r, _p, _rz, rn, k = state
@@ -214,14 +223,14 @@ def amg_iteration(
 ) -> SolveResult:
     """Stationary AMG iteration x <- x + M^-1 (b - A x) (the reference's
     `AMGAsLinearSolver` simple iteration). Zero initial guess."""
-    bnorm2 = float(_dot(b, b, A))
+    bnorm2 = timers.blocking(float, _dot(b, b, A))
     if bnorm2 == 0.0:
         z = torch.zeros_like(b)
         return SolveResult(
             z, torch.zeros((), dtype=torch.int32), b.new_zeros(())
         )
     tol_abs2 = torch.tensor(tol * tol * bnorm2, dtype=b.dtype, device=b.device)
-    tol_abs2_host = float(tol_abs2)
+    tol_abs2_host = timers.blocking(float, tol_abs2)
     state = (
         torch.zeros_like(b),
         b,
@@ -230,7 +239,7 @@ def amg_iteration(
     )
     for _ in range(maxiter):
         state = _si_step(op, A, state, tol_abs2)
-        rn = float(state[2])
+        rn = timers.blocking(float, state[2])
         if not np.isfinite(rn) or rn <= tol_abs2_host:
             break
     x, _r, rn, k = state

@@ -1,90 +1,364 @@
-"""Port parity for the tracing utilities (`utils/timers.py`).
+"""The port's recorder of spans and counters (`utils/timers.py`).
 
-``timer`` and ``report`` are copies: the same regions give the JAX
-package's report format. ``device_region`` is a named range of the torch
-profiler (the JAX package's is a ``jax.profiler.TraceAnnotation``), and
-``trace`` a torch profiler that writes a Chrome trace when its block ends.
-On this CPU-only machine the tests pass the CPU activity alone; the
-card's trace (K1's kernel under the region) is checked by
-``chip_smoke.py`` ``[timers]``.
+A solve with tracing on records a tree of spans under one solve id; the
+set-up's phases are recorded always and lie inside ``setup_time_host``;
+spans sit on the torch profiler's clock through the recorder's anchor and
+join its Chrome trace on a host track; tracing off records no solve-side
+span and leaves the answers bit for bit as they were; every blocking read
+of a solve is counted. CPU only: the card's trace (K1 beside the
+``cycle.level`` spans) is checked by ``chip_smoke.py`` ``[timers]``.
 """
 
-import glob
 import json
 import os
-import re
+import time
 
 import numpy as np
+import pytest
 import torch
 
-import ngsamg_tpu.utils.timers as jtimers
 import ngsamg_tpu_torch
-import ngsamg_tpu_torch.utils.timers as ttimers
+import ngsamg_tpu_torch.utils.timers as timers
 from ngsamg_tpu_torch.utils import fem as tfem
+from ngsamg_tpu_torch.utils.trace_solve import NO_SPAN, idle_by_span
 
 torch.set_num_threads(2)
 
 CPU_ONLY = [torch.profiler.ProfilerActivity.CPU]
+PHASES = ("setup.mesh", "setup.coarsen", "setup.prol", "setup.rap")
+SOLVE_SPANS = {"solve", "solve.pass", "pcg.iter", "cycle.level",
+               "cycle.coarse", "sync"}
 
 
-def _normalized(report):
-    """The report with its seconds column masked (wall clocks differ)."""
-    return re.sub(r"\d+\.\d{3}", "#.###", report)
-
-
-def test_timer_report_matches_jax_format():
-    ttimers.report(reset=True)
-    jtimers.report(reset=True)
-    for mod in (jtimers, ttimers):
-        for name, k in (("setup", 2), ("solve", 3), ("a_much_longer_name", 1)):
-            for _ in range(k):
-                with mod.timer(name):
-                    pass
-    rt, rj = ttimers.report(), jtimers.report()
-    lines_t, lines_j = rt.splitlines(), rj.splitlines()
-    assert lines_t[0] == lines_j[0]
-    # same rows (order follows the measured totals, so compare as sets)
-    assert sorted(_normalized(rt).splitlines()[1:]) == sorted(
-        _normalized(rj).splitlines()[1:]
-    )
-    assert any(ln.split()[0] == "solve" and ln.split()[-1] == "3"
-               for ln in lines_t[1:])
-    assert _normalized(ttimers.report(reset=True)) == _normalized(rt)
-    assert ttimers.report().splitlines() == [lines_t[0]]
-    jtimers.report(reset=True)
-
-
-def test_device_region_and_trace_write_a_chrome_trace(tmp_path):
-    p = tfem.poisson_3d(12)
-    opts = ngsamg_tpu_torch.AMGOptions(
+def _cheb():
+    return ngsamg_tpu_torch.AMGOptions(
         smoother=ngsamg_tpu_torch.SmootherOptions(
             type=ngsamg_tpu_torch.SmootherType.CHEBYSHEV
         )
     )
+
+
+# the three residual paths of ``solve``: the host refinement loop (the GS
+# block-ELL finest level of a small lattice), the device one (the f64
+# stencil of a compressed lattice) and the mixed PCG (elasticity)
+CASES = {
+    "host": (lambda: tfem.poisson_3d(12), dict(options=None), {}),
+    "device": (lambda: tfem.poisson_3d(40), dict(options="cheb"), {}),
+    "mixed": (lambda: tfem.elasticity_3d(6),
+              dict(options="cheb", energy="elasticity", block_size=3),
+              dict(mixed=True)),
+}
+
+
+@pytest.fixture(scope="module")
+def setups():
+    out = {}
+    for name, (make, kw, solve_kw) in CASES.items():
+        p = make()
+        kw = dict(kw)
+        kw["options"] = _cheb() if kw["options"] == "cheb" else None
+        pc = ngsamg_tpu_torch.AMGPreconditioner(
+            p.A, coords=p.coords, device="cpu", **kw
+        ).setup()
+        out[name] = (p, pc, solve_kw)
+    return out
+
+
+def _solve_spans(pc, n0):
+    return [s for s in pc.trace_.spans[n0:]]
+
+
+def test_solve_span_tree(setups):
+    p, pc, _ = setups["host"]
+    rec = pc.trace_
+    n0 = len(rec.spans)
+    with timers.tracing(True):
+        _x, info = pc.solve(p.b, tol=1e-8)
+    spans = _solve_spans(pc, n0)
+    assert {s.name for s in spans} == SOLVE_SPANS
+    assert all(s.end >= s.start > 0 for s in spans)
+    root = spans[0]
+    assert root.name == "solve" and root.parent == 0
+    assert [s for s in spans if s.name == "solve"] == [root]
+    # one solve id, new to this solve
+    assert {s.solve for s in spans} == {root.solve} and root.solve > 0
+    assert all(s.solve == 0 for s in rec.spans[:n0] if s.name != "solve")
+    by_id = {s.id: s for s in rec.spans}
+    for s in spans[1:]:
+        par = by_id[s.parent]
+        assert par.solve == root.solve
+        assert par.start <= s.start and s.end <= par.end
+    assert len([s for s in spans if s.name == "pcg.iter"]) == info.iterations
+    assert len([s for s in spans if s.name == "solve.pass"]) == \
+        info.outer_iterations
+    # self times: none negative, and over the solve they add up to the
+    # root's duration
+    own = rec.self_ns()
+    assert all(own[s.id] >= 0 for s in spans)
+    assert sum(own[s.id] for s in spans) == root.ns
+    for s in spans:
+        kids = [k for k in spans if k.parent == s.id]
+        assert own[s.id] + sum(k.ns for k in kids) == s.ns
+    assert {s.attrs["level"] for s in spans if s.name == "cycle.level"} == \
+        set(range(pc.num_levels - 1))
+
+
+@pytest.mark.parametrize("case", ["stencil", "generic", "elasticity"])
+def test_setup_phases(case):
+    """With tracing off (the default): one ``setup.level`` a level, phases
+    inside their level and disjoint, their sum within the host setup."""
+    assert not timers.ON
+    if case == "elasticity":
+        p = tfem.elasticity_3d(5)
+        kw = dict(energy="elasticity", block_size=3, options=_cheb())
+    else:
+        p = tfem.poisson_3d(40 if case == "stencil" else 16)
+        kw = dict(options=_cheb() if case == "stencil" else None)
     pc = ngsamg_tpu_torch.AMGPreconditioner(
-        p.A, coords=p.coords, options=opts, device="cpu"
+        p.A, coords=p.coords, device="cpu", **kw
     ).setup()
-    logdir = str(tmp_path / "trace")
-    with ttimers.trace(logdir, activities=CPU_ONLY) as prof:
-        with ttimers.device_region("solve"):
-            x, info = pc.solve(p.b, tol=1e-8)
+    rec = pc.trace_
+    (host,) = rec.named("setup.host")
+    (staging,) = rec.named("setup.staging")
+    assert pc.setup_time_host == host.seconds
+    assert pc.setup_time_device == staging.seconds
+    levels = rec.named("setup.level")
+    assert [s.attrs["level"] for s in levels] == list(range(pc.num_levels))
+    assert all(s.parent == host.id for s in levels)
+    lev_ids = {s.id for s in levels}
+    phases = sorted((s for s in rec.spans if s.name in PHASES),
+                    key=lambda s: s.start)
+    assert all(s.parent in lev_ids for s in phases)
+    assert {s.name for s in phases} >= {"setup.mesh", "setup.prol",
+                                        "setup.rap"}
+    # the stencil path's coarse map is implicit (index blocking)
+    first = {s.name for s in phases if s.parent == levels[0].id}
+    assert ("setup.coarsen" in first) == (case != "stencil")
+    for a, b in zip(phases, phases[1:]):
+        assert a.end <= b.start
+    total = sum(s.ns for s in phases)
+    assert 0 < total <= host.ns
+    # phases have no children: their self time is their duration
+    own = rec.self_ns()
+    assert all(own[s.id] == s.ns for s in phases)
+
+
+def test_staging_stage_times_are_span_sums(setups):
+    _p, pc, _ = setups["mixed"]
+    rec = pc.trace_
+    stages = pc._device_stage_times
+    assert list(stages) == ["row_order", "permute", "pack_A", "smoothers",
+                            "pack_PR", "coarse_inv", "cluster_corr",
+                            "device_put"]
+    for name, sec in stages.items():
+        assert sec == rec.seconds("staging." + name)
+    (staging,) = rec.named("setup.staging")
+    assert sum(stages.values()) <= staging.seconds
+    assert len(rec.named("staging.permute")) == pc.num_levels
+
+
+def test_span_clock_matches_the_profiler():
+    """A span around a profiled CPU op, placed through the recorder's
+    anchor, encloses the op's interval in the profiler's own results; the
+    ``perf_counter_ns`` readings just before and after the op, placed the
+    same way, bound it to within the clocks' disagreement (50 us)."""
+    from torch.profiler import profile
+
+    rec = timers.Recorder()
+    a = torch.randn(300, 300)
+    with timers.recording(rec), profile(activities=CPU_ONLY) as prof:
+        with timers.span("around"):
+            time.sleep(2e-3)
+            t_a = time.perf_counter_ns()
+            _b = a @ a
+            t_b = time.perf_counter_ns()
+            time.sleep(2e-3)
+    (sp,) = rec.named("around")
+    ops = [e for e in prof.profiler.kineto_results.events()
+           if e.name() == "aten::mm"]
+    assert len(ops) == 1
+    op_lo = ops[0].start_ns()
+    op_hi = op_lo + ops[0].duration_ns()
+    assert rec.epoch_ns(sp.start) < op_lo <= op_hi < rec.epoch_ns(sp.end)
+    tol = 50_000
+    assert rec.epoch_ns(t_a) - tol <= op_lo
+    assert op_hi <= rec.epoch_ns(t_b) + tol
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_tracing_off_records_no_solve_span_and_answers_alike(setups, case):
+    p, pc, kw = setups[case]
+    rec = pc.trace_
+    n0 = len(rec.spans)
+    x_off, info_off = pc.solve(p.b, tol=1e-8, **kw)
+    assert len(rec.spans) == n0
+    with timers.tracing(True):
+        x_on, info_on = pc.solve(p.b, tol=1e-8, **kw)
+    assert not timers.ON
+    spans = _solve_spans(pc, n0)
+    assert spans and {s.name for s in spans} <= SOLVE_SPANS
+    np.testing.assert_array_equal(np.asarray(x_on), np.asarray(x_off))
+    assert info_on.iterations == info_off.iterations
+    assert info_on.history == info_off.history
+    assert info_on.host_syncs == info_off.host_syncs
+    n1 = len(rec.spans)
+    pc.solve(p.b, tol=1e-8, **kw)
+    assert len(rec.spans) == n1
+
+
+def _expected_syncs(case, info, pc, return_device):
+    it, outer = info.iterations, info.outer_iterations
+    if case == "host":
+        # each pass: b in, bnorm, tol_abs2, an iteration's residual, x
+        # out, the iteration count
+        return it + 5 * (outer - 1)
+    if case == "device":
+        # b in; a pass's residual norm, then bnorm, tol_abs2, the
+        # iterations' residuals and the count; the last check and the
+        # final residual; x out unless it stays on the device
+        return it + 4 * outer - 1 + (not return_device)
+    # b in, the scale's inverse in, each pass's bnorm, tol_abs2,
+    # iterations and count, each restart's check, x out
+    return it + 4 * outer + 2 + (pc._scale0 is not None)
+
+
+@pytest.mark.parametrize("case,return_device", [
+    ("host", False), ("device", False), ("device", True), ("mixed", False),
+])
+def test_host_syncs_follow_iterations_and_passes(setups, case,
+                                                 return_device):
+    p, pc, kw = setups[case]
+    rec = pc.trace_
+    n0 = len(rec.spans)
+    with timers.tracing(True):
+        x, info = pc.solve(p.b, tol=1e-8, return_device=return_device, **kw)
     assert info.converged
-    assert np.linalg.norm(p.A @ x - p.b) <= 1e-8 * np.linalg.norm(p.b)
-    assert "solve" in {e.key for e in prof.key_averages()}
-    files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
-    assert len(files) == 1
-    with open(files[0]) as fh:
-        events = json.load(fh)["traceEvents"]
-    names = {e.get("name") for e in events}
-    assert "solve" in names
-    assert "aten::add" in names or "aten::add_" in names
+    assert isinstance(x, torch.Tensor) == (return_device and case == "device")
+    assert info.host_syncs == _expected_syncs(case, info, pc, return_device)
+    syncs = [s for s in _solve_spans(pc, n0) if s.name == "sync"]
+    assert len(syncs) == info.host_syncs
+    assert info.sync_wait_s == pytest.approx(
+        sum(s.ns for s in syncs) / 1e9, abs=1e-12)
+    (root,) = [s for s in _solve_spans(pc, n0) if s.name == "solve"]
+    # the host time is taken inside the root span
+    assert 0 < info.dispatch_s
+    assert 0.9 * root.seconds < info.dispatch_s + info.sync_wait_s \
+        <= root.seconds
 
 
-def test_trace_defaults_to_cpu_and_cuda():
-    """Without ``activities`` the profiler records the card too: nothing
-    is dropped because this machine has none."""
-    prof = ttimers.trace("unused")
-    assert set(prof.activities) == {
-        torch.profiler.ProfilerActivity.CPU,
-        torch.profiler.ProfilerActivity.CUDA,
-    }
+def test_export_chrome_merges_into_the_profile(setups, tmp_path):
+    """The spans join the profile's own Chrome trace on a host track of
+    their own, on its clock: every other event is the profile's, none is
+    added on a device, and the root span covers the solve's operators."""
+    from torch.profiler import profile
+
+    p, pc, _ = setups["host"]
+    rec = pc.trace_
+    with timers.tracing(True), profile(activities=CPU_ONLY) as prof:
+        pc.solve(p.b, tol=1e-8)
+    n_ops = len(prof.profiler.kineto_results.events())
+    path = rec.export_chrome(str(tmp_path / "merged.json"), prof)
+    assert os.listdir(tmp_path) == ["merged.json"]
+    with open(path) as fh:
+        merged = json.load(fh)
+    assert merged["baseTimeNanoseconds"] > 0
+    ours = [e for e in merged["traceEvents"]
+            if e.get("tid") == timers._SPAN_TID]
+    theirs = [e for e in merged["traceEvents"]
+              if e.get("tid") != timers._SPAN_TID]
+    # the profile's own operator events, each once
+    assert len([e for e in theirs if e.get("cat") == "cpu_op"]) == n_ops
+    spans = [e for e in ours if e["ph"] == "X"]
+    assert len(spans) == sum(1 for s in rec.spans if s.end)
+    assert {e["pid"] for e in ours} == {os.getpid()}
+    assert {e["cat"] for e in spans} == {timers._SPAN_CAT}
+    (root,) = [e for e in spans if e["name"] == "solve"
+               and e["args"]["solve"] == rec.solves]
+    ops = [e for e in theirs if e.get("cat") == "cpu_op"
+           and e["name"] in ("aten::add", "aten::mul")]
+    assert ops
+    for e in ops:
+        assert root["ts"] <= e["ts"] and \
+            e["ts"] + e["dur"] <= root["ts"] + root["dur"]
+    # without a profile: the spans alone
+    alone = rec.export_chrome(str(tmp_path / "alone.json"))
+    with open(alone) as fh:
+        doc = json.load(fh)
+    assert len([e for e in doc["traceEvents"] if e["ph"] == "X"]) == \
+        len(spans)
+
+
+def test_recorder_bound_and_closing():
+    rec = timers.Recorder(max_spans=3)
+    with timers.recording(rec):
+        outer = timers.span("a")
+        inner = timers.span("b", level=1)
+        outer.close()  # closes the open child too
+        assert inner.end == outer.end > 0
+        outer.close()  # a closed span stays as it was
+        assert outer.end == inner.end
+        with timers.span("c"):
+            assert timers.span("d") is timers.NULL
+            assert timers.span("e") is timers.NULL
+    assert [s.name for s in rec.spans] == ["a", "b", "c"]
+    assert rec.dropped == 2
+    assert rec.spans[1].parent == rec.spans[0].id
+    assert rec.spans[2].parent == 0
+    assert timers.span("outside") is timers.NULL
+
+
+def test_tracing_switch_restores():
+    assert not timers.ON
+    with timers.tracing(True):
+        assert timers.ON
+        with timers.tracing(False):
+            assert not timers.ON
+        assert timers.ON
+    assert not timers.ON
+    t = timers.tracing(True)
+    try:
+        assert timers.ON
+    finally:
+        t.__exit__(None, None, None)
+    assert not timers.ON
+
+
+def test_blocking_counts_only_inside_a_recorder():
+    rec = timers.Recorder()
+    v = torch.tensor(2.5)
+    assert timers.blocking(float, v) == 2.5
+    assert rec.syncs == 0
+    with timers.recording(rec):
+        assert timers.blocking(int, torch.tensor(3)) == 3
+        with timers.tracing(True):
+            timers.blocking(float, v)
+    assert rec.syncs == 2 and rec.sync_ns > 0
+    assert [(s.name, s.attrs) for s in rec.spans] == [
+        ("sync", {"op": "float"})]
+
+
+def test_idle_by_span_takes_the_innermost_span():
+    """Device gaps go to the innermost span at their midpoints; a gap in
+    no child falls in the root's self time."""
+    rec = timers.Recorder()
+    root = timers.Span(rec, "solve", 1, 0, 1, 0, 100, None)
+    lvl = timers.Span(rec, "cycle.level", 2, 1, 1, 10, 50, {"level": 0})
+    crs = timers.Span(rec, "cycle.coarse", 3, 2, 1, 20, 30, None)
+    sync = timers.Span(rec, "sync", 4, 1, 1, 60, 90, {"op": "float"})
+    busy = [(0, 12), (18, 24), (28, 62), (80, 120)]
+    idle, root_self, total = idle_by_span(
+        busy, [root, lvl, crs, sync], lambda t: t)
+    # gaps (12, 18) in the level, (24, 28) in the coarse solve, (62, 80) in
+    # the read; the window ends with the last busy interval
+    assert idle == {"cycle.level[0]": 6e-9, "cycle.coarse": 4e-9,
+                    "sync[float]": 18e-9}
+    assert root_self == 0 and total == pytest.approx(28e-9)
+    # one gap, (5, 100), whose midpoint lies in no child
+    idle, root_self, total = idle_by_span(
+        [(0, 5)], [root, lvl], lambda t: t, hi=100)
+    assert idle == {"solve": pytest.approx(95e-9)}
+    assert root_self == total == pytest.approx(95e-9)
+    # a gap whose midpoint lies after the root span's end is in no span
+    idle, root_self, _total = idle_by_span(
+        [], [root], lambda t: t + 10, hi=300)
+    assert idle == {NO_SPAN: pytest.approx(290e-9)} and root_self == 0
