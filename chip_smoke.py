@@ -25,7 +25,11 @@ Phases, each of which raises (nonzero exit) on failure:
    window would not fit), K3 on every shape of plan it can select (one
    diagonal group and several, tiles too near the ends to skip the bounds
    tests; its launch must refuse a plan that does not match the kernel's
-   layout); f32 and f64. The native setup extension builds beside nvcc.
+   layout); f32 and f64. The block-ELL kernel on random operators of
+   every staged block shape (br, bcw in {1, 2, 3, 6}) and of two generic
+   ones, f32, f64 and bf16, with the row counts and without them, on its
+   own and on forced plans; its launch must refuse a plan that does not
+   match its layout. The native setup extension builds beside nvcc.
 2a. native — the port's native setup extension
    (``ngsamg_tpu_torch/native/kernels.cpp``, built with ``g++`` during
    phase 2): the build's seconds, ``g++ --version`` and whether
@@ -103,11 +107,18 @@ Phases, each of which raises (nonzero exit) on failure:
    on this path must have been called natively. The host setup is printed
    beside the 183.6 s this phase took on the numpy branches (PERF.md
    section 5).
-10. block-ELL — the device time per call (CUDA-graph replay) of the plain
-   torch block-ELL matvec of every block-ELL level and transfer of that
-   hierarchy in f32, and of the finest level's f64 twin, beside its stored
-   bytes and bound (those bytes, one read of x and one write of y, at
-   3.35 TB/s). There is no hand-written block-ELL kernel.
+10. block-ELL — the block-ELL kernel (``csrc/bell_matvec.cu``) on every
+   block-ELL level and transfer of that hierarchy in f32, and on the
+   finest level's f64 twin: against its plain version on the card (max
+   |err| / max |y| <= 1e-5 in f32, <= 1e-12 in f64: a row sums up to
+   ~2,000 terms in another order than torch's reduction), two launches
+   to the same bits; the device time per call (CUDA-graph replay), after
+   an L2 sweep, with every other launch plan (the sweep) and of the plain
+   version, beside the bound by the problem's count (each stored block,
+   its column index, the row pointers, x and y once, at 3.35 TB/s; as
+   ``benchmark/roofline.py`` counts the finest level) and the bound of
+   the padded storage. Phase 9's warm solve must have launched the
+   kernel in f32 and f64.
 11. elasticity reference — ``elasticity_3d(8)`` (19,440 DoF) solved on the
    card and on the CPU, ``mixed=True`` and plain: true relres <= 1e-8,
    solutions to 1e-6 relative, the mixed iterations within one; the plain
@@ -317,6 +328,10 @@ import numpy as np
 F32_TOL = 1e-6
 F64_TOL = 1e-13
 BF16_TOL = 1e-2  # bf16 kernels against their plain bf16 versions
+# the block-ELL kernel against its plain version, max |err| / max |y|: a
+# row sums up to ~2,000 terms in another order than torch's reduction
+BELL_TOL = {"torch.float32": 1e-5, "torch.float64": 1e-12,
+            "torch.bfloat16": BF16_TOL}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 # H100 SXM, no tensor cores; the bf16 kernels do their arithmetic in f32
 PEAK_FLOP_S = {"f32": 67e12, "f64": 34e12}
@@ -382,15 +397,16 @@ def _nvidia_smi() -> str:
 
 
 def _counts():
-    from ngsamg_tpu_torch.ops import dia_cuda, stencil_cuda
+    from ngsamg_tpu_torch.ops import bell_cuda, dia_cuda, stencil_cuda
 
-    return {**stencil_cuda.LAUNCHES, **dia_cuda.LAUNCHES}
+    return {**stencil_cuda.LAUNCHES, **dia_cuda.LAUNCHES,
+            **bell_cuda.LAUNCHES}
 
 
 def _reset_counts():
-    from ngsamg_tpu_torch.ops import dia_cuda, stencil_cuda
+    from ngsamg_tpu_torch.ops import bell_cuda, dia_cuda, stencil_cuda
 
-    for d in (stencil_cuda.LAUNCHES, dia_cuda.LAUNCHES):
+    for d in (stencil_cuda.LAUNCHES, dia_cuda.LAUNCHES, bell_cuda.LAUNCHES):
         for k in d:
             d[k] = 0
 
@@ -653,8 +669,109 @@ def phase_build():
                 continue
             raise
         raise AssertionError(f"K3 ran with a mismatched plan {bad}")
+    _bell_build_checks()
     print("[build] small-shape kernel checks passed", flush=True)
     return native_build
+
+
+def _random_block_ell(br, bc, nbr, kmax, chunk, seed, device):
+    """A random block-sparse matrix packed as a BlockELL on ``device``: 0
+    to kmax blocks a row (row 1 empty), nbr block rows and columns."""
+    import scipy.sparse as sp
+
+    from ngsamg_tpu_torch.sparse import bell
+
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(0, kmax + 1, nbr)
+    deg[1] = 0
+    cols = [np.sort(rng.choice(nbr, size=k, replace=False)) for k in deg]
+    indptr = np.concatenate([[0], np.cumsum(deg)])
+    data = rng.standard_normal((int(deg.sum()), br, bc))
+    A = sp.bsr_matrix((data, np.concatenate(cols).astype(np.int32), indptr),
+                      shape=(nbr * br, nbr * bc))
+    return bell.from_scipy(A, br, bc, dtype=np.float64, col_chunk=chunk,
+                           device=device)
+
+
+def _bell_build_checks():
+    """The block-ELL kernel against its plain version on random operators:
+    every staged block shape (br, bc in {1, 2, 3, 6}) and two generic ones
+    (4x4, and 6x6 with col_chunk 2), f32, f64 and bf16 (held to the f32
+    plain version of the same bf16 values: the kernel rounds each product
+    and the sum to bf16),
+    with the row counts and without them (every slot read), the own plan
+    and forced ones (1 lane, 32 lanes, 32 lanes in 4 warps); two launches
+    give the same bits, and the launch refuses a plan that does not match
+    the kernel's layout."""
+    import torch
+
+    from ngsamg_tpu_torch.ops import bell_cuda
+    from ngsamg_tpu_torch.sparse import bell
+
+    shapes = [(br, bc, 1) for br in (1, 2, 3, 6) for bc in (1, 2, 3, 6)]
+    shapes += [(4, 4, 1), (6, 6, 2), (3, 3, 2)]
+    for br, bc, chunk in shapes:
+        # an odd row count (x's rows must be a multiple of col_chunk)
+        for nbr, kmax in ((1000 + (chunk == 1), 9), (300, 160)):
+            T64 = _random_block_ell(br, bc, nbr, kmax, chunk,
+                                    7 * br + bc + nbr, "cuda")
+            for dt in (torch.float32, torch.float64, torch.bfloat16):
+                T = dataclasses.replace(T64, data=T64.data.to(dt))
+                bare = dataclasses.replace(T, nslots=None)
+                n, K, _, bcw = T.data.shape
+                plans = [None, bell_cuda.bell_plan(K, br, bcw, n, lanes=1),
+                         bell_cuda.bell_plan(K, br, bcw, n, lanes=32)]
+                if T.launch.staged:
+                    plans.append(
+                        bell_cuda.bell_plan(K, br, bcw, n, lanes=32, warps=4))
+                x = torch.randn((nbr, bc), dtype=torch.float64,
+                                device="cuda").to(dt)
+                ref = bell._spmv_plain(
+                    dataclasses.replace(T, data=T.data.float()), x.float())
+                for A in (T, bare):
+                    for plan in plans:
+                        label = (f"block-ELL {br}x{bc} c{chunk} {nbr} rows "
+                                 f"{dt} {(plan or A.launch).variant} "
+                                 f"nslots={A.nslots is not None}")
+                        key = "bell_matvec_" + {
+                            torch.float32: "f32", torch.float64: "f64",
+                            torch.bfloat16: "bf16"}[dt]
+                        before = bell_cuda.LAUNCHES[key]
+                        run = (lambda A, x, plan=plan:
+                               bell_cuda.bell_matvec(A, x, plan=plan))
+                        if dt == torch.bfloat16:
+                            y = run(A, x).float()
+                            err = float((y - ref).abs().max()
+                                        / ref.abs().max())
+                            if err > BF16_TOL or y[A.nrows:].any():
+                                raise AssertionError(f"{label}: {err:.3e}")
+                        else:
+                            _check_kernel(A, x, run, bell._spmv_plain,
+                                          BELL_TOL[str(dt)], label)
+                        _same_bits(run, A, x, label)
+                        if bell_cuda.LAUNCHES[key] != before + 3:
+                            raise AssertionError(f"{label}: did not launch")
+    # the launch refuses a plan that does not match the kernel's layout
+    T = _random_block_ell(3, 3, 1001, 9, 1, 0, "cuda")
+    G = _random_block_ell(6, 6, 300, 20, 2, 0, "cuda")
+    x3 = torch.randn((1001, 3), dtype=torch.float64, device="cuda")
+    x6 = torch.randn((300, 6), dtype=torch.float64, device="cuda")
+    plan = T.launch
+    for A, x, bad in (
+            (T, x3, dataclasses.replace(plan, blocks=plan.blocks + 1)),
+            (T, x3, dataclasses.replace(plan, lanes=3)),
+            (T, x3, bell_cuda.BellPlan(lanes=16, warps=2, blocks=plan.blocks,
+                                       staged=True)),
+            (G, x6, bell_cuda.BellPlan(lanes=32, warps=2,
+                                       blocks=-(-300 // 4), staged=False))):
+        try:
+            bell_cuda.bell_matvec(A, x, plan=bad)
+        except RuntimeError as e:  # cudaErrorInvalidValue from the launch
+            if "launch failed with error 1" in str(e):
+                continue
+            raise
+        raise AssertionError(f"block-ELL ran with a mismatched plan {bad}")
+    print("[build] block-ELL kernel checks passed", flush=True)
 
 
 def phase_native(native_build):
@@ -800,7 +917,8 @@ def _path_kernels(pc) -> set:
     """The kernels the staged hierarchy's matvecs dispatch to."""
     import torch
 
-    from ngsamg_tpu_torch.sparse import formats
+    from ngsamg_tpu_torch.ops import cuda_lib
+    from ngsamg_tpu_torch.sparse import bell, formats
 
     names = set()
     for lev in pc.op.levels:
@@ -809,8 +927,12 @@ def _path_kernels(pc) -> set:
         elif isinstance(lev.A, formats.DiaMatrix):
             names.add("dia_sym_matvec_f32" if lev.A.sym_half
                       else "dia_matvec_f32")
+        elif isinstance(lev.A, bell.BlockELL):
+            names.add("bell_matvec_" + cuda_lib.suffix(lev.A.data.dtype))
     if pc._A64_dev is not None:
         names.add(_stencil_key(pc._A64_dev, torch.float64))
+    if isinstance(pc._A64_mixed, bell.BlockELL):
+        names.add("bell_matvec_f64")
     return names
 
 
@@ -1380,15 +1502,18 @@ def phase_elasticity():
     x, info = pc.solve(p.b, tol=1e-8, maxiter=120, mixed=True)
     torch.cuda.synchronize()
     t4 = time.perf_counter()
+    before_warm = _counts()
     _x2, info2 = pc.solve(p.b, tol=1e-8, maxiter=120, mixed=True)
     torch.cuda.synchronize()
     t5 = time.perf_counter()
     launches = _counts()
+    warm_bell = {k: launches[k] - before_warm[k]
+                 for k in ("bell_matvec_f32", "bell_matvec_f64")}
     if x.shape != (p.n,) or not np.isfinite(x).all():
         raise AssertionError(f"solution: shape {x.shape}, not all finite")
     relres = float(np.linalg.norm(p.b - p.A @ x) / np.linalg.norm(p.b))
-    # block-ELL and dense levels run no hand-written kernel (the JAX
-    # package has none there); a DIA level would, and must then launch
+    # every level's kernel must launch (block-ELL: the f32 levels and the
+    # f64 twin); dense levels run none
     for k in sorted(_path_kernels(pc)):
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} never launched on this path")
@@ -1424,8 +1549,13 @@ def phase_elasticity():
         "tensors_on_card": len(tensors) - len(off_card),
         "device_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": launches,
+        "launches_warm_solve": warm_bell,
     }
     print("[elasticity] " + json.dumps(out), flush=True)
+    # the main path goes through the block-ELL kernel: a warm solve
+    # launches it in f32 (the cycle) and in f64 (the twin)
+    if min(warm_bell.values()) <= 0:
+        raise AssertionError(f"a warm solve launched {warm_bell}")
     if pc.device.type != "cuda" or off_card:
         raise AssertionError(f"not on the card: {pc.device}, {off_card}")
     if int(p.n) != ELAST_DOFS:
@@ -1448,14 +1578,47 @@ def phase_elasticity():
     return p, pc, out
 
 
+def _bell_work(T) -> tuple:
+    """(operations, bytes) of one matvec by the problem's count, as
+    benchmark/roofline.py counts the finest level: each stored block once
+    (its values and a 4-byte column index), a 4-byte row pointer a row
+    and one more, x read once and y written once, in the operator's
+    precision. The padding of the ELL storage is no part of it."""
+    br, cbc = T.block_shape
+    bc = cbc // T.col_chunk
+    item = T.data.element_size()
+    blocks = (int(T.nslots.sum()) if T.nslots is not None
+              else T.nrows_pad * T.ell_width)
+    nbytes = (blocks * (br * bc * item + 4) + 4 * (T.nrows + 1)
+              + (T.ncols * bc + T.nrows * br) * item)
+    return 2 * br * bc * blocks, nbytes
+
+
+def _bell_plans(T):
+    """Every plan the kernel takes for T's shape (the sweep)."""
+    from ngsamg_tpu_torch.ops import bell_cuda
+
+    n, K, br, bcw = T.data.shape
+    plans = [bell_cuda.bell_plan(K, br, bcw, n, lanes=l, warps=1)
+             for l in (1, 2, 4, 8, 16, 32)]
+    if T.launch.staged:
+        plans += [bell_cuda.bell_plan(K, br, bcw, n, lanes=32, warps=w)
+                  for w in (2, 4, 8)]
+    return plans
+
+
 def phase_block_ell(pc):
-    """Plain torch block-ELL matvec per block-ELL level and transfer (f32),
-    and the finest level's f64 twin."""
+    """The block-ELL kernel on every block-ELL level and transfer (f32)
+    and on the finest level's f64 twin: checked against the plain version
+    on the card, two launches to the same bits, timed by CUDA-graph replay
+    and after an L2 sweep, beside the plain version, every other plan and
+    the bound by the problem's count (and by the padded storage)."""
     import torch
 
+    from ngsamg_tpu_torch.ops import bell_cuda
     from ngsamg_tpu_torch.precond.amg import _full_f32
     from ngsamg_tpu_torch.sparse import bell
-    from ngsamg_tpu_torch.utils.timing import graph_ms
+    from ngsamg_tpu_torch.utils.timing import cold_ms, graph_ms
 
     ops = [("A64", 0, pc._A64_mixed)]
     for lvl, lev in enumerate(pc.op.levels):
@@ -1472,18 +1635,44 @@ def phase_block_ell(pc):
         g = torch.Generator(device="cuda")
         g.manual_seed(400 + lvl)
         x = torch.randn((nx, bc), dtype=dt, device="cuda", generator=g)
-        stored = (T.data.numel() * T.data.element_size()
-                  + T.cols.numel() * T.cols.element_size())
-        nbytes = stored + (x.numel() + T.nrows_pad * br) * x.element_size()
-        flops = 2 * T.data.numel()
-        bound, by = _bound_ms(nbytes, flops, dt)
+        label = f"block-ELL {what}{lvl} {dt}"
+        key = "bell_matvec_" + ("f64" if dt == torch.float64 else "f32")
+        before = bell_cuda.LAUNCHES[key]
+        _, rel = _check_kernel(T, x, bell.spmv, bell._spmv_plain,
+                               BELL_TOL[str(dt)], label)
+        _same_bits(bell.spmv, T, x, label)
+        if bell_cuda.LAUNCHES[key] != before + 3:
+            raise AssertionError(f"{label}: {key} did not launch")
         with _full_f32():
             ms = graph_ms(lambda: bell.spmv(T, x), n=10)
+            swept = cold_ms(lambda: bell.spmv(T, x))
+            plain_ms = graph_ms(lambda: bell._spmv_plain(T, x), n=10)
+            sweep = {
+                p.variant: graph_ms(
+                    lambda p=p: bell_cuda.bell_matvec(T, x, plan=p), n=10)
+                for p in _bell_plans(T)
+            }
+        flops, nbytes = _bell_work(T)
+        stored = (T.data.numel() * T.data.element_size()
+                  + T.cols.numel() * T.cols.element_size())
+        bound, by = _bound_ms(nbytes, flops, dt)
+        stored_bound, _ = _bound_ms(
+            stored + (x.numel() + T.nrows_pad * br) * x.element_size(),
+            2 * T.data.numel(), dt)
+        best = min(sweep, key=sweep.get)
         row = {"level": lvl, "op": what, "dtype": str(dt).split(".")[-1],
                "rows": T.nrows, "cols": T.ncols, "slots": T.ell_width,
-               "block": [br, bc], "stored_bytes": stored, "bytes": nbytes,
-               "ms": ms, "bound_ms": bound, "bound_by": by,
-               "share_of_bound": bound / ms}
+               "real_slots_mean": flops / (2 * br * bc) / max(T.nrows, 1),
+               "block": [br, bc], "plan": T.launch.variant,
+               "us": ms * 1e3, "swept_us": swept * 1e3,
+               "plain_us": plain_ms * 1e3,
+               "best_plan": best, "best_us": sweep[best] * 1e3,
+               "sweep_us": {k: v * 1e3 for k, v in sweep.items()},
+               "bytes": nbytes, "bound_us": bound * 1e3, "bound_by": by,
+               "share_of_bound": bound / ms,
+               "swept_share_of_bound": bound / swept,
+               "stored_bytes": stored, "stored_bound_us": stored_bound * 1e3,
+               "rel_err": rel}
         print("[block_ell] " + json.dumps(row), flush=True)
         rows.append(row)
     if not rows:
@@ -1871,7 +2060,7 @@ def phase_gs_reference():
         perm, cb = build.plan_row_order(A, bs, opts, 0)
         sperm = (perm[:, None] * bs + np.arange(bs)).ravel()
         A = A[sperm][:, sperm].tocsr()
-        data, cols, nb = bell.pack(A, bs, bs, np.float32, 8)
+        data, cols, nb, nslots = bell.pack(A, bs, bs, np.float32, 8)
         sm = build.build_smoother(A, bs, opts, 0, data.shape[0], np.float32,
                                   color_bounds=cb, ell=(data, cols))
         rng = np.random.default_rng(30 + bs)
@@ -1882,7 +2071,8 @@ def phase_gs_reference():
         rows = rng.integers(0, nb, 777)
         ys = {}
         for dev in ("cuda", "cpu"):
-            T = bell.from_packed(data, cols, nb, nb, device=dev)
+            T = bell.from_packed(data, cols, nb, nb, device=dev,
+                                 nslots=nslots)
             smd = build.stage_smoother(sm, dev)
             bt, xt = (torch.from_numpy(v).to(dev) for v in (b, x0))
             ys[dev] = (

@@ -50,6 +50,8 @@ _ARGS = {
                           _P, _P, _P],
     "ngsamg_dia_sym_matvec": [_P, _P, _I, _L, _I, _I, _I, _I, _I,
                               _L, _I, _L, _P, _P, _P],
+    "ngsamg_bell_matvec": [_P, _P, _P, _I, _I, _I, _L, _I, _I, _L,
+                           _P, _P, _P],
 }
 _SIGNATURES = {
     f"{name}_{sfx}": args

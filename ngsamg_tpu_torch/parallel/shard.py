@@ -297,6 +297,7 @@ def _rows_of(A, pl: Placement, dev):
             ncols=A.ncols,
             nrows_pad=r1 - r0,
             col_chunk=A.col_chunk,
+            nslots=None if A.nslots is None else A.nslots[r0:r1].to(dev),
         )
     if isinstance(A, TileELL):
         t0, t1 = r0 // A.tile_m, r1 // A.tile_m

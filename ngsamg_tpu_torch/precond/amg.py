@@ -639,11 +639,12 @@ class AMGPreconditioner:
                 # pick: the colored sweep slices their rows. A GS level's
                 # smoother stores its rows split per color, cut from the
                 # same host arrays (scaled and permuted)
-                data, cols, nb = bell.pack(
+                data, cols, nb, nslots = bell.pack(
                     A, lev.row_bs, lev.row_bs, npdt, align
                 )
                 A_fmt = bell.from_packed(
-                    data, cols, nb, A.shape[1] // lev.row_bs, device=dev
+                    data, cols, nb, A.shape[1] // lev.row_bs, device=dev,
+                    nslots=nslots,
                 )
                 if bounds[i] and stack:
                     gs_ell = (data, cols)

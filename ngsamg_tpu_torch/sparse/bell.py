@@ -8,24 +8,32 @@ transfers:
 * ``cols``: (n_pad, K) int32 — block-column (or column-chunk) index per
   slot, 0 for padding
 
-The matvec is what it is in the JAX package, which computes it in XLA (no
-Pallas kernel): one gather of x rows by ``cols`` and one contraction
-"nkij,nkj->ni" in the tensor's dtype, here in plain torch. Block vectors are
-(n, bc) tensors (``formats.block_vec`` / ``formats.flat_vec``). Row counts
-are padded to a multiple of ``row_align``; padded rows are entirely zero and
-stay zero through every operation. The host packing is numpy, bit for bit
-the JAX package's. ``spmv_rows`` (the block rows the dyn-block GS sweep
-updates) and the multicolor GS sweep use the same contraction.
+* ``nslots``: (n_pad,) int32 — the real slots a row (its blocks come
+  first, the padding after them), 0 for the padded rows; or None
+
+The JAX package computes the matvec in XLA (no Pallas kernel): one gather
+of x rows by ``cols`` and one contraction "nkij,nkj->ni" in the tensor's
+dtype. The port launches one hand-written kernel for a CUDA tensor
+(ops/bell_cuda.py, csrc/bell_matvec.cu), which reads only the real slots
+of a row; a CPU tensor takes the plain version, the same gather and
+contraction in plain torch. Block vectors are (n, bc) tensors
+(``formats.block_vec`` / ``formats.flat_vec``). Row counts are padded to a
+multiple of ``row_align``; padded rows are entirely zero and stay zero
+through every operation. The host packing is numpy, bit for bit the JAX
+package's. ``spmv_rows`` (the block rows the dyn-block GS sweep updates)
+and the multicolor GS sweep use the plain contraction.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+from dataclasses import dataclass, field
 
 import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ..ops import bell_cuda
 from . import host as _host
 
 
@@ -38,6 +46,10 @@ class BlockELL:
     block_col // C): the matvec gathers one (C*bc)-wide row of x per slot
     instead of C separate bc-wide gathers; the price is zero-fill where
     only one column of a chunk is present.
+
+    ``nslots`` (optional): the real slots of each row, which come first in
+    it; the kernel reads no slot past them. Without it every slot is read
+    (the padding is zero, so the product is the same).
     """
 
     data: torch.Tensor  # (n_pad, K, br, col_chunk*bc)
@@ -46,6 +58,18 @@ class BlockELL:
     ncols: int  # logical number of block cols
     nrows_pad: int  # padded number of block rows (= data.shape[0])
     col_chunk: int = 1
+    nslots: torch.Tensor | None = None  # (n_pad,) int32, 0 for padded rows
+    # the kernel's launch plan, made once here (ops/bell_cuda.py ``stage``)
+    launch: object = field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "launch", bell_cuda.stage(self))
+
+    def __reduce__(self):
+        # pickled by its constructor's fields; the plan is made anew
+        return type(self), tuple(
+            getattr(self, f.name) for f in dataclasses.fields(self) if f.init
+        )
 
     @property
     def ell_width(self) -> int:
@@ -96,8 +120,8 @@ def to_scipy(A: BlockELL) -> sp.csr_matrix:
 
 
 def _chunked_pack(A, bs_r: int, bs_c: int, C: int, dtype):
-    """(data (n, K, br, C*bc), cols (n, K) chunk ids) — C adjacent block
-    columns per slot (see BlockELL.col_chunk)."""
+    """(data (n, K, br, C*bc), cols (n, K) chunk ids, the slots a row) — C
+    adjacent block columns per slot (see BlockELL.col_chunk)."""
     if bs_r == bs_c == 1:
         B = A.tocsr()
         # the plain-assignment scatter below drops (not sums) duplicate
@@ -138,7 +162,8 @@ def _chunked_pack(A, bs_r: int, bs_c: int, C: int, dtype):
     cols = np.zeros((n, K), dtype=np.int32)
     data[rows, slot, :, cols_b % C, :] = bdata
     cols[rows, slot] = cc.astype(np.int32)
-    return data.reshape(n, K, bs_r, C * bs_c), cols
+    return (data.reshape(n, K, bs_r, C * bs_c), cols,
+            np.bincount(pair_row, minlength=n))
 
 
 def pack(
@@ -149,17 +174,21 @@ def pack(
     row_align: int = 8,
     width: int | None = None,
     col_chunk: int = 1,
-) -> tuple[np.ndarray, np.ndarray, int]:
-    """The host arrays of a BlockELL: ``(data, cols, nrows)`` with the rows
-    padded to a multiple of ``row_align`` (see :func:`from_scipy`)."""
+) -> tuple[np.ndarray, np.ndarray, int, np.ndarray]:
+    """The host arrays of a BlockELL: ``(data, cols, nrows, nslots)`` with
+    the rows padded to a multiple of ``row_align`` (see
+    :func:`from_scipy`); ``nslots`` (int32) counts a row's real slots (its
+    stored blocks, explicit zero blocks included), 0 for a padded row."""
     if col_chunk > 1:
-        data, cols = _chunked_pack(A, bs_r, bs_c, col_chunk, dtype)
+        data, cols, deg = _chunked_pack(A, bs_r, bs_c, col_chunk, dtype)
     else:
-        data, cols = _host.pad_to_ell(
+        data, cols, deg = _host.pad_to_ell(
             A, bs_r, bs_c, width=width, dtype=dtype
         )
     n = data.shape[0]
     n_pad = -(-n // row_align) * row_align
+    nslots = np.zeros(n_pad, dtype=np.int32)
+    nslots[:n] = deg
     if n_pad != n:
         pad = n_pad - n
         data = np.concatenate(
@@ -170,12 +199,12 @@ def pack(
         )
     data = np.ascontiguousarray(data, dtype=np.dtype(dtype))
     cols = np.ascontiguousarray(cols, dtype=np.int32)
-    return data, cols, n
+    return data, cols, n, nslots
 
 
 def from_packed(
     data: np.ndarray, cols: np.ndarray, nrows: int, ncols: int,
-    col_chunk: int = 1, device="cpu",
+    col_chunk: int = 1, device="cpu", nslots: np.ndarray | None = None,
 ) -> BlockELL:
     """A BlockELL on ``device`` from the host arrays of :func:`pack`."""
     return BlockELL(
@@ -185,6 +214,8 @@ def from_packed(
         ncols=ncols,
         nrows_pad=data.shape[0],
         col_chunk=col_chunk,
+        nslots=None if nslots is None else torch.from_numpy(nslots).to(
+            device),
     )
 
 
@@ -205,9 +236,12 @@ def from_scipy(
     columns per slot (SQUARE operators only: the matvec reshapes x by the
     chunk, so the vector pad must divide it — row_align does).
     """
-    data, cols, n = pack(A, bs_r, bs_c, dtype, row_align, width, col_chunk)
+    data, cols, n, nslots = pack(
+        A, bs_r, bs_c, dtype, row_align, width, col_chunk
+    )
     return from_packed(
-        data, cols, n, A.shape[1] // bs_c, col_chunk, device=device
+        data, cols, n, A.shape[1] // bs_c, col_chunk, device=device,
+        nslots=nslots,
     )
 
 
@@ -223,8 +257,18 @@ def spmv(A: BlockELL, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x for a block vector x of shape (ncols_pad?, bc).
 
     ``x`` may be longer than ``A.ncols`` (padded); gathered columns are
-    always < ncols so padding never contaminates the product.
+    always < ncols so padding never contaminates the product. A CUDA
+    tensor launches the kernel (ops/bell_cuda.py) or raises; a CPU tensor
+    takes the plain version below, which reads every slot.
     """
+    if x.device.type != "cpu":
+        return bell_cuda.bell_matvec(A, x.contiguous())
+    return _spmv_plain(A, x)
+
+
+def _spmv_plain(A: BlockELL, x: torch.Tensor) -> torch.Tensor:
+    """The plain version of the kernel (and the JAX package's matvec): one
+    gather of x rows by ``cols`` and the contraction, every slot read."""
     if A.col_chunk > 1:
         x = x.reshape(-1, A.col_chunk * x.shape[1])
     return rows_product(A.data, x[A.cols])  # x[A.cols]: (n, K, C*bc)

@@ -187,9 +187,11 @@ def pad_to_ell(
 ):
     """Convert a (possibly rectangular-block) sparse matrix to padded ELL.
 
-    Returns ``(data, cols)`` with ``data: (n, K, bs_r, bs_c)`` float64 and
-    ``cols: (n, K) int32``; padded slots have column 0 and an all-zero block.
-    ``n`` is the number of block rows. ``width`` forces the ELL width K.
+    Returns ``(data, cols, deg)`` with ``data: (n, K, bs_r, bs_c)`` float64,
+    ``cols: (n, K) int32`` and ``deg: (n,)`` the stored blocks of each row,
+    which fill its first slots; padded slots have column 0 and an all-zero
+    block. ``n`` is the number of block rows. ``width`` forces the ELL
+    width K.
     """
     if bs_r == bs_c == 1:
         C = A.tocsr()
@@ -215,4 +217,4 @@ def pad_to_ell(
     slot = np.arange(len(indices)) - np.repeat(indptr[:-1], deg)
     data[rows, slot] = data3
     cols[rows, slot] = indices
-    return data, cols
+    return data, cols, deg
