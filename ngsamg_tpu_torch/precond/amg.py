@@ -230,7 +230,9 @@ def _spd_inverse(Ad: np.ndarray) -> np.ndarray:
 class SolveInfo:
     """What a solve reports. ``host_syncs``: its blocking reads and copies
     (each a ``timers.blocking`` call); ``sync_wait_s``: the host's time
-    blocked in them; ``dispatch_s``: the solve's host time less that."""
+    blocked in them; ``dispatch_s``: the solve's host time less that;
+    ``colour_steps``: the colour steps of its multicolour GS sweeps over
+    every level, sweep, step and pass (0 without a GS smoother)."""
 
     iterations: int
     relres: float
@@ -240,6 +242,7 @@ class SolveInfo:
     host_syncs: int = 0
     sync_wait_s: float = 0.0
     dispatch_s: float = 0.0
+    colour_steps: int = 0
 
 
 class AMGPreconditioner:
@@ -965,6 +968,7 @@ class AMGPreconditioner:
         info.host_syncs = scope.host_syncs
         info.sync_wait_s = scope.sync_wait_s
         info.dispatch_s = scope.dispatch_s
+        info.colour_steps = scope.colour_steps
         return x, info
 
     def _solve(self, b, tol, maxiter, use_refinement, return_device, mixed):

@@ -16,7 +16,10 @@ The multicolor GS sweep is plain torch, as it is XLA in the JAX package:
 per color, one gather of x by the color's column indices, one block
 contraction, one block-Dinv product and one in-place update of the color's
 rows. It clones the caller's ``x`` once per call and never writes into
-it (the cycle keeps ``x`` alive across the sweep and the residual).
+it (the cycle keeps ``x`` alive across the sweep and the residual). Each
+sweep adds its colour steps (steps x non-empty colours) to the solve's
+``SolveInfo.colour_steps`` and, with tracing on, is a ``gs.sweep`` span
+(utils/timers.py).
 
 The Chebyshev recurrence scalars (theta, delta, sigma, rho) are computed
 on the host in the level's dtype, as the JAX package computes them in its
@@ -32,6 +35,7 @@ import torch
 
 from ..sparse.bell import rows_product
 from ..sparse.formats import matvec
+from ..utils import timers
 
 
 def _block_mul(Dinv: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
@@ -168,11 +172,19 @@ def _gs(sm: GSSmoother, A, x, b, *, reverse: bool):
     ncol = len(bounds) - 1
     order = range(ncol - 1, -1, -1) if reverse else range(ncol)
     split = bool(sm.cdata)
+    sp = timers.NULL
+    if timers.ON:
+        sp = timers.span(
+            "gs.sweep", reverse=reverse,
+            colours=sum(1 for c in range(ncol) if bounds[c + 1] > bounds[c]),
+        )
+    done = 0  # colour steps run, counted on the host
     for step in range(sm.steps):
         for ci, c in enumerate(order):
             lo, hi = bounds[c], bounds[c + 1]
             if hi == lo:
                 continue
+            done += 1
             if zero_start and step == 0 and ci == 0:
                 r = b[lo:hi]  # x == 0: skip the row product
             elif split:
@@ -183,6 +195,8 @@ def _gs(sm: GSSmoother, A, x, b, *, reverse: bool):
                 )
             Dc = sm.cdinv[c] if split else sm.Dinv[lo:hi]
             x[lo:hi] += _block_mul(Dc, r)
+    timers.count_colour_steps(done)
+    sp.close()
     return x
 
 

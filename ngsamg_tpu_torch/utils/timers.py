@@ -22,14 +22,19 @@ Always recorded, while a recorder is current (``recording``, ``solving``):
   a synchronise on CUDA (precond/amg.py);
 - per solve, the counters :func:`solving` hands to ``SolveInfo``: blocking
   reads and copies (every one goes through :func:`blocking`), the host's
-  time blocked in them, and the solve's host time.
+  time blocked in them, the solve's host time, and the colour steps of the
+  multicolour GS sweeps (:func:`count_colour_steps`, a host integer the
+  sweep adds as it runs).
 
 Only with tracing on (:class:`tracing`; off by default), where each site
 costs one check of the module flag ``ON`` and allocates nothing when it is
 off: ``solve`` > ``solve.pass`` (one f64 defect-correction pass or mixed
 restart) > ``pcg.iter`` > ``cycle.level`` (attribute ``level``; its self
 time is that level's smoothing, residual and transfers) and
-``cycle.coarse``, and ``sync`` around each blocking read.
+``cycle.coarse``, ``gs.sweep`` (one multicolour GS sweep, a child of the
+``cycle.level`` or ``cycle.coarse`` it smooths; attributes ``reverse`` and
+``colours``, the non-empty colours it ran) and ``sync`` around each
+blocking read.
 
 This module imports no torch: the host setup's modules import it, and the
 multi-process setup's ranks must start without torch.
@@ -132,6 +137,7 @@ class Recorder:
         self.solves = 0  # solve ids handed out; spans outside a solve get 0
         self.syncs = 0  # blocking reads while this recorder was current
         self.sync_ns = 0  # the host's time blocked in them
+        self.colour_steps = 0  # GS colour steps while this was current
         self._solve = 0
         self._stack: list[Span] = []
         self.anchor = (time.time_ns(), time.perf_counter_ns())
@@ -273,12 +279,12 @@ class recording:
 
 class solving:
     """The scope of one solve: makes ``rec`` current under a new solve id,
-    counts the blocking reads inside and times the host; with tracing on,
-    also the root ``solve`` span. After the block: ``host_syncs``,
-    ``sync_wait_s``, ``host_s`` and ``dispatch_s`` (the host's time less
-    its time blocked in reads)."""
+    counts the blocking reads and the GS colour steps inside and times the
+    host; with tracing on, also the root ``solve`` span. After the block:
+    ``host_syncs``, ``sync_wait_s``, ``host_s``, ``dispatch_s`` (the host's
+    time less its time blocked in reads) and ``colour_steps``."""
 
-    host_syncs = 0
+    host_syncs = colour_steps = 0
     sync_wait_s = host_s = dispatch_s = 0.0
 
     def __init__(self, rec: Recorder):
@@ -291,6 +297,7 @@ class solving:
         rec.solves += 1
         rec._solve = rec.solves
         self._syncs, self._wait = rec.syncs, rec.sync_ns
+        self._steps = rec.colour_steps
         self._span = rec.open("solve") if ON else NULL
         self._t0 = time.perf_counter_ns()
         return self
@@ -303,8 +310,17 @@ class solving:
         _CURRENT.reset(self._token)
         self.host_syncs = rec.syncs - self._syncs
         self.sync_wait_s = (rec.sync_ns - self._wait) / 1e9
+        self.colour_steps = rec.colour_steps - self._steps
         self.host_s = (t1 - self._t0) / 1e9
         self.dispatch_s = self.host_s - self.sync_wait_s
+
+
+def count_colour_steps(n: int) -> None:
+    """Adds ``n`` colour steps of a multicolour GS sweep to the current
+    recorder (nothing where none is current)."""
+    rec = _CURRENT.get()
+    if rec is not None:
+        rec.colour_steps += n
 
 
 def blocking(fn, *args, **kw):

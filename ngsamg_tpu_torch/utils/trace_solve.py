@@ -37,8 +37,12 @@ time by program span, and one JSON line with:
   the profiled solve (from the root ``solve`` span's start to the end of
   the device's last event in it) goes, in seconds, to the innermost program
   span at the gap's midpoint, keyed by its name (with the level or the
-  read's op); ``root_self_idle_share``: the share of the idle time that
-  falls in the root ``solve`` span's self time.
+  read's op; a multicolour GS sweep takes its parent's level:
+  ``gs.sweep[<level>]`` inside ``cycle.level``, ``gs.sweep`` inside
+  ``cycle.coarse``); ``root_self_idle_share``: the share of the idle time
+  that falls in the root ``solve`` span's self time;
+- ``colour_steps``: the profiled solve's ``SolveInfo.colour_steps`` (the
+  GS sweeps' colour steps, 0 under Chebyshev).
 
 ``--blocks S`` then times warm solves in alternating blocks of ``S``
 seconds, tracing off, on, on, off, and prints each block's mean solve time,
@@ -84,8 +88,11 @@ def _union(intervals) -> list[tuple[float, float]]:
     return [(a, b) for a, b in out]
 
 
-def _span_key(sp) -> str:
+def _span_key(sp, by_id) -> str:
     a = sp.attrs or {}
+    if sp.name == "gs.sweep" and sp.parent in by_id:
+        # a sweep smooths the level of the visit it is a child of
+        a = by_id[sp.parent].attrs or {}
     if "level" in a:
         return f"{sp.name}[{a['level']}]"
     if "op" in a:
@@ -110,6 +117,7 @@ def idle_by_span(busy, spans, epoch, hi=None):
     if hi is None:
         hi = max([epoch(root.end)] + [b for _, b in busy])
     ivs = sorted((epoch(s.start), epoch(s.end), s) for s in spans)
+    by_id = {s.id: s for s in spans}
     edges = [lo]
     for a, b in busy:
         if b > lo and a < hi:
@@ -127,7 +135,7 @@ def idle_by_span(busy, spans, epoch, hi=None):
                 break
             if s1 >= mid:
                 inner = sp
-        key = NO_SPAN if inner is None else _span_key(inner)
+        key = NO_SPAN if inner is None else _span_key(inner, by_id)
         sec = (b - a) / 1e9
         out[key] = out.get(key, 0.0) + sec
         total += sec
@@ -369,6 +377,7 @@ def main(argv=None) -> int:
         "dofs": int(p.n),
         "iterations": int(info.iterations),
         "host_syncs": getattr(info, "host_syncs", None),
+        "colour_steps": getattr(info, "colour_steps", None),
         "setup": setup,
         "warm_solve_ms": [w * 1e3 for w in walls],
         "warm_solve_median_ms": warm * 1e3,

@@ -5,8 +5,10 @@ set-up's phases are recorded always and lie inside ``setup_time_host``;
 spans sit on the torch profiler's clock through the recorder's anchor and
 join its Chrome trace on a host track; tracing off records no solve-side
 span and leaves the answers bit for bit as they were; every blocking read
-of a solve is counted. CPU only: the card's trace (K1 beside the
-``cycle.level`` spans) is checked by ``chip_smoke.py`` ``[timers]``.
+of a solve is counted, and so are the multicolour GS sweeps' colour
+steps (``SolveInfo.colour_steps``), each sweep a ``gs.sweep`` span inside
+its ``cycle.level`` with tracing on. CPU only: the card's trace (K1 beside
+the ``cycle.level`` spans) is checked by ``chip_smoke.py`` ``[timers]``.
 """
 
 import json
@@ -19,15 +21,16 @@ import torch
 
 import ngsamg_tpu_torch
 import ngsamg_tpu_torch.utils.timers as timers
+from ngsamg_tpu_torch.config import options_from_flags
 from ngsamg_tpu_torch.utils import fem as tfem
-from ngsamg_tpu_torch.utils.trace_solve import NO_SPAN, idle_by_span
+from ngsamg_tpu_torch.utils.trace_solve import NO_SPAN, _span_key, idle_by_span
 
 torch.set_num_threads(2)
 
 CPU_ONLY = [torch.profiler.ProfilerActivity.CPU]
 PHASES = ("setup.mesh", "setup.coarsen", "setup.prol", "setup.rap")
 SOLVE_SPANS = {"solve", "solve.pass", "pcg.iter", "cycle.level",
-               "cycle.coarse", "sync"}
+               "cycle.coarse", "gs.sweep", "sync"}
 
 
 def _cheb():
@@ -362,3 +365,84 @@ def test_idle_by_span_takes_the_innermost_span():
     idle, root_self, _total = idle_by_span(
         [], [root], lambda t: t + 10, hi=300)
     assert idle == {NO_SPAN: pytest.approx(290e-9)} and root_self == 0
+
+
+def _gs_setup(steps):
+    """A small GS hierarchy of several levels (``sm_steps`` sweeps a
+    visit)."""
+    p = tfem.poisson_3d(13)
+    opts = options_from_flags({"sm_type": "gs", "sm_steps": steps,
+                               "max_coarse_size": 40})
+    pc = ngsamg_tpu_torch.AMGPreconditioner(
+        p.A, coords=p.coords, options=opts, device="cpu").setup()
+    return p, pc
+
+
+def _nonempty_colours(sm):
+    cb = sm.color_bounds
+    return sum(1 for a, b in zip(cb[:-1], cb[1:]) if b > a)
+
+
+@pytest.mark.parametrize("steps", [1, 2])
+def test_colour_steps_count_every_sweep(steps):
+    """``SolveInfo.colour_steps`` is the sum over level visits of
+    (non-empty colours x steps) for the forward and the backward sweep;
+    the same with tracing off, where no ``gs.sweep`` span is recorded;
+    the counter adds no blocking read."""
+    p, pc = _gs_setup(steps)
+    levels = pc.op.levels
+    assert len(levels) >= 3
+    assert all(lev.smoother.steps == steps for lev in levels[:-1])
+    rec = pc.trace_
+    n0 = len(rec.spans)
+    x_off, off = pc.solve(p.b, tol=1e-8)
+    assert len(rec.spans) == n0
+    with timers.tracing(True):
+        x_on, on = pc.solve(p.b, tol=1e-8)
+    spans = _solve_spans(pc, n0)
+    visits = [s.attrs["level"] for s in spans if s.name == "cycle.level"]
+    want = sum(2 * steps * _nonempty_colours(levels[lv].smoother)
+               for lv in visits)
+    assert on.colour_steps == off.colour_steps == want > 0
+    np.testing.assert_array_equal(x_on, x_off)
+    assert on.host_syncs == off.host_syncs == _expected_syncs(
+        "host", off, pc, False)
+    # the recorder's own count: the two solves'
+    assert rec.colour_steps == 2 * want
+
+
+def test_gs_sweep_spans_nest_in_their_level():
+    p, pc = _gs_setup(1)
+    levels = pc.op.levels
+    rec = pc.trace_
+    n0 = len(rec.spans)
+    with timers.tracing(True):
+        _x, info = pc.solve(p.b, tol=1e-8)
+    spans = _solve_spans(pc, n0)
+    by_id = {s.id: s for s in spans}
+    sweeps = [s for s in spans if s.name == "gs.sweep"]
+    assert sweeps
+    for s in sweeps:
+        par = by_id[s.parent]
+        assert par.name == "cycle.level"
+        level = par.attrs["level"]
+        assert s.attrs["colours"] == _nonempty_colours(
+            levels[level].smoother)
+        assert par.start <= s.start and s.end <= par.end
+        # the idle report names a sweep by its visit's level
+        assert _span_key(s, by_id) == f"gs.sweep[{level}]"
+    # each visit: a forward sweep, then (after the coarser levels) a
+    # backward one
+    for lvl in (s for s in spans if s.name == "cycle.level"):
+        kids = [s for s in sweeps if s.parent == lvl.id]
+        assert [k.attrs["reverse"] for k in kids] == [False, True]
+    assert sum(s.attrs["colours"] for s in sweeps) == info.colour_steps
+
+
+@pytest.mark.parametrize("case", ["device", "mixed"])
+def test_chebyshev_runs_no_colour_step(setups, case):
+    p, pc, kw = setups[case]
+    with timers.tracing(True):
+        _x, info = pc.solve(p.b, tol=1e-8, **kw)
+    assert info.colour_steps == 0
+    assert not pc.trace_.named("gs.sweep")
