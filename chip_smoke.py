@@ -29,7 +29,13 @@ Phases, each of which raises (nonzero exit) on failure:
    every staged block shape (br, bcw in {1, 2, 3, 6}) and of two generic
    ones, f32, f64 and bf16, with the row counts and without them, on its
    own and on forced plans; its launch must refuse a plan that does not
-   match its layout. The native setup extension builds beside nvcc.
+   match its layout. The GS sweep kernel on random colour-sorted levels of
+   bs 1, 2, 3 and 6, f32, f64 and bf16, on its own plan and on forced ones
+   of both launch shapes, forward and backward, one and two steps, from
+   zero and from a nonzero x, against its plain version on the card; the
+   caller's x unwritten, two launches to the same bits, and a plan that
+   does not match the kernels refused. The native setup extension builds
+   beside nvcc.
 2a. native — the port's native setup extension
    (``ngsamg_tpu_torch/native/kernels.cpp``, built with ``g++`` during
    phase 2): the build's seconds, ``g++ --version`` and whether
@@ -138,6 +144,14 @@ Phases, each of which raises (nonzero exit) on failure:
    every staged tensor on the card. Each setup's native calls are printed
    and checked as in phase 5 (GS: the native coloring among them), with
    the GS run's host setup and staging beside their numpy-branch record.
+   ``[gs-kernel]``: on levels 0-3 of the GS hierarchy, a forward and a
+   backward sweep from a nonzero x by the GS kernel against
+   ``benchmark/reference/gs_sweep.py``'s ``blocked_sweep`` in float64 on
+   the level's own matrix (max |err| / max |y| <= 2e-5), each level on
+   the launch shape its plan takes (levels 0-1 a launch a colour step,
+   2-3 one a sweep); the device time a sweep of the kernel and of the
+   plain version (CUDA-graph replay), the kernel after an L2 sweep, and
+   one call of each with its host time.
 13. cycles — the same problem on the lattice path with the W-cycle and
    the BS cycle (Chebyshev), and Jacobi and l1-Jacobi V-cycles: iterations
    within one of the JAX package's (9, 6, 23, 23), true relres <= 1e-8,
@@ -397,16 +411,17 @@ def _nvidia_smi() -> str:
 
 
 def _counts():
-    from ngsamg_tpu_torch.ops import bell_cuda, dia_cuda, stencil_cuda
+    from ngsamg_tpu_torch.ops import bell_cuda, dia_cuda, gs_cuda, stencil_cuda
 
     return {**stencil_cuda.LAUNCHES, **dia_cuda.LAUNCHES,
-            **bell_cuda.LAUNCHES}
+            **bell_cuda.LAUNCHES, **gs_cuda.LAUNCHES}
 
 
 def _reset_counts():
-    from ngsamg_tpu_torch.ops import bell_cuda, dia_cuda, stencil_cuda
+    from ngsamg_tpu_torch.ops import bell_cuda, dia_cuda, gs_cuda, stencil_cuda
 
-    for d in (stencil_cuda.LAUNCHES, dia_cuda.LAUNCHES, bell_cuda.LAUNCHES):
+    for d in (stencil_cuda.LAUNCHES, dia_cuda.LAUNCHES, bell_cuda.LAUNCHES,
+              gs_cuda.LAUNCHES):
         for k in d:
             d[k] = 0
 
@@ -670,6 +685,7 @@ def phase_build():
             raise
         raise AssertionError(f"K3 ran with a mismatched plan {bad}")
     _bell_build_checks()
+    _gs_build_checks()
     print("[build] small-shape kernel checks passed", flush=True)
     return native_build
 
@@ -772,6 +788,156 @@ def _bell_build_checks():
             raise
         raise AssertionError(f"block-ELL ran with a mismatched plan {bad}")
     print("[build] block-ELL kernel checks passed", flush=True)
+
+
+def _gs_level(nb, bs, seed, dtype):
+    """A random colour-sorted level of ``nb`` block rows on the card: its
+    block-ELL operator and its GS smoother, staged with a launch plan as
+    the hierarchy stages them (bf16: cast from f32 on the card)."""
+    import torch
+
+    from ngsamg_tpu_torch.precond.amg import _cast_floats
+    from ngsamg_tpu_torch.smoothers import build
+    from ngsamg_tpu_torch.sparse import bell
+
+    opts = _options().smoother
+    A = _random_spd_bsr(nb, bs, seed)
+    perm, cb = build.plan_row_order(A, bs, opts, 0)
+    sperm = (perm[:, None] * bs + np.arange(bs)).ravel()
+    A = A[sperm][:, sperm].tocsr()
+    npdt = np.float64 if dtype == torch.float64 else np.float32
+    data, cols, nbr, nslots = bell.pack(A, bs, bs, npdt, 8)
+    T = bell.from_packed(data, cols, nbr, nbr, device="cuda", nslots=nslots)
+    sm = build.stage_smoother(
+        build.build_smoother(A, bs, opts, 0, data.shape[0], npdt,
+                             color_bounds=cb, ell=(data, cols)),
+        "cuda", A=T)
+    if dtype == torch.bfloat16:
+        T, sm = _cast_floats((T, sm), torch.bfloat16, {})
+    return T, sm
+
+
+def _gs_build_checks():
+    """The GS sweep kernel against its plain version on the card
+    (``core.gs_plain`` of the same smoother) on random colour-sorted levels
+    of 3,001 and 301
+    block rows: bs 1, 2, 3 and 6, f32, f64 and bf16 (the plain bf16 sweep
+    rounds where the kernel does), on its own plan and on forced plans of
+    both launch shapes (one lane a row, four warps a row; one CTA with
+    fewer groups than a colour's rows, two CTAs, four of one warp,
+    sixteen), forward and
+    backward, one and two steps, from zero and from a nonzero x. The
+    caller's x is not written, two launches give the same bits, each call
+    counts its launches, a level staged for the kernel carries no split
+    copies, a smoother with no plan raises on a level the kernel takes, and
+    the launch refuses a plan that does not match the kernels."""
+    import torch
+
+    from ngsamg_tpu_torch.ops import cuda_lib, gs_cuda
+    from ngsamg_tpu_torch.smoothers import core
+
+    checked = 0
+    for bs in (1, 2, 3, 6):
+        for nb in (3001, 301):
+            for dt in (torch.float32, torch.float64, torch.bfloat16):
+                T, sm = _gs_level(nb, bs, 40 + nb % 7 + bs, dt)
+                n, K = T.cols.shape
+                item = T.data.element_size()
+                g = torch.Generator(device="cuda").manual_seed(nb + bs)
+                x = torch.zeros((n, bs), dtype=torch.float64, device="cuda")
+                b = torch.zeros_like(x)
+                x[:T.nrows] = torch.randn((T.nrows, bs), generator=g,
+                                          device="cuda", dtype=torch.float64)
+                b[:T.nrows] = torch.randn((T.nrows, bs), generator=g,
+                                          device="cuda", dtype=torch.float64)
+                x, b = x.to(dt), b.to(dt)
+                args = (n, bs, item, sm.color_bounds, K)
+                threads = gs_cuda.SWEEP_THREADS[bs]
+                plans = [sm.launch,
+                         gs_cuda.gs_plan(*args, route="colour"),
+                         gs_cuda.gs_plan(*args, route="colour", lanes=1),
+                         gs_cuda.gs_plan(*args, route="colour", lanes=32,
+                                         warps=4),
+                         gs_cuda.gs_plan(*args, route="sweep"),
+                         gs_cuda.gs_plan(*args, route="sweep", cluster=1,
+                                         threads=threads, tpr=threads // 2),
+                         gs_cuda.gs_plan(*args, route="sweep", cluster=4,
+                                         threads=32, tpr=8),
+                         gs_cuda.gs_plan(*args, route="sweep", cluster=2,
+                                         tpr=8),
+                         gs_cuda.gs_plan(*args, route="sweep", cluster=16)]
+                tol = BELL_TOL[str(dt)]
+                assert sm.cdata == sm.ccols == sm.cdinv == ()
+                try:
+                    core.smooth(dataclasses.replace(sm, ell_width=0), T,
+                                None, b)
+                except ValueError as e:
+                    assert "no launch plan" in str(e), e
+                else:
+                    raise AssertionError("GS ran a level the kernel takes "
+                                         "without a plan")
+                for steps in (1, 2):
+                    ssm = dataclasses.replace(sm, steps=steps)
+                    assert ssm.launch is not None
+                    for reverse in (False, True):
+                        for x0 in (None, x):
+                            ref = core.gs_plain(ssm, T, x0, b,
+                                                reverse=reverse).float()
+                            scale = max(float(ref.abs().max()), 1e-30)
+                            for plan in plans:
+                                label = (f"GS bs {bs} {nb} rows {dt} "
+                                         f"{plan.variant} steps {steps} "
+                                         f"reverse {reverse} "
+                                         f"zero {x0 is None}")
+                                key = (f"gs_{plan.route}_"
+                                       f"{cuda_lib.suffix(dt)}")
+                                before = gs_cuda.LAUNCHES[key]
+                                kept = None if x0 is None else x0.clone()
+                                y = gs_cuda.gs_sweep(ssm, T, x0, b,
+                                                     reverse=reverse,
+                                                     plan=plan)
+                                y2 = gs_cuda.gs_sweep(ssm, T, x0, b,
+                                                      reverse=reverse,
+                                                      plan=plan)
+                                torch.cuda.synchronize()
+                                err = float((y.float() - ref).abs().max()
+                                            / scale)
+                                if not np.isfinite(err) or err > tol:
+                                    raise AssertionError(
+                                        f"{label}: {err:.3e} (tol {tol})")
+                                if not torch.equal(y, y2):
+                                    raise AssertionError(
+                                        f"{label}: two launches differ")
+                                if kept is not None and not torch.equal(
+                                        kept, x0):
+                                    raise AssertionError(
+                                        f"{label}: x was written")
+                                per = (1 if plan.route == "sweep" else
+                                       (len(sm.color_bounds) - 1) * steps)
+                                if gs_cuda.LAUNCHES[key] != before + 2 * per:
+                                    raise AssertionError(
+                                        f"{label}: launches not counted")
+                                checked += 1
+    # the launch refuses a plan that does not match the kernels' layout
+    T, sm = _gs_level(301, 3, 0, torch.float32)
+    b = torch.ones((T.nrows_pad, 3), device="cuda")
+    p = sm.launch
+    for bad in (dataclasses.replace(p, route="sweep", cluster=17),
+                dataclasses.replace(p, route="sweep", lanes=2, warps=1),
+                dataclasses.replace(p, route="sweep", threads=2048),
+                dataclasses.replace(p, route="sweep", cluster=1, threads=96,
+                                    lanes=32, warps=2),
+                dataclasses.replace(p, route="colour", lanes=16, warps=2),
+                dataclasses.replace(p, route="colour", lanes=3, warps=1)):
+        try:
+            gs_cuda.gs_sweep(sm, T, None, b, reverse=False, plan=bad)
+        except RuntimeError as e:  # cudaErrorInvalidValue from the launch
+            if "launch failed with error 1" in str(e):
+                continue
+            raise
+        raise AssertionError(f"GS ran with a mismatched plan {bad}")
+    print(f"[build] GS sweep kernel checks passed ({checked} cases)",
+          flush=True)
 
 
 def phase_native(native_build):
@@ -1921,6 +2087,7 @@ def phase_gs(p):
     """poisson_3d(101) with the JAX package's default options (multicolor
     GS, V-cycle), then with Chebyshev, on the card."""
     _pc, gs = _solve_run(p, _options(), "gs")
+    phase_gs_kernel(_pc, p)
     del _pc
     _pc, cheb = _solve_run(p, _options("chebyshev"), "chebyshev")
     on_path = sorted(_path_kernels(_pc))
@@ -1946,7 +2113,93 @@ def phase_gs(p):
         raise AssertionError(f"GS: colors {gs['colors']} != {GS_COLORS}")
     if gs["iterations"] > GS_MAX_IT:
         raise AssertionError(f"GS: {gs['iterations']} iterations > {GS_MAX_IT}")
+    for k in ("gs_colour_f32", "gs_sweep_f32"):
+        if gs["kernel_launches_warm"][k] <= 0:
+            raise AssertionError(f"GS: kernel {k} never launched")
     return out
+
+
+# [gs-kernel]: the launch shape each level of the GS hierarchy takes, and
+# the limit of the sweep against its float64 definition (PERF.md section 2)
+GS_ROUTES = ["colour", "colour", "sweep", "sweep"]
+GS_SWEEP_TOL = 2e-5
+
+
+def phase_gs_kernel(pc, p):
+    """Levels 0-3 of the GS hierarchy: a forward and a backward sweep from
+    a nonzero x by the kernel against ``blocked_sweep`` in float64 on the
+    level's own (permuted, scaled) matrix, on the launch shape GS_ROUTES
+    names; the device time a sweep (CUDA-graph replay) of the kernel and of
+    the plain version, the kernel after an L2 sweep, one call of each, and
+    the bound by ``benchmark/gs_work.py``'s count, as ``gs_sweep_roofline``
+    counts it: level 0 from the problem's stencil (``p.A`` as a DIA
+    matrix), the coarser levels from their matrices."""
+    import scipy.sparse as sp
+    import torch
+
+    from benchmark import gs_work, roofline
+    from benchmark.reference import gs_sweep
+    from ngsamg_tpu_torch.ops import gs_cuda
+    from ngsamg_tpu_torch.smoothers import core
+    from ngsamg_tpu_torch.sparse import bell
+    from ngsamg_tpu_torch.utils import timing
+
+    t0 = time.perf_counter()
+    rows = []
+    for i, lev in enumerate(pc.op.levels[:-1]):
+        sm, A = lev.smoother, lev.A
+        n = A.nrows
+        M = bell.to_scipy(A)
+        csr = gs_sweep.Csr(M, "cuda")
+        work = gs_work.sweep_work(sp.dia_matrix(p.A) if i == 0 else M)
+        t_bound, _by = roofline.bound_s(*work)
+        g = torch.Generator(device="cuda").manual_seed(100 + i)
+        x = torch.zeros((A.nrows_pad, 1), device="cuda")
+        b = torch.zeros_like(x)
+        x[:n, 0] = torch.randn(n, generator=g, device="cuda")
+        b[:n, 0] = torch.randn(n, generator=g, device="cuda")
+        row = {"level": i, "rows": n, "colours": len(sm.color_bounds) - 1,
+               "K": A.ell_width, "plan": sm.launch.variant,
+               "bytes": work[1], "bound_us": t_bound * 1e6}
+        for way, fn, reverse in (("forward", core.smooth, False),
+                                 ("backward", core.smooth_back, True)):
+            key = f"gs_{sm.launch.route}_f32"
+            before = gs_cuda.LAUNCHES[key]
+            y = fn(sm, A, x, b)
+            launched = gs_cuda.LAUNCHES[key] - before
+            ref = gs_sweep.blocked_sweep(csr, sm.color_bounds,
+                                         x[:n, 0].double(), b[:n, 0].double(),
+                                         reverse)
+            err = float((y[:n, 0].double() - ref).abs().max()
+                        / ref.abs().max())
+
+            def kernel(fn=fn):
+                return fn(sm, A, x, b)
+
+            def plain_run(reverse=reverse):
+                return core.gs_plain(sm, A, x, b, reverse=reverse)
+
+            row[way] = {
+                "err": err, "launches": launched,
+                "device_us": 1e3 * timing.graph_ms(kernel, n=20),
+                "cold_us": 1e3 * timing.cold_ms(kernel),
+                "call_us": 1e3 * timing.event_ms(kernel),
+                "plain_device_us": 1e3 * timing.graph_ms(plain_run, n=3,
+                                                         reps=3),
+                "plain_call_us": 1e3 * timing.event_ms(plain_run, reps=5),
+            }
+            if not err <= GS_SWEEP_TOL:
+                raise AssertionError(f"gs-kernel level {i} {way}: {err:.3e}")
+            if sm.launch.route != GS_ROUTES[i] or not launched:
+                raise AssertionError(f"gs-kernel level {i}: "
+                                     f"{sm.launch.variant}, {launched} "
+                                     "launches")
+        row["share_pct"] = 100 * 2 * row["bound_us"] / (
+            row["forward"]["cold_us"] + row["backward"]["cold_us"])
+        rows.append(row)
+        print("[gs-kernel] " + json.dumps(row), flush=True)
+    print(f"[gs-kernel] {time.perf_counter() - t0:.1f} s", flush=True)
+    return rows
 
 
 def phase_cycles(p):
@@ -2073,7 +2326,7 @@ def phase_gs_reference():
         for dev in ("cuda", "cpu"):
             T = bell.from_packed(data, cols, nb, nb, device=dev,
                                  nslots=nslots)
-            smd = build.stage_smoother(sm, dev)
+            smd = build.stage_smoother(sm, dev, A=T)
             bt, xt = (torch.from_numpy(v).to(dev) for v in (b, x0))
             ys[dev] = (
                 bell.spmv_rows(T, xt, torch.from_numpy(rows).to(dev)).cpu(),

@@ -600,7 +600,8 @@ def _standalone_smoother(mat: sp.spmatrix, kind: str, block_size=1,
         A, block_size, opts, 0, Ad.nrows_pad, np.float32, color_bounds=cb
     )
     return _SmootherHandle(
-        Ad, stage_smoother(sm, device), scal_perm, mat.shape[0], block_size
+        Ad, stage_smoother(sm, device, A=Ad), scal_perm, mat.shape[0],
+        block_size,
     )
 
 

@@ -52,6 +52,8 @@ _ARGS = {
                               _L, _I, _L, _P, _P, _P],
     "ngsamg_bell_matvec": [_P, _P, _P, _I, _I, _I, _L, _I, _I, _L,
                            _P, _P, _P],
+    "ngsamg_gs_sweep": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L,
+                        _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
 }
 _SIGNATURES = {
     f"{name}_{sfx}": args

@@ -232,7 +232,8 @@ class SolveInfo:
     (each a ``timers.blocking`` call); ``sync_wait_s``: the host's time
     blocked in them; ``dispatch_s``: the solve's host time less that;
     ``colour_steps``: the colour steps of its multicolour GS sweeps over
-    every level, sweep, step and pass (0 without a GS smoother)."""
+    every level, sweep, step and pass (0 without a GS smoother);
+    ``gs_kernel_steps``: those of them the hand-written sweep kernel ran."""
 
     iterations: int
     relres: float
@@ -243,6 +244,7 @@ class SolveInfo:
     sync_wait_s: float = 0.0
     dispatch_s: float = 0.0
     colour_steps: int = 0
+    gs_kernel_steps: int = 0
 
 
 class AMGPreconditioner:
@@ -664,7 +666,7 @@ class AMGPreconditioner:
                         A_fmt.nrows_pad, npdt, color_bounds=bounds[i],
                         stencil=lev.stencil, ell=gs_ell,
                     ),
-                    dev,
+                    dev, A=A_fmt,
                 )
                 if _need_smoother(i)
                 else None
@@ -969,6 +971,7 @@ class AMGPreconditioner:
         info.sync_wait_s = scope.sync_wait_s
         info.dispatch_s = scope.dispatch_s
         info.colour_steps = scope.colour_steps
+        info.gs_kernel_steps = scope.gs_kernel_steps
         return x, info
 
     def _solve(self, b, tol, maxiter, use_refinement, return_device, mixed):

@@ -23,6 +23,7 @@ import torch
 
 from ..smoothers.cluster_corr import ClusterCorrection
 from ..smoothers.block import BlockGSSmoother
+from ..smoothers.build import stage_smoother
 from ..smoothers.core import ChebyshevSmoother, GSSmoother, JacobiSmoother
 from ..smoothers.hiptmair import HiptmairSmoother
 from ..solve.cycle import AMGOperator, DeviceLevel
@@ -203,10 +204,14 @@ def from_jax_operator(op_np, device="cpu") -> AMGOperator:
     levels = []
     for lev in op_np.levels:
         A = _format(lev.A, device)
+        sm = _smoother(lev.smoother, device)
         levels.append(
             DeviceLevel(
                 A=A,
-                smoother=_smoother(lev.smoother, device),
+                # staged with its operator, as the port's own levels are:
+                # a GS level the sweep kernel takes gets its launch plan
+                smoother=None if sm is None else stage_smoother(sm, device,
+                                                                A=A),
                 P=_transfer(lev.P, A, device),
                 R=_transfer(lev.R, A, device),
             )

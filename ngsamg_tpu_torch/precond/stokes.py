@@ -386,7 +386,8 @@ class StokesAMG(_StokesSolve):
             sm = None
             if not is_coarsest or opts.coarse_solve != CoarseSolveType.INV:
                 sm = stage_smoother(
-                    self._build_hiptmair(cap, pads[i], i), self.device
+                    self._build_hiptmair(cap, pads[i], i), self.device,
+                    A=A_fmts[i],
                 )
             P_fmt = R_fmt = None
             if cap.P is not None:

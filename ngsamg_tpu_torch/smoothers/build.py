@@ -23,6 +23,8 @@ import scipy.sparse as sp
 
 from .. import native
 from ..config import SmootherOptions, SmootherType
+from ..ops import gs_cuda
+from ..sparse.bell import BlockELL
 from ..sparse.host import block_diagonal_fast, block_norm_graph, to_bsr
 from .block import BlockGSSmoother
 from .coloring import jones_plassmann_coloring
@@ -268,12 +270,21 @@ def _to_device(obj, device):
     return obj
 
 
-def stage_smoother(sm: Smoother | BlockGSSmoother, device) -> Smoother:
+def stage_smoother(sm: Smoother | BlockGSSmoother, device,
+                   A=None) -> Smoother:
     """A host-built smoother with its arrays moved to ``device`` as
     tensors (Chebyshev's scalars stay on the host; the GS column indices
     become int64, the index type a gather takes without a conversion). A
     Hiptmair smoother stages both inner smoothers and its three operators
-    (potential-space operator, curl and its transpose)."""
+    (potential-space operator, curl and its transpose).
+
+    ``A``: the level's staged operator (a Hiptmair smoother's range
+    smoother takes it, its potential smoother the staged ``A_pot``). A GS
+    smoother of a block-ELL level that the sweep kernel takes
+    (ops/gs_cuda.py) also gets the colour bounds on the device and the
+    operator's stored slots a row, from which it makes its launch plan; on
+    the card it then carries no split copies, which only the plain sweep
+    reads."""
     from .hiptmair import HiptmairSmoother
 
     def t(a, dtype=None):
@@ -282,20 +293,29 @@ def stage_smoother(sm: Smoother | BlockGSSmoother, device) -> Smoother:
     if isinstance(sm, (ChebyshevSmoother, JacobiSmoother)):
         return dataclasses.replace(sm, Dinv=t(sm.Dinv))
     if isinstance(sm, GSSmoother):
+        kernel = {}
+        n, bs = sm.Dinv.shape[:2]
+        if isinstance(A, BlockELL) and gs_cuda.takes(A, n, bs):
+            kernel = dict(bounds_dev=t(sm.color_bounds, torch.int32),
+                          ell_width=A.ell_width)
+        copies = not kernel or torch.device(device).type != "cuda"
         return dataclasses.replace(
             sm,
             Dinv=t(sm.Dinv),
-            cdata=tuple(t(a) for a in sm.cdata),
-            ccols=tuple(t(a, torch.int64) for a in sm.ccols),
-            cdinv=tuple(t(a) for a in sm.cdinv),
+            cdata=tuple(t(a) for a in sm.cdata) if copies else (),
+            ccols=(tuple(t(a, torch.int64) for a in sm.ccols) if copies
+                   else ()),
+            cdinv=tuple(t(a) for a in sm.cdinv) if copies else (),
+            **kernel,
         )
     if isinstance(sm, BlockGSSmoother):
         return dataclasses.replace(sm, blocks=t(sm.blocks), Binv=t(sm.Binv))
     if isinstance(sm, HiptmairSmoother):
+        A_pot = _to_device(sm.A_pot, device)
         return HiptmairSmoother(
-            range_sm=stage_smoother(sm.range_sm, device),
-            pot_sm=stage_smoother(sm.pot_sm, device),
-            A_pot=_to_device(sm.A_pot, device),
+            range_sm=stage_smoother(sm.range_sm, device, A=A),
+            pot_sm=stage_smoother(sm.pot_sm, device, A=A_pot),
+            A_pot=A_pot,
             C=_to_device(sm.C, device),
             CT=_to_device(sm.CT, device),
         )

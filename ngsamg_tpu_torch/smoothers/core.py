@@ -12,13 +12,20 @@ also dispatch the Hiptmair pair (smoothers/hiptmair.py), the block GS
 (solve/cycle.py) and, through their ``sharded_smooth`` hook, the sharded
 sweeps of parallel/shard.py.
 
-The multicolor GS sweep is plain torch, as it is XLA in the JAX package:
-per color, one gather of x by the color's column indices, one block
-contraction, one block-Dinv product and one in-place update of the color's
-rows. It clones the caller's ``x`` once per call and never writes into
-it (the cycle keeps ``x`` alive across the sweep and the residual). Each
-sweep adds its colour steps (steps x non-empty colours) to the solve's
-``SolveInfo.colour_steps`` and, with tracing on, is a ``gs.sweep`` span
+The multicolor GS sweep of a CUDA tensor on a level the kernel takes (a
+block-ELL operator of bs 1, 2, 3 or 6 in the smoother's dtype,
+``gs_cuda.takes``) is the hand-written kernel (ops/gs_cuda.py,
+csrc/gs_sweep.cu): one launch a colour step, or one launch a sweep where
+the level's x fits in shared memory. It raises if the smoother was staged
+without its operator, and so without a launch plan. Its plain version,
+``gs_plain``, for CPU tensors and any level the kernel does not take, is
+plain torch, as it is XLA in the JAX package: per color, one gather of x by
+the color's column indices, one block contraction, one block-Dinv product
+and one in-place update of the color's rows. Both leave the caller's ``x``
+unwritten (the cycle keeps ``x`` alive across the sweep and the residual).
+Each sweep adds its colour steps (steps x non-empty colours) to the solve's
+``SolveInfo.colour_steps`` (and those the kernel ran to
+``gs_kernel_steps``) and, with tracing on, is a ``gs.sweep`` span
 (utils/timers.py).
 
 The Chebyshev recurrence scalars (theta, delta, sigma, rho) are computed
@@ -28,11 +35,12 @@ on the host in the level's dtype, as the JAX package computes them in its
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from ..ops import gs_cuda
 from ..sparse.bell import rows_product
 from ..sparse.formats import matvec
 from ..utils import timers
@@ -78,6 +86,14 @@ class GSSmoother:
     * **sliced** (``cdata == ()``; the row-sharded path of the JAX
       package): the sweep slices the level's BlockELL ``A.data``/``A.cols``
       per color.
+
+    The kernel (ops/gs_cuda.py) reads neither copy but the level's
+    block-ELL operator itself, with ``bounds_dev`` (the colour bounds as a
+    device int32 tensor) and ``ell_width`` (the operator's stored slots a
+    row), which ``stage_smoother`` sets for a level the kernel takes (on
+    the card such a level carries no split copies); the launch plan is made
+    from them and the shape here, anew whenever the smoother is rebuilt (a
+    cast to bfloat16 halves x's bytes).
     """
 
     Dinv: torch.Tensor  # (n_pad, bs, bs)
@@ -88,6 +104,12 @@ class GSSmoother:
     # (torch converts an int32 index to int64 on every gather)
     ccols: tuple = ()
     cdinv: tuple = ()  # per-color (m_c, bs, bs)
+    bounds_dev: torch.Tensor | None = None  # (ncolors+1,) int32
+    ell_width: int = 0  # the level operator's K; 0: no kernel
+    launch: object = field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "launch", gs_cuda.stage(self))
 
 
 @dataclass(frozen=True)
@@ -164,20 +186,40 @@ def _jacobi(sm: JacobiSmoother, A, x, b):
 
 
 def _gs(sm: GSSmoother, A, x, b, *, reverse: bool):
-    zero_start = x is None
-    # one copy per call, updated in place color by color; the caller's x
-    # is never written
-    x = torch.zeros_like(b) if zero_start else x.clone()
     bounds = sm.color_bounds
     ncol = len(bounds) - 1
-    order = range(ncol - 1, -1, -1) if reverse else range(ncol)
-    split = bool(sm.cdata)
     sp = timers.NULL
     if timers.ON:
         sp = timers.span(
             "gs.sweep", reverse=reverse,
             colours=sum(1 for c in range(ncol) if bounds[c + 1] > bounds[c]),
         )
+    # the kernel sweeps in one dtype: a smoother cast away from its
+    # operator's takes the plain sweep
+    if (b.is_cuda and gs_cuda.takes(A, *sm.Dinv.shape[:2])
+            and A.data.dtype == sm.Dinv.dtype):
+        x = gs_cuda.gs_sweep(sm, A, None if x is None else x.contiguous(),
+                             b.contiguous(), reverse=reverse)
+        timers.count_colour_steps(sm.launch.colour_steps)
+        timers.count_gs_kernel_steps(sm.launch.colour_steps)
+    else:
+        x = gs_plain(sm, A, x, b, reverse=reverse)
+    sp.close()
+    return x
+
+
+def gs_plain(sm: GSSmoother, A, x, b, *, reverse: bool):
+    """``sm.steps`` forward (backward with ``reverse``) sweeps in plain
+    torch, counting their colour steps: the CPU path, and the card's for a
+    level the kernel does not take."""
+    bounds = sm.color_bounds
+    ncol = len(bounds) - 1
+    zero_start = x is None
+    # one copy per call, updated in place color by color; the caller's x
+    # is never written
+    x = torch.zeros_like(b) if zero_start else x.clone()
+    order = range(ncol - 1, -1, -1) if reverse else range(ncol)
+    split = bool(sm.cdata)
     done = 0  # colour steps run, counted on the host
     for step in range(sm.steps):
         for ci, c in enumerate(order):
@@ -196,7 +238,6 @@ def _gs(sm: GSSmoother, A, x, b, *, reverse: bool):
             Dc = sm.cdinv[c] if split else sm.Dinv[lo:hi]
             x[lo:hi] += _block_mul(Dc, r)
     timers.count_colour_steps(done)
-    sp.close()
     return x
 
 

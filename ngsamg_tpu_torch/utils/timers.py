@@ -24,7 +24,8 @@ Always recorded, while a recorder is current (``recording``, ``solving``):
   reads and copies (every one goes through :func:`blocking`), the host's
   time blocked in them, the solve's host time, and the colour steps of the
   multicolour GS sweeps (:func:`count_colour_steps`, a host integer the
-  sweep adds as it runs).
+  sweep adds as it runs) and of those the hand-written sweep kernel ran
+  (:func:`count_gs_kernel_steps`, the same way).
 
 Only with tracing on (:class:`tracing`; off by default), where each site
 costs one check of the module flag ``ON`` and allocates nothing when it is
@@ -138,6 +139,7 @@ class Recorder:
         self.syncs = 0  # blocking reads while this recorder was current
         self.sync_ns = 0  # the host's time blocked in them
         self.colour_steps = 0  # GS colour steps while this was current
+        self.gs_kernel_steps = 0  # of them, run by the sweep kernel
         self._solve = 0
         self._stack: list[Span] = []
         self.anchor = (time.time_ns(), time.perf_counter_ns())
@@ -282,9 +284,10 @@ class solving:
     counts the blocking reads and the GS colour steps inside and times the
     host; with tracing on, also the root ``solve`` span. After the block:
     ``host_syncs``, ``sync_wait_s``, ``host_s``, ``dispatch_s`` (the host's
-    time less its time blocked in reads) and ``colour_steps``."""
+    time less its time blocked in reads), ``colour_steps`` and
+    ``gs_kernel_steps``."""
 
-    host_syncs = colour_steps = 0
+    host_syncs = colour_steps = gs_kernel_steps = 0
     sync_wait_s = host_s = dispatch_s = 0.0
 
     def __init__(self, rec: Recorder):
@@ -298,6 +301,7 @@ class solving:
         rec._solve = rec.solves
         self._syncs, self._wait = rec.syncs, rec.sync_ns
         self._steps = rec.colour_steps
+        self._kernel_steps = rec.gs_kernel_steps
         self._span = rec.open("solve") if ON else NULL
         self._t0 = time.perf_counter_ns()
         return self
@@ -311,6 +315,7 @@ class solving:
         self.host_syncs = rec.syncs - self._syncs
         self.sync_wait_s = (rec.sync_ns - self._wait) / 1e9
         self.colour_steps = rec.colour_steps - self._steps
+        self.gs_kernel_steps = rec.gs_kernel_steps - self._kernel_steps
         self.host_s = (t1 - self._t0) / 1e9
         self.dispatch_s = self.host_s - self.sync_wait_s
 
@@ -321,6 +326,14 @@ def count_colour_steps(n: int) -> None:
     rec = _CURRENT.get()
     if rec is not None:
         rec.colour_steps += n
+
+
+def count_gs_kernel_steps(n: int) -> None:
+    """Adds ``n`` colour steps that the hand-written GS sweep kernel ran
+    to the current recorder (nothing where none is current)."""
+    rec = _CURRENT.get()
+    if rec is not None:
+        rec.gs_kernel_steps += n
 
 
 def blocking(fn, *args, **kw):
