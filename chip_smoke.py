@@ -1460,10 +1460,10 @@ def _traced_solve(pc, b):
     step = pcg_mod._pcg_step
     passes = []  # [the pass's tol_abs2 tensor, ||rhs||, relres per step]
 
-    def traced(op, A, state, tol_abs2):
+    def traced(op, A, state, tol_abs2, **kw):
         if not passes or passes[-1][0] is not tol_abs2:
             passes.append([tol_abs2, float(state[4]) ** 0.5, []])
-        state = step(op, A, state, tol_abs2)
+        state = step(op, A, state, tol_abs2, **kw)
         passes[-1][2].append(float(state[4]) ** 0.5 / passes[-1][1])
         return state
 

@@ -1,12 +1,12 @@
 """The multicolour Gauss-Seidel sweep: CUDA kernel wrapper and launch plan.
 
 It replaces no TPU kernel: the JAX package runs the sweep in XLA, and the
-port's plain version (``smoothers/core.py::_gs``) is about six launches a
-colour step. The kernel is ``csrc/gs_sweep.cu``; it reads the level's
-colour-sorted block-ELL operator ``A`` (``data`` (n, K, bs, bs), ``cols``
-(n, K) int32, ``nslots`` (n,) int32 or None) and the smoother's ``Dinv``
-(n, bs, bs) and ``bounds_dev`` (the colour bounds, int32 on the device),
-and makes no copy of the matrix.
+port's plain version (``smoothers/core.py::gs_plain``) is about six
+launches a colour step. The kernel is ``csrc/gs_sweep.cu``; it reads the
+level's colour-sorted block-ELL operator ``A`` (``data`` (n, K, bs, bs),
+``cols`` (n, K) int32, ``nslots`` (n,) int32 or None) and the smoother's
+``Dinv`` (n, bs, bs) and ``bounds_dev`` (the colour bounds, int32 on the
+device), and makes no copy of the matrix.
 
 :func:`gs_plan` picks one of two launch shapes from the level's shape (rows,
 colour sizes, stored slots a row K, bs and the element size):

@@ -230,7 +230,7 @@ class HaloTileELL:
         """Gathered scalars per matvec (the O(interface) volume)."""
         return self.nsh * self.smax
 
-    def halo_matvec(self, x: torch.Tensor) -> torch.Tensor:
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
         xf = x[:, 0]
         # start the collective FIRST; the interior product has no data
         # dependence on it
@@ -245,7 +245,7 @@ class HaloTileELL:
         return y.reshape(-1, 1)
 
     def apply_full(self, x_full: torch.Tensor) -> torch.Tensor:
-        return self.halo_matvec(self.pl.take(x_full))
+        return self.matvec(self.pl.take(x_full))
 
 
 @dataclass(frozen=True, eq=False)
@@ -286,7 +286,7 @@ class HaloBlockELL:
         """Gathered scalars per matvec (the O(interface) volume)."""
         return self.nsh * self.smax * self.block_shape[1]
 
-    def halo_matvec(self, x: torch.Tensor) -> torch.Tensor:
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
         # collective first; the interior product is independent
         buf, work = _all_gather(x[self.send], self.pl, async_op=True)
         y = rows_product(self.data, x[self.cols])
@@ -295,7 +295,7 @@ class HaloBlockELL:
         return y.index_add(0, self.gtile, contrib)
 
     def apply_full(self, x_full: torch.Tensor) -> torch.Tensor:
-        return self.halo_matvec(self.pl.take(x_full))
+        return self.matvec(self.pl.take(x_full))
 
 
 def _rank_split(cols, data, nrows_pad, pl, dev):

@@ -10,8 +10,10 @@ on ``torch.distributed`` (parallel/world.py):
   of a replicated level;
 * each rank runs the same cycle, smoother and PCG code of the single-
   device path on plain tensors (solve/cycle.py, smoothers/core.py,
-  solve/pcg.py), which reach the sharded objects through duck-typed hooks
-  (``halo_matvec``, ``sharded_smooth``, ``placement``);
+  solve/pcg.py): the sharded objects apply themselves through the
+  methods every operator, smoother and cluster correction has
+  (``matvec``, ``sweep``, ``apply``), and the Krylov reductions and the
+  coarse solve read a level's ``placement``;
 * collectives appear only in the sharded formats' matvecs, in the
   transfers between placements, and in the Krylov reductions.
 
@@ -190,7 +192,7 @@ class RowShard:
         y = matvec(self.A, x_full)
         return y if self.local_rows else self.dst.take(y)
 
-    def halo_matvec(self, x: torch.Tensor) -> torch.Tensor:
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
         return self.apply_full(self.src.gather(x))
 
 
@@ -216,7 +218,7 @@ class ShardedLatticeProlongation:
     def placement(self) -> Placement:
         return self.dst
 
-    def halo_matvec(self, xc: torch.Tensor) -> torch.Tensor:
+    def matvec(self, xc: torch.Tensor) -> torch.Tensor:
         P = self.P
         xc = self.src.gather(xc)
         u = _upsample(xc[: P.nc, 0], P.dims_c, P.dims_f)
@@ -242,7 +244,7 @@ class ShardedLatticeRestriction:
     def placement(self) -> Placement:
         return self.dst
 
-    def halo_matvec(self, rf: torch.Tensor) -> torch.Tensor:
+    def matvec(self, rf: torch.Tensor) -> torch.Tensor:
         R = self.R
         w = rf - R.omega * matvec(self.A, self.Dinv * rf)
         w = self.src.gather(w)
@@ -365,7 +367,7 @@ class ShardedGS:
     steps: int
     pl: Placement
 
-    def sharded_smooth(self, A, x, b, *, reverse: bool):
+    def sweep(self, A, x, b, *, reverse: bool):
         pl = self.pl
         zero_start = x is None
         x = torch.zeros_like(b) if zero_start else x.clone()
@@ -448,13 +450,11 @@ class ReplicatedSweep:
     A: object  # the whole level operator, replicated
     pl: Placement
 
-    def sharded_smooth(self, A, x, b, *, reverse: bool):
-        from ..smoothers.core import smooth, smooth_back
-
+    def sweep(self, A, x, b, *, reverse: bool):
         xf = None if x is None else self.pl.gather(x)
         bf = self.pl.gather(b)
-        run = smooth_back if reverse else smooth
-        return self.pl.take(run(self.inner, self.A, xf, bf))
+        return self.pl.take(
+            self.inner.sweep(self.A, xf, bf, reverse=reverse))
 
 
 def _shard_smoother(sm, A, pl: Placement, mesh: Mesh, dev):
@@ -511,10 +511,8 @@ class ShardedCluster:
     cc: ClusterCorrection
     pl: Placement
 
-    def sharded_apply(self, r: torch.Tensor) -> torch.Tensor:
-        from ..smoothers.cluster_corr import cluster_apply
-
-        return self.pl.take(cluster_apply(self.cc, self.pl.gather(r)))
+    def apply(self, r: torch.Tensor) -> torch.Tensor:
+        return self.pl.take(self.cc.apply(self.pl.gather(r)))
 
 
 # ---------------------------------------------------------------------------

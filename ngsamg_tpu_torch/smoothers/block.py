@@ -32,6 +32,9 @@ class BlockGSSmoother:
     color_bounds: tuple  # block ranges per color (sorted by color)
     steps: int = 1
 
+    def sweep(self, A, x, b, *, reverse: bool):
+        return block_gs_smooth(self, A, x, b, reverse=reverse)
+
 
 def block_gs_smooth(sm: BlockGSSmoother, A: BlockELL, x, b, *, reverse):
     # one copy per call, updated in place; the caller's x is never written

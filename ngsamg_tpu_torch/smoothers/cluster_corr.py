@@ -42,6 +42,9 @@ class ClusterCorrection:
     idx: torch.Tensor  # (ncl, K) int64
     inv: torch.Tensor  # (ncl, K, K) level dtype
 
+    def apply(self, r: torch.Tensor) -> torch.Tensor:
+        return cluster_apply(self, r)
+
 
 def _finish(blocks, members, csz, eig_ratio):
     """Shared tail: pad diag, min-eig filter, batched inverse, idx table.

@@ -6,11 +6,11 @@ reverse; ``x=None`` means a zero initial guess. Jacobi and Chebyshev are
 polynomials in Dinv A, so their backward sweep is the forward one; the
 multicolor GS runs its colors in reverse order backwards. Block levels
 (bs 3 and 6) run Chebyshev with a block Dinv, order 5 on the window
-[0.25, 1] lam_max (smoothers/build.py). ``smooth`` and ``smooth_back``
-also dispatch the Hiptmair pair (smoothers/hiptmair.py), the block GS
-(smoothers/block.py), a multigrid operator used as a smoother
-(solve/cycle.py) and, through their ``sharded_smooth`` hook, the sharded
-sweeps of parallel/shard.py.
+[0.25, 1] lam_max (smoothers/build.py). Every smoother applies itself
+through its ``sweep(A, x, b, reverse=...)`` method: the three here, the
+Hiptmair pair (smoothers/hiptmair.py), the block GS (smoothers/block.py),
+a multigrid operator used as a smoother (solve/cycle.py) and the sharded
+sweeps of parallel/shard.py; ``smooth`` and ``smooth_back`` call it.
 
 The multicolor GS sweep of a CUDA tensor on a level the kernel takes (a
 block-ELL operator of bs 1, 2, 3 or 6 in the smoother's dtype,
@@ -67,6 +67,16 @@ class JacobiSmoother:
     omega: float = 1.0
     steps: int = 1
 
+    def sweep(self, A, x, b, *, reverse: bool):
+        steps = self.steps
+        if x is None:
+            x = self.omega * _block_mul(self.Dinv, b)
+            steps -= 1
+        for _ in range(steps):
+            r = b - matvec(A, x)
+            x = x + self.omega * _block_mul(self.Dinv, r)
+        return x
+
 
 @dataclass(frozen=True)
 class GSSmoother:
@@ -111,6 +121,30 @@ class GSSmoother:
     def __post_init__(self):
         object.__setattr__(self, "launch", gs_cuda.stage(self))
 
+    def sweep(self, A, x, b, *, reverse: bool):
+        bounds = self.color_bounds
+        ncol = len(bounds) - 1
+        sp = timers.NULL
+        if timers.ON:
+            sp = timers.span(
+                "gs.sweep", reverse=reverse,
+                colours=sum(1 for c in range(ncol)
+                            if bounds[c + 1] > bounds[c]),
+            )
+        # the kernel sweeps in one dtype: a smoother cast away from its
+        # operator's takes the plain sweep
+        if (b.is_cuda and gs_cuda.takes(A, *self.Dinv.shape[:2])
+                and A.data.dtype == self.Dinv.dtype):
+            x0 = None if x is None else x.contiguous()
+            x = gs_cuda.gs_sweep(self, A, x0, b.contiguous(),
+                                 reverse=reverse)
+            timers.count_colour_steps(self.launch.colour_steps)
+            timers.count_gs_kernel_steps(self.launch.colour_steps)
+        else:
+            x = gs_plain(self, A, x, b, reverse=reverse)
+        sp.close()
+        return x
+
 
 @dataclass(frozen=True)
 class ChebyshevSmoother:
@@ -126,86 +160,45 @@ class ChebyshevSmoother:
     order: int = 3
     steps: int = 1
 
+    def sweep(self, A, x, b, *, reverse: bool):
+        """Three-term Chebyshev recurrence on [lam_min, lam_max] (Saad
+        alg. 12.1): a polynomial in Dinv A applied to the residual,
+        symmetric, so the backward sweep is the forward one."""
+        dt = np.asarray(self.lam_max).dtype.type  # the level dtype's scalar
+        one, two, half = dt(1.0), dt(2.0), dt(0.5)
+        lmax, lmin = dt(self.lam_max), dt(self.lam_min)
+        theta = half * (lmax + lmin)
+        delta = half * (lmax - lmin)
+        sigma = theta / delta
+        for _step in range(max(int(self.steps), 1)):
+            rho = one / sigma
+            if x is None:
+                r = b
+                x = torch.zeros_like(b)
+            else:
+                r = b - matvec(A, x)
+            d = _block_mul(self.Dinv, r) / float(theta)
+            for _ in range(self.order - 1):
+                x = x + d
+                r = r - matvec(A, d)
+                rho_new = one / (two * sigma - rho)
+                d = float(rho_new * rho) * d + float(
+                    two * rho_new / delta
+                ) * _block_mul(self.Dinv, r)
+                rho = rho_new
+            x = x + d
+        return x
+
 
 Smoother = JacobiSmoother | GSSmoother | ChebyshevSmoother
 
 
 def smooth(sm: Smoother, A, x: torch.Tensor | None, b: torch.Tensor):
-    if isinstance(sm, JacobiSmoother):
-        return _jacobi(sm, A, x, b)
-    if isinstance(sm, GSSmoother):
-        return _gs(sm, A, x, b, reverse=False)
-    if isinstance(sm, ChebyshevSmoother):
-        return _chebyshev(sm, A, x, b)
-    from .hiptmair import HiptmairSmoother, hiptmair_smooth
-
-    if isinstance(sm, HiptmairSmoother):
-        return hiptmair_smooth(sm, A, x, b, reverse=False)
-    from .block import BlockGSSmoother, block_gs_smooth
-
-    if isinstance(sm, BlockGSSmoother):
-        return block_gs_smooth(sm, A, x, b, reverse=False)
-    from ..solve.cycle import AMGSmoother
-
-    if isinstance(sm, AMGSmoother):
-        return sm.smooth(A, x, b)
-    # the sharded sweeps of parallel/shard.py
-    hook = getattr(sm, "sharded_smooth", None)
-    if hook is not None:
-        return hook(A, x, b, reverse=False)
-    raise TypeError(type(sm))
+    return sm.sweep(A, x, b, reverse=False)
 
 
 def smooth_back(sm: Smoother, A, x: torch.Tensor | None, b: torch.Tensor):
-    hook = getattr(sm, "sharded_smooth", None)
-    if hook is not None:
-        return hook(A, x, b, reverse=True)
-    if isinstance(sm, GSSmoother):
-        return _gs(sm, A, x, b, reverse=True)
-    from .hiptmair import HiptmairSmoother, hiptmair_smooth
-
-    if isinstance(sm, HiptmairSmoother):
-        return hiptmair_smooth(sm, A, x, b, reverse=True)
-    from .block import BlockGSSmoother, block_gs_smooth
-
-    if isinstance(sm, BlockGSSmoother):
-        return block_gs_smooth(sm, A, x, b, reverse=True)
-    # Jacobi / Chebyshev / AMG-as-smoother are symmetric
-    return smooth(sm, A, x, b)
-
-
-def _jacobi(sm: JacobiSmoother, A, x, b):
-    steps = sm.steps
-    if x is None:
-        x = sm.omega * _block_mul(sm.Dinv, b)
-        steps -= 1
-    for _ in range(steps):
-        r = b - matvec(A, x)
-        x = x + sm.omega * _block_mul(sm.Dinv, r)
-    return x
-
-
-def _gs(sm: GSSmoother, A, x, b, *, reverse: bool):
-    bounds = sm.color_bounds
-    ncol = len(bounds) - 1
-    sp = timers.NULL
-    if timers.ON:
-        sp = timers.span(
-            "gs.sweep", reverse=reverse,
-            colours=sum(1 for c in range(ncol) if bounds[c + 1] > bounds[c]),
-        )
-    # the kernel sweeps in one dtype: a smoother cast away from its
-    # operator's takes the plain sweep
-    if (b.is_cuda and gs_cuda.takes(A, *sm.Dinv.shape[:2])
-            and A.data.dtype == sm.Dinv.dtype):
-        x = gs_cuda.gs_sweep(sm, A, None if x is None else x.contiguous(),
-                             b.contiguous(), reverse=reverse)
-        timers.count_colour_steps(sm.launch.colour_steps)
-        timers.count_gs_kernel_steps(sm.launch.colour_steps)
-    else:
-        x = gs_plain(sm, A, x, b, reverse=reverse)
-    sp.close()
-    return x
+    return sm.sweep(A, x, b, reverse=True)
 
 
 def gs_plain(sm: GSSmoother, A, x, b, *, reverse: bool):
@@ -238,36 +231,4 @@ def gs_plain(sm: GSSmoother, A, x, b, *, reverse: bool):
             Dc = sm.cdinv[c] if split else sm.Dinv[lo:hi]
             x[lo:hi] += _block_mul(Dc, r)
     timers.count_colour_steps(done)
-    return x
-
-
-def _chebyshev(sm: ChebyshevSmoother, A, x, b):
-    """Three-term Chebyshev recurrence on [lam_min, lam_max] (Saad alg. 12.1).
-
-    A polynomial in Dinv A applied to the residual — symmetric, so it serves
-    as both forward and backward smoother.
-    """
-    dt = np.asarray(sm.lam_max).dtype.type  # the level dtype's scalar type
-    one, two, half = dt(1.0), dt(2.0), dt(0.5)
-    lmax, lmin = dt(sm.lam_max), dt(sm.lam_min)
-    theta = half * (lmax + lmin)
-    delta = half * (lmax - lmin)
-    sigma = theta / delta
-    for _step in range(max(int(sm.steps), 1)):
-        rho = one / sigma
-        if x is None:
-            r = b
-            x = torch.zeros_like(b)
-        else:
-            r = b - matvec(A, x)
-        d = _block_mul(sm.Dinv, r) / float(theta)
-        for _ in range(sm.order - 1):
-            x = x + d
-            r = r - matvec(A, d)
-            rho_new = one / (two * sigma - rho)
-            d = float(rho_new * rho) * d + float(
-                two * rho_new / delta
-            ) * _block_mul(sm.Dinv, r)
-            rho = rho_new
-        x = x + d
     return x

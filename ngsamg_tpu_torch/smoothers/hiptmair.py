@@ -21,7 +21,7 @@ from dataclasses import dataclass
 import torch
 
 from ..sparse.formats import matvec
-from .core import Smoother, smooth as _smooth, smooth_back as _smooth_back
+from .core import Smoother
 
 
 @dataclass(frozen=True)
@@ -34,23 +34,23 @@ class HiptmairSmoother:
     C: object  # potential -> range (curl)
     CT: object  # range -> potential
 
+    def sweep(self, A, x, b, *, reverse: bool):
+        return hiptmair_smooth(self, A, x, b, reverse=reverse)
+
 
 def hiptmair_smooth(sm: HiptmairSmoother, A, x, b, *, reverse: bool):
     def pot_correction(x):
         r = b - matvec(A, x)
         r_pot = matvec(sm.CT, r)
-        if reverse:
-            x_pot = _smooth_back(sm.pot_sm, sm.A_pot, None, r_pot)
-        else:
-            x_pot = _smooth(sm.pot_sm, sm.A_pot, None, r_pot)
+        x_pot = sm.pot_sm.sweep(sm.A_pot, None, r_pot, reverse=reverse)
         return x + matvec(sm.C, x_pot)
 
     if not reverse:
-        x = _smooth(sm.range_sm, A, x, b)
+        x = sm.range_sm.sweep(A, x, b, reverse=False)
         x = pot_correction(x)
     else:
         if x is None:
             x = torch.zeros_like(b)
         x = pot_correction(x)
-        x = _smooth_back(sm.range_sm, A, x, b)
+        x = sm.range_sm.sweep(A, x, b, reverse=True)
     return x

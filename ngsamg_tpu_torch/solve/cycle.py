@@ -12,9 +12,10 @@ the hierarchy carries one, wraps the cycle multiplicatively and
 symmetrically. ``AMGSmoother`` uses a multigrid operator as a smoother.
 
 On a rank of the sharded solve (parallel/shard.py) the same code runs on
-the rank's rows: the sharded operators and transfers carry their own
-collectives (``formats.matvec``'s hook), and the coarse inverse and the
-cluster correction, which are replicated, take the gathered vector.
+the rank's rows: the sharded operators, transfers and smoothers carry
+their own collectives in their ``matvec`` and ``sweep`` methods, the
+coarse inverse, which is replicated, takes the gathered vector, and the
+cluster correction's ``apply`` gathers its own.
 
 With tracing on (utils/timers.py) each level's visit is a ``cycle.level``
 span, whose self time is the level's smoothing, residual and transfers,
@@ -27,7 +28,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ..smoothers.cluster_corr import ClusterCorrection, cluster_apply
+from ..smoothers.cluster_corr import ClusterCorrection
 from ..smoothers.core import Smoother, smooth, smooth_back
 from ..sparse.formats import matvec
 from ..utils import timers
@@ -114,25 +115,21 @@ def amg_apply(op: AMGOperator, b: torch.Tensor) -> torch.Tensor:
         return core(op, b)
     A0 = op.levels[0].A
     cc = op.cluster_corr
-    # a sharded finest level carries its own (parallel/shard.py)
-    corr = getattr(cc, "sharded_apply", None) or (
-        lambda r: cluster_apply(cc, r)
-    )
-    z = corr(b)
+    z = cc.apply(b)
     z = z + core(op, b - matvec(A0, z))
-    return z + corr(b - matvec(A0, z))
+    return z + cc.apply(b - matvec(A0, z))
 
 
 @dataclass(frozen=True)
 class AMGSmoother:
     """A multigrid operator used as a smoother (`AMGSmoother`,
     amg_matrix.hpp:132-158): one sweep is ``steps`` stationary AMG
-    iterations."""
+    iterations, symmetric."""
 
     op: AMGOperator
     steps: int = 1
 
-    def smooth(self, A, x, b):
+    def sweep(self, A, x, b, *, reverse: bool):
         if x is None:
             x = torch.zeros_like(b)
         for _ in range(self.steps):

@@ -84,8 +84,10 @@ class BlockELL:
         br, bc = self.block_shape
         return self.nrows * br, self.ncols * bc
 
-    def __matmul__(self, x: torch.Tensor) -> torch.Tensor:
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
         return spmv(self, x)
+
+    __matmul__ = matvec
 
 
 def to_scipy(A: BlockELL) -> sp.csr_matrix:

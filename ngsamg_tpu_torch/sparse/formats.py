@@ -1,4 +1,4 @@
-"""Device sparse formats + the `matvec` dispatch.
+"""Device sparse formats and `matvec`.
 
 Port of ngsamg_tpu/sparse/formats.py, cut to the formats the ported
 hierarchies stage (see ``format_from_stencil`` and ``choose_format``):
@@ -28,6 +28,10 @@ package (``native.tile_chunk_counts``, ``tile_ell_fill_range``,
 the numpy code beside each call runs with ``native.HAVE_NATIVE`` off and
 packs the same arrays. Column slots are stored as int64 on the device
 (the kernels emit int32; one cast after the fill).
+
+Every device operator, here and in the layers above (the implicit lattice
+transfers, the sharded formats of parallel/), applies itself through its
+``matvec(x)`` method; :func:`matvec` calls it.
 
 Vectors are (nrows_pad, bs) tensors, as in the JAX package. The matvec of
 a CUDA tensor always runs the hand-written kernel where there is one (at
@@ -85,6 +89,9 @@ class DiaMatrix:
     def __reduce__(self):
         return _rebuild(self)
 
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        return dia_cuda.dia_matvec(self, x)
+
 
 @dataclass(frozen=True)
 class DiaWindow:
@@ -108,6 +115,9 @@ class DiaWindow:
     def __reduce__(self):
         return _rebuild(self)
 
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        return dia_cuda.dia_matvec(self, x)
+
 
 @dataclass(frozen=True)
 class DenseMatrix:
@@ -117,6 +127,10 @@ class DenseMatrix:
     nrows: int  # logical block rows
     nrows_pad: int
     bs: int
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        n, bs = x.shape
+        return torch.matmul(self.data, x.reshape(-1)).reshape(n, bs)
 
 
 @dataclass(frozen=True)
@@ -138,6 +152,17 @@ class TileELL:
     tile_m: int
     chunk_c: int = 1  # column-chunk width gathered per slot
 
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """Gather one column chunk of x per slot, then one (1 x K*C) @
+        (K*C x M) product per tile (ngsamg_tpu/sparse/formats.py
+        ``_tile_ell_matvec``)."""
+        T, K = self.cols.shape
+        kc = K * self.chunk_c
+        xg = x[:, 0].reshape(-1, self.chunk_c)[self.cols]  # (T, K, C)
+        y = torch.bmm(xg.reshape(T, 1, kc),
+                      self.data.reshape(T, kc, self.tile_m))
+        return y.reshape(-1, 1)
+
 
 @dataclass(frozen=True)
 class TileELLStack:
@@ -150,6 +175,9 @@ class TileELLStack:
     nrows_pad: int  # == sum(b.nrows_pad)
     ncols_pad: int
     tile_m: int
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.cat([b.matvec(x) for b in self.blocks])
 
 
 @dataclass(frozen=True)
@@ -175,50 +203,13 @@ class StencilDia:
     def __reduce__(self):
         return _rebuild(self)
 
-
-def _tile_ell_matvec(A: TileELL, x: torch.Tensor) -> torch.Tensor:
-    """Gather one column chunk of x per slot, then one (1 x K*C) @
-    (K*C x M) product per tile (ngsamg_tpu/sparse/formats.py
-    `_tile_ell_matvec`)."""
-    T, K = A.cols.shape
-    kc = K * A.chunk_c
-    xg = x[:, 0].reshape(-1, A.chunk_c)[A.cols]  # (T, K, C)
-    y = torch.bmm(xg.reshape(T, 1, kc), A.data.reshape(T, kc, A.tile_m))
-    return y.reshape(-1, 1)
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        return stencil_cuda.stencil_matvec(self, x)
 
 
 def matvec(A, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x for the port's device formats; x: (nrows_pad, bs)."""
-    if isinstance(A, (DiaMatrix, DiaWindow)):
-        return dia_cuda.dia_matvec(A, x)
-    if isinstance(A, StencilDia):
-        return stencil_cuda.stencil_matvec(A, x)
-    if isinstance(A, TileELLStack):
-        return torch.cat([_tile_ell_matvec(b, x) for b in A.blocks])
-    if isinstance(A, TileELL):
-        return _tile_ell_matvec(A, x)
-    if isinstance(A, _bell.BlockELL):
-        return _bell.spmv(A, x)
-    if isinstance(A, DenseMatrix):
-        n, bs = x.shape
-        return torch.matmul(A.data, x.reshape(-1)).reshape(n, bs)
-    from ..transfer.lattice_transfer import (
-        LatticeProlongation,
-        LatticeRestriction,
-        lattice_prol_apply,
-        lattice_restrict_apply,
-    )
-
-    if isinstance(A, LatticeProlongation):
-        return lattice_prol_apply(A, x)
-    if isinstance(A, LatticeRestriction):
-        return lattice_restrict_apply(A, x)
-    # the sharded formats (parallel/shard.py, parallel/halo.py) carry their
-    # own collectives
-    hm = getattr(A, "halo_matvec", None)
-    if hm is not None:
-        return hm(x)
-    raise TypeError(type(A))
+    return A.matvec(x)
 
 
 # ---------------------------------------------------------------------------

@@ -44,6 +44,9 @@ class LatticeProlongation:
     nc: int
     nc_pad: int
 
+    def matvec(self, xc: torch.Tensor) -> torch.Tensor:
+        return lattice_prol_apply(self, xc)
+
 
 @dataclass(frozen=True)
 class LatticeRestriction:
@@ -58,6 +61,9 @@ class LatticeRestriction:
     nf_pad: int
     nc: int
     nc_pad: int
+
+    def matvec(self, rf: torch.Tensor) -> torch.Tensor:
+        return lattice_restrict_apply(self, rf)
 
 
 def _upsample(xc: torch.Tensor, dims_c, dims_f) -> torch.Tensor:

@@ -5,9 +5,13 @@ nothing is built. Its torch package list must name every directory of
 ``ngsamg_tpu_torch/`` that holds an ``__init__.py``, and its
 ``package_data`` must match every file that the CUDA build
 (``ops/cuda_lib.py``: the ``csrc`` sources and headers) and the native build
-(``native/build.py``: ``kernels.cpp``) read.
+(``native/build.py``: ``kernels.cpp``) read. The sparse formats and the
+smoothers' core import no layer above them, at any level of the module:
+every operator and smoother applies itself, so nothing there dispatches
+to the classes of the transfers, the sharded solve or the cycle.
 """
 
+import ast
 import fnmatch
 import os
 import runpy
@@ -51,3 +55,41 @@ def test_package_data_covers_what_the_builds_read(setup_kwargs):
     for path in read:
         rel = os.path.relpath(path, PKG).replace(os.sep, "/")
         assert any(fnmatch.fnmatch(rel, pat) for pat in patterns), rel
+
+
+_ABOVE = ("ngsamg_tpu_torch.solve", "ngsamg_tpu_torch.parallel",
+          "ngsamg_tpu_torch.transfer.lattice_transfer")
+
+
+def _imported(path):
+    """Every module an import statement anywhere in ``path`` names: the
+    module itself and, for ``from M import a``, ``M.a`` (a submodule, if
+    ``a`` is one)."""
+    mod = os.path.relpath(path, ROOT)[:-3].replace(os.sep, ".")
+    package = mod.split(".")[:-1]
+    names = set()
+    for node in ast.walk(ast.parse(open(path).read(), path)):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = package[: len(package) - node.level + 1] if node.level \
+                else []
+            m = ".".join(base + ([node.module] if node.module else []))
+            names.add(m)
+            names.update(f"{m}.{a.name}" for a in node.names)
+    return names
+
+
+@pytest.mark.parametrize("rel,banned", [
+    ("sparse/formats.py", _ABOVE),
+    ("sparse/bell.py", _ABOVE),
+    ("smoothers/core.py", _ABOVE + ("ngsamg_tpu_torch.smoothers.hiptmair",
+                                    "ngsamg_tpu_torch.smoothers.block")),
+])
+def test_lower_layers_import_nothing_above_them(rel, banned):
+    names = _imported(os.path.join(PKG, rel))
+    # each imports its kernels: the walk resolves relative imports
+    assert "ngsamg_tpu_torch.ops" in names
+    up = sorted(n for n in names for b in banned
+                if n == b or n.startswith(b + "."))
+    assert not up, (rel, up)

@@ -110,8 +110,9 @@ def test_pcg_mixed_step_by_step(staged, weighted):
                 pj.op, A64j, sj, jnp.asarray(tol_abs2, jnp.float64), wj,
                 chunk=1, cycle_dt=dt,
             )
-            st = tpcg._pcg_mixed_step(
-                op_t, A64t, st, tol_t, wt if weighted else None, cycle_dt,
+            st = tpcg._pcg_step(
+                op_t, A64t, st, tol_t, cycle_dt=cycle_dt,
+                weight=wt if weighted else None,
             )
             if k < checked:
                 rnj, rnt = float(sj[4]) ** 0.5, float(st[4]) ** 0.5
@@ -143,7 +144,8 @@ def test_pcg_mixed_freezes_and_counts_accepted_steps(staged):
     state = (rt.x, bt - tformats.matvec(A64t, rt.x), torch.zeros_like(bt),
              bt.new_zeros(()), (rt.relres ** 2) * float((wb * wb).sum()),
              rt.iterations)
-    again = tpcg._pcg_mixed_step(op_t, A64t, state, tol_abs2, wt, cycle_dt)
+    again = tpcg._pcg_step(op_t, A64t, state, tol_abs2, cycle_dt=cycle_dt,
+                           weight=wt)
     assert int(again[5]) == int(rt.iterations)
     np.testing.assert_array_equal(again[0].numpy(), rt.x.numpy())
     zero = tpcg.pcg_mixed(op_t, A64t, torch.zeros_like(bt), cycle_dt=cycle_dt)

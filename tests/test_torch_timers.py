@@ -22,6 +22,7 @@ import torch
 import ngsamg_tpu_torch
 import ngsamg_tpu_torch.utils.timers as timers
 from ngsamg_tpu_torch.config import options_from_flags
+from ngsamg_tpu_torch.solve import pcg as tpcg
 from ngsamg_tpu_torch.utils import fem as tfem
 from ngsamg_tpu_torch.utils.trace_solve import NO_SPAN, _span_key, idle_by_span
 
@@ -211,18 +212,37 @@ def test_tracing_off_records_no_solve_span_and_answers_alike(setups, case):
 
 def _expected_syncs(case, info, pc, return_device):
     it, outer = info.iterations, info.outer_iterations
+    # a PCG call reads bnorm, an iteration's residual and, through its
+    # caller, the count; its threshold is rounded on the host, not read
     if case == "host":
-        # each pass: b in, bnorm, tol_abs2, an iteration's residual, x
-        # out, the iteration count
-        return it + 5 * (outer - 1)
+        # each pass: b in, bnorm, an iteration's residual, x out, the
+        # iteration count
+        return it + 4 * (outer - 1)
     if case == "device":
-        # b in; a pass's residual norm, then bnorm, tol_abs2, the
-        # iterations' residuals and the count; the last check and the
-        # final residual; x out unless it stays on the device
-        return it + 4 * outer - 1 + (not return_device)
-    # b in, the scale's inverse in, each pass's bnorm, tol_abs2,
-    # iterations and count, each restart's check, x out
-    return it + 4 * outer + 2 + (pc._scale0 is not None)
+        # b in; a pass's residual norm, then bnorm, the iterations'
+        # residuals and the count; the last check and the final
+        # residual; x out unless it stays on the device
+        return it + 3 * outer + (not return_device)
+    # b in, the scale's inverse in, each pass's bnorm, iterations and
+    # count, each restart's check, x out
+    return it + 3 * outer + 2 + (pc._scale0 is not None)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64,
+                                torch.bfloat16], ids=str)
+def test_threshold_is_rounded_on_the_host(dt):
+    """A PCG call's threshold tol^2 ||b||^2 is rounded in its dtype on the
+    host to the device tensor's bits, so the loop need not read it back."""
+    rng = np.random.default_rng(7)
+    cases = [(1e-8, 1.0), (1e-8, 0.1 + 0.2), (0.5e-8 / 3e-3, 12.345),
+             (1e-6, 1e-30), (0.3, 7.1e12)]
+    cases += [(float(t), float(b)) for t, b in zip(
+        10.0 ** rng.uniform(-9, 0, 200), 10.0 ** rng.uniform(-20, 20, 200))]
+    for tol, bnorm2 in cases:
+        want = float(torch.tensor(tol * tol * bnorm2, dtype=dt))
+        dev, host = tpcg._threshold(tol, bnorm2, dt, "cpu")
+        assert host.hex() == want.hex(), (tol, bnorm2)
+        assert dev.dtype == dt and float(dev).hex() == want.hex()
 
 
 @pytest.mark.parametrize("case,return_device", [
