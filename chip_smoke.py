@@ -80,13 +80,14 @@ Phases, each of which raises (nonzero exit) on failure:
    ``fem.unstructured_poisson(55, dim=3, refine=1)`` (perturbed Delaunay,
    one red refinement), sets it up on the card (generic level loop,
    tile-ELL levels and transfers, cluster correction) and solves it to
-   1e-8 (host defect correction), reads the counters; checks the level
-   count, operator complexity, iterations, true relative residual and
-   that every level and transfer is tile-ELL or dense; a warm second
-   solve. Prints the setup's native calls (``native.CALLS``): each
-   wrapper the JAX package's native run reaches on this path must have
-   been called natively; the host setup and staging beside their record
-   on the numpy branches, and the card's name and power limit.
+   1e-8 (f64 defect correction on the card, on the finest level's f64
+   tile-ELL twin; ``x`` an f64 CUDA tensor), reads the counters; checks
+   the level count, operator complexity, iterations, true relative
+   residual and that every level and transfer is tile-ELL or dense; a
+   warm second solve. Prints the setup's native calls (``native.CALLS``):
+   each wrapper the JAX package's native run reaches on this path must
+   have been called natively; the host setup and staging beside their
+   record on the numpy branches, and the card's name and power limit.
 6. tile-ELL — the median time per call (>= 20 calls, CUDA events) of the
    plain torch tile-ELL matvec of every tile-ELL level and transfer of that
    hierarchy (there is no hand-written tile-ELL kernel yet).
@@ -1095,9 +1096,10 @@ def _path_kernels(pc) -> set:
                       else "dia_matvec_f32")
         elif isinstance(lev.A, bell.BlockELL):
             names.add("bell_matvec_" + cuda_lib.suffix(lev.A.data.dtype))
-    if pc._A64_dev is not None:
+    if isinstance(pc._A64_dev, formats.StencilDia):
         names.add(_stencil_key(pc._A64_dev, torch.float64))
-    if isinstance(pc._A64_mixed, bell.BlockELL):
+    if any(isinstance(t, bell.BlockELL) for t in (pc._A64_dev,
+                                                   pc._A64_mixed)):
         names.add("bell_matvec_f64")
     return names
 
@@ -1359,7 +1361,12 @@ def phase_unstructured():
     torch.cuda.synchronize()
     t3 = time.perf_counter()
     launches = _counts()
-    x = np.asarray(x)  # a host array: the finest level has no f64 stencil
+    # the f64 defect correction runs on the finest level's f64 twin on the
+    # card, so the answer stays there
+    if not (isinstance(x, torch.Tensor) and x.is_cuda
+            and x.dtype == torch.float64):
+        raise AssertionError(f"solution: {type(x)}, not an f64 CUDA tensor")
+    x = x.cpu().numpy()
     if x.shape != (p.n,) or not np.isfinite(x).all():
         raise AssertionError(f"solution: shape {x.shape}, not all finite")
     relres = float(np.linalg.norm(p.b - p.A @ x) / np.linalg.norm(p.b))

@@ -20,10 +20,13 @@ Setup runs on the host in numpy/scipy and the port's native C++ extension
 False`` selects the numpy branches) (factory/levels.py): the stencil
 domain for full lattices, the generic (unstructured) level loop otherwise.
 It stages the hierarchy as torch tensors on ``device``. The solve is
-float64 defect correction around the f32 device PCG. On uniform-stencil
-finest levels the f64 residual is computed on the device by the f64 twin
-of the stencil, so only scalars cross to the host until the final
-solution; otherwise the residual is computed on the host with scipy.
+float64 defect correction around the f32 device PCG. Where a scalar
+finest level has an f64 twin on the device (a uniform stencil's f64
+values, a GS level's f64 pack, or an f64 pack of its tile-ELL, DIA or
+dense format), the f64 residual is computed there, b is permuted and
+scaled there, and only scalars cross to the host until the final
+solution; block finest levels and the other formats compute the residual
+on the host with scipy.
 ``solve(b, mixed=True)`` runs the mixed-precision PCG instead (f64 Krylov
 state and f64 finest matvec on the device, the f32 cycle as M), which is
 also what a stagnated defect correction falls back to.
@@ -38,6 +41,7 @@ import copy
 import dataclasses
 import time
 from dataclasses import dataclass, field
+from typing import NamedTuple
 
 import numpy as np
 import scipy.sparse as sp
@@ -179,9 +183,23 @@ def _stage_block_prolongation(
     return sp.bsr_matrix((dat, Pb.indices, Pb.indptr), shape=Pb.shape)
 
 
-def _refine_residual(A64, b64, x64):
+class _Boundary(NamedTuple):
+    """The finest level's row order and scale on the device (None where
+    the hierarchy has none): see ``AMGPreconditioner._stage_boundary``."""
+
+    perm: torch.Tensor | None
+    iperm: torch.Tensor | None
+    s: torch.Tensor | None
+    sinv: torch.Tensor | None
+
+
+def _refine_residual(A64, b64, x64, weight=None):
+    """r = b - A x in f64 for (n_pad, 1) vectors and the square of its
+    norm, weighted by ``weight`` (a vector like ``r``) where one is
+    given."""
     r = b64 - formats.matvec(A64, x64)
-    return r, torch.dot(r[:, 0], r[:, 0])
+    rw = r if weight is None else r * weight
+    return r, torch.dot(rw[:, 0], rw[:, 0])
 
 
 def _refine_scale(r64, inv_rn: float, dt: torch.dtype):
@@ -233,7 +251,9 @@ class SolveInfo:
     blocked in them; ``dispatch_s``: the solve's host time less that;
     ``colour_steps``: the colour steps of its multicolour GS sweeps over
     every level, sweep, step and pass (0 without a GS smoother);
-    ``gs_kernel_steps``: those of them the hand-written sweep kernel ran."""
+    ``gs_kernel_steps``: those of them the hand-written sweep kernel ran;
+    ``host_residuals``: the f64 residuals computed on the host (scipy), 0
+    where the defect correction runs on the device."""
 
     iterations: int
     relres: float
@@ -245,6 +265,7 @@ class SolveInfo:
     dispatch_s: float = 0.0
     colour_steps: int = 0
     gs_kernel_steps: int = 0
+    host_residuals: int = 0
 
 
 class AMGPreconditioner:
@@ -611,6 +632,7 @@ class AMGPreconditioner:
         svecs: list = [None] * nlev
 
         A_fmts, A_perm, sms = [], [], []
+        twin = None  # a GS finest level's f64 twin, from its one pack
         for i, lev in enumerate(levels):
             A = lev.A
             if (
@@ -643,14 +665,25 @@ class AMGPreconditioner:
                 # GS levels stay block-ELL whatever choose_format would
                 # pick: the colored sweep slices their rows. A GS level's
                 # smoother stores its rows split per color, cut from the
-                # same host arrays (scaled and permuted)
+                # same host arrays (scaled and permuted). A scalar finest
+                # one packs in f64: its operator's and smoother's data are
+                # that pack cast (bit for bit a pack in the device dtype),
+                # and the pack is the f64 twin the refinement loop runs on
+                twin_here = i == 0 and lev.row_bs == 1
                 data, cols, nb, nslots = bell.pack(
-                    A, lev.row_bs, lev.row_bs, npdt, align
+                    A, lev.row_bs, lev.row_bs,
+                    np.float64 if twin_here else npdt, align,
                 )
+                data64, data = data, data.astype(npdt, copy=False)
                 A_fmt = bell.from_packed(
                     data, cols, nb, A.shape[1] // lev.row_bs, device=dev,
                     nslots=nslots,
                 )
+                if twin_here:
+                    # the twin shares the operator's cols and nslots
+                    twin = A_fmt if data64 is data else dataclasses.replace(
+                        A_fmt, data=torch.from_numpy(data64).to(dev)
+                    )
                 if bounds[i] and stack:
                     gs_ell = (data, cols)
             else:
@@ -776,19 +809,27 @@ class AMGPreconditioner:
         if self.dtype == torch.bfloat16:
             # staged in f32 (numpy has no bfloat16): one cast on the device
             op = _cast_floats(op, self.dtype, {})
+        # the boundary of the device refinement loop, which scalar finest
+        # levels run
+        self._boundary = (
+            self._stage_boundary(A_fmts[0].nrows_pad) if bs0 == 1 else None
+        )
         _mark("device_put")
         self.op = op
         self.A_dev = self.op.levels[0].A
         # f64 device twin of the finest operator for the mixed-precision
-        # PCG (built lazily on the first mixed solve); _A0_perm keeps the
-        # permuted + scaled f64 host matrix it packs from
+        # PCG and the device-resident defect correction (made on the first
+        # solve that needs it); _A0_perm keeps the permuted + scaled f64
+        # host matrix it packs from
         self._A64_mixed = None
+        self._A64_made = False
         self._A0_perm = A_perm[0]
-        # exact f64 finest operator for DEVICE-RESIDENT defect correction:
-        # uniform stencils carry their (tiny, exact) f64 values on the
-        # device, so the f64 residual never leaves it; every other finest
-        # level takes the host refinement loop of ``solve``
-        self._A64_dev = None
+        # f64 finest operators staged with the hierarchy, for the
+        # DEVICE-RESIDENT defect correction: a scalar GS finest level's
+        # f64 pack, and uniform stencils' (tiny, exact) f64 values; every
+        # other finest format gets its twin on the first refined solve
+        # (``_ensure_A64_mixed``)
+        self._A64_dev = twin
         if isinstance(self.A_dev, formats.StencilDia) and self._perm0 is None:
             from ..transfer.stencil import ClampedOp, detect_uniform
 
@@ -808,6 +849,32 @@ class AMGPreconditioner:
                     nrows=self.A_dev.nrows,
                     nrows_pad=self.A_dev.nrows_pad,
                 )
+
+    def _stage_boundary(self, n_pad: int) -> _Boundary:
+        """A scalar finest level's row order and scale as device tensors:
+        the device-resident defect correction maps b' = s_perm * b[perm]
+        in and x = (s_perm * y)[iperm] out, and weights its residual norm
+        back to the unscaled space by ``sinv`` = 1 / s_perm (an (n_pad, 1)
+        vector, zero on the padding)."""
+        dev = self.device
+
+        def t(a, dtype):
+            return torch.as_tensor(a, dtype=dtype).to(dev)
+
+        perm = iperm = s = sinv = None
+        if self._perm0 is not None:
+            perm = t(self._perm0, torch.int64)
+            iperm = t(self._iperm0, torch.int64)
+        if self._scale0 is not None:
+            s_perm = (
+                self._scale0 if self._perm0 is None
+                else self._scale0[self._perm0]
+            )
+            s = t(s_perm, torch.float64)
+            inv = np.zeros(n_pad, dtype=np.float64)
+            inv[: len(s_perm)] = 1.0 / s_perm
+            sinv = t(inv[:, None], torch.float64)
+        return _Boundary(perm, iperm, s, sinv)
 
     def _lattice_transfers(self, lev, A_fmt, nf_pad, nc, nc_pad):
         """Implicit gather-free transfers of a lattice level: the smoothing
@@ -939,13 +1006,19 @@ class AMGPreconditioner:
 
         float64 defect correction around the device PCG (inner tolerance
         bounded by the device dtype's accuracy). The f64 residual is
-        computed on the device when the finest level is a uniform stencil,
-        and on the host with scipy otherwise. ``return_device=True``
-        returns the solution as a device tensor (f64, length n) on the
-        device-residual path without an external DOF map (``freedofs``
-        with partial constraints, the compound layout); otherwise a host
-        array, as the JAX package does. ``b`` and the solution are in the
-        external space.
+        computed on the device wherever a scalar finest operator has an
+        f64 twin in the hierarchy's layout (a uniform stencil, a GS
+        block-ELL level, and the tile-ELL, DIA and dense formats, whose
+        twin is packed on the first refined solve): ``b`` goes to the
+        device once, is permuted and scaled there, and only scalars come
+        back until the solution. Block finest levels and finest formats
+        without a twin take the host loop (scipy residuals).
+        ``return_device=True`` returns the solution as a device tensor
+        (f64, length n, the external order) on the device-residual path
+        without an external DOF map (``freedofs`` with partial
+        constraints, the compound layout), and reads nothing back;
+        otherwise a host array, as the JAX package does. ``b`` and the
+        solution are in the external space.
 
         ``use_refinement``: ``None`` or ``True`` verifies against the true
         f64 residual with up to 8 defect-correction passes (4 in f64);
@@ -972,23 +1045,35 @@ class AMGPreconditioner:
         info.dispatch_s = scope.dispatch_s
         info.colour_steps = scope.colour_steps
         info.gs_kernel_steps = scope.gs_kernel_steps
+        info.host_residuals = scope.host_residuals
         return x, info
 
     def _solve(self, b, tol, maxiter, use_refinement, return_device, mixed):
         b = self._expand_ext(np.asarray(b, dtype=np.float64))
         bnorm = np.linalg.norm(b)
-        device_path = self._A64_dev is not None
-        on_device = return_device and self._ext_free is None
-        if bnorm == 0:
-            x = self._contract_ext(np.zeros_like(b))
-            if on_device and device_path:
-                x = torch.zeros(self.n, dtype=torch.float64, device=self.device)
-            return x, SolveInfo(0, 0.0)
-        floor = _FLOORS[self.dtype]
         if use_refinement is None:
             # always verify against the TRUE residual: PCG's recursive
             # residual drifts on ill-conditioned problems even in f64
             use_refinement = True
+        # the f64 twin of a scalar finest operator: with it the refinement
+        # loop runs on the device. Block finest levels (elasticity, vector
+        # H1) keep the host residual: where their near-kernel makes
+        # ||A|| ||x|| >> ||b|| (slender beams), the twin's rounding of
+        # S A S moves the f64 residual of a converged x by tenths of a
+        # percent, and the exact A on the host does not
+        A64 = (
+            self._ensure_A64_mixed()
+            if use_refinement and self.setup_levels_[0].row_bs == 1
+            else None
+        )
+        on_device = (return_device and self._ext_free is None
+                     and A64 is not None)
+        if bnorm == 0:
+            x = self._contract_ext(np.zeros_like(b))
+            if on_device:
+                x = torch.zeros(self.n, dtype=torch.float64, device=self.device)
+            return x, SolveInfo(0, 0.0)
+        floor = _FLOORS[self.dtype]
         inner_tol = max(tol, floor)
         max_outer = (
             (30 if floor > 1e-3 else (8 if floor > 0 else 4))
@@ -998,9 +1083,9 @@ class AMGPreconditioner:
         with _full_f32():
             if mixed and self.dtype != torch.float64:
                 x, info = self._solve_mixed(b, bnorm, tol, maxiter)
-            elif device_path and use_refinement:
+            elif A64 is not None:
                 x, info = self._solve_device_refined(
-                    b, bnorm, tol, inner_tol, max_outer, maxiter,
+                    b, bnorm, tol, inner_tol, max_outer, maxiter, A64,
                     return_device=on_device,
                 )
                 if on_device:
@@ -1015,7 +1100,9 @@ class AMGPreconditioner:
     def _solve_host_refined(self, b, bnorm, tol, inner_tol, max_outer,
                             maxiter, fallback: bool = True):
         """f64 defect correction with the residual computed on the host
-        (scipy): one device PCG per outer pass, one solution read-back."""
+        (scipy): one device PCG per outer pass, one solution read-back.
+        For finest formats without an f64 twin, and ``use_refinement=
+        False``."""
         x = np.zeros(self.n)
         total_it = 0
         history = []
@@ -1024,6 +1111,7 @@ class AMGPreconditioner:
             with (timers.span("solve.pass", index=outer) if timers.ON
                   else timers.NULL):
                 r = b - self.A_host @ x
+                timers.count_host_residuals(1)
                 relres = np.linalg.norm(r) / bnorm
                 history.append(relres)
                 if relres <= tol:
@@ -1043,22 +1131,12 @@ class AMGPreconditioner:
                 x = x + self._from_dev(res.x)
                 total_it += timers.blocking(int, res.iterations)
         r = b - self.A_host @ x
+        timers.count_host_residuals(1)
         relres = float(np.linalg.norm(r) / bnorm)
         history.append(relres)
         if stagnated and relres > tol and fallback:
-            # Defect correction is structurally dead when the f32 finest
-            # matvec cannot resolve the residual (ill-scaled problems:
-            # eps32 * ||A|| ||x|| >> ||b||, e.g. slender-beam elasticity,
-            # where the inner f32 PCG's recursive residual collapses to
-            # noise while the true residual grows). The mixed-precision
-            # PCG is immune: f32 error enters only through M.
-            x, mixed_info = self._solve_mixed(b, bnorm, tol, maxiter)
-            return x, SolveInfo(
-                iterations=total_it + mixed_info.iterations,
-                relres=mixed_info.relres,
-                outer_iterations=outer + 1 + mixed_info.outer_iterations,
-                converged=mixed_info.converged,
-                history=history + mixed_info.history,
+            return self._fall_back_to_mixed(
+                b, bnorm, tol, maxiter, total_it, outer, history
             )
         info = SolveInfo(
             iterations=total_it,
@@ -1069,6 +1147,25 @@ class AMGPreconditioner:
         )
         return x, info
 
+    def _fall_back_to_mixed(self, b, bnorm, tol, maxiter, total_it, outer,
+                            history):
+        """The mixed PCG after a stagnated defect correction (host ``x``).
+
+        Defect correction is structurally dead when the f32 finest matvec
+        cannot resolve the residual (ill-scaled problems: eps32 * ||A||
+        ||x|| >> ||b||, e.g. slender-beam elasticity, where the inner f32
+        PCG's recursive residual collapses to noise while the true
+        residual grows). The mixed-precision PCG is immune: f32 error
+        enters only through M."""
+        x, mixed_info = self._solve_mixed(b, bnorm, tol, maxiter)
+        return x, SolveInfo(
+            iterations=total_it + mixed_info.iterations,
+            relres=mixed_info.relres,
+            outer_iterations=outer + 1 + mixed_info.outer_iterations,
+            converged=mixed_info.converged,
+            history=history + mixed_info.history,
+        )
+
     def _solve_mixed(self, b, bnorm, tol, maxiter):
         """The mixed-precision PCG: on the device when the finest operator
         has an f64 twin there, else with host Krylov vectors."""
@@ -1078,17 +1175,23 @@ class AMGPreconditioner:
         return self._solve_mixed_outer(b, bnorm, tol, maxiter)
 
     def _ensure_A64_mixed(self):
-        """f64 DEVICE twin of the finest operator (lazy, cached).
+        """f64 DEVICE twin of the finest operator (made once, cached; None
+        where the finest format has none)."""
+        if not self._A64_made:
+            self._A64_mixed = self._make_A64()
+            self._A64_made = True
+        return self._A64_mixed
 
-        Packs the permuted + scaled f64 host matrix into the same format
-        (and padding) as the f32 device operator, so the mixed-precision
-        Krylov state shares the hierarchy's vector layout.
-        """
-        if self._A64_mixed is not None:
-            return self._A64_mixed
-        if self._A64_dev is not None:  # exact f64 stencil already there
-            self._A64_mixed = self._A64_dev
-            return self._A64_mixed
+    def _make_A64(self):
+        """The staged twin (a GS level's f64 pack, a uniform stencil's f64
+        values), the operator itself in an f64 hierarchy, or else the
+        permuted + scaled f64 host matrix packed into the same format (and
+        padding) as the device operator, so the f64 vectors share the
+        hierarchy's layout."""
+        if self._A64_dev is not None:
+            return self._A64_dev
+        if self.dtype == torch.float64:
+            return self.A_dev
         A0, Af = self._A0_perm, self.A_dev
         if A0 is None:
             return None
@@ -1118,8 +1221,8 @@ class AMGPreconditioner:
                 col_chunk=Af.col_chunk, device=dev,
             )
         if fmt is not None and _scalar_pad(fmt, bs) == _scalar_pad(Af, bs):
-            self._A64_mixed = fmt
-        return self._A64_mixed
+            return fmt
+        return None
 
     def _solve_mixed_device(self, b, bnorm, tol, maxiter, A64):
         """Device-resident mixed-precision PCG (solve/pcg.py ``pcg_mixed``):
@@ -1243,33 +1346,60 @@ class AMGPreconditioner:
             history=history,
         )
 
+    def _rhs_in(self, b: np.ndarray) -> torch.Tensor:
+        """b' = s_perm * b[perm] as an (n_pad, 1) f64 device vector, ``b``
+        copied to the device once; its temporaries end here, before the
+        solve."""
+        bd = self._boundary
+        b64 = torch.zeros((self.A_dev.nrows_pad, 1), dtype=torch.float64,
+                          device=self.device)
+        v = timers.blocking(torch.Tensor.to, torch.from_numpy(b), self.device)
+        if bd.perm is not None:
+            v = v[bd.perm]
+        if bd.s is not None:
+            v = v * bd.s
+        b64[: self.n, 0] = v
+        return b64
+
     def _solve_device_refined(
-        self, b, bnorm, tol, inner_tol, max_outer, maxiter,
+        self, b, bnorm, tol, inner_tol, max_outer, maxiter, A64,
         return_device: bool = False,
     ):
-        """f64 defect correction with the residual computed ON DEVICE."""
-        A64 = self._A64_dev
-        n, n_pad = A64.nrows, A64.nrows_pad
-        b64 = torch.zeros((n_pad, 1), dtype=torch.float64, device=self.device)
-        b64[:n, 0] = timers.blocking(
-            torch.Tensor.to, torch.from_numpy(b), self.device
-        )
+        """f64 defect correction with the residual computed ON DEVICE by
+        ``A64``, the f64 twin of the finest operator, in the hierarchy's
+        permuted and scaled space: r' = b' - A' y with b' = s_perm *
+        b[perm] (``_boundary``), its norm weighted back to the unscaled
+        space, and x = (s_perm * y)[iperm]. ``b`` crosses to the device
+        once; only scalars come back until ``x``, and not ``x`` with
+        ``return_device``. A uniform stencil's twin keeps that loop's own
+        arithmetic: the inner right-hand side normalised by the residual's
+        norm, and a stop where the correction stagnates. Every other twin
+        takes the host loop's: r' handed over as it is (so the inner PCGs
+        see the host loop's f32 right-hand sides), and the mixed PCG as
+        the fallback of a stagnated correction."""
+        stencil = isinstance(A64, formats.StencilDia)
+        bd = self._boundary
+        n = self.n
+        b64 = self._rhs_in(b)
         x64 = torch.zeros_like(b64)
         total_it = 0
         history = []
         relres = 1.0
+        stagnated = False
         for outer in range(max_outer):
             with (timers.span("solve.pass", index=outer) if timers.ON
                   else timers.NULL):
-                r64, rn2 = _refine_residual(A64, b64, x64)
+                r64, rn2 = _refine_residual(A64, b64, x64, bd.sinv)
                 rn = timers.blocking(float, torch.sqrt(rn2))
                 relres = rn / bnorm
                 history.append(relres)
                 if relres <= tol or not np.isfinite(relres):
                     break
                 if len(history) >= 2 and relres > 0.5 * history[-2]:
+                    stagnated = True
                     break  # stagnated at the f32 accuracy floor
-                r32 = _refine_scale(r64, 1.0 / rn, self.dtype)
+                scale = rn if stencil else 1.0
+                r32 = _refine_scale(r64, 1.0 / scale, self.dtype)
                 res = pcg(
                     self.op,
                     self.A_dev,
@@ -1280,12 +1410,25 @@ class AMGPreconditioner:
                     tol=float(max(inner_tol, 0.5 * tol / relres)),
                     maxiter=maxiter,
                 )
-                x64 = _refine_accumulate(x64, res.x, rn)
+                x64 = _refine_accumulate(x64, res.x, scale)
                 total_it += timers.blocking(int, res.iterations)
-        _r64, rn2 = _refine_residual(A64, b64, x64)
+        _r64, rn2 = _refine_residual(A64, b64, x64, bd.sinv)
         relres = timers.blocking(float, torch.sqrt(rn2)) / bnorm
         history.append(relres)
+        if stagnated and relres > tol and not stencil:
+            x, info = self._fall_back_to_mixed(
+                b, bnorm, tol, maxiter, total_it, outer, history
+            )
+            if return_device:
+                x = timers.blocking(
+                    torch.Tensor.to, torch.from_numpy(x), self.device
+                )
+            return x, info
         x = x64[:n, 0]
+        if bd.s is not None:
+            x = x * bd.s
+        if bd.iperm is not None:
+            x = x[bd.iperm]
         if not return_device:
             x = timers.blocking(torch.Tensor.cpu, x).numpy()
         info = SolveInfo(

@@ -25,7 +25,8 @@ Always recorded, while a recorder is current (``recording``, ``solving``):
   time blocked in them, the solve's host time, and the colour steps of the
   multicolour GS sweeps (:func:`count_colour_steps`, a host integer the
   sweep adds as it runs) and of those the hand-written sweep kernel ran
-  (:func:`count_gs_kernel_steps`, the same way).
+  (:func:`count_gs_kernel_steps`, the same way), and the f64 residuals
+  computed on the host (:func:`count_host_residuals`, the same way).
 
 Only with tracing on (:class:`tracing`; off by default), where each site
 costs one check of the module flag ``ON`` and allocates nothing when it is
@@ -140,6 +141,7 @@ class Recorder:
         self.sync_ns = 0  # the host's time blocked in them
         self.colour_steps = 0  # GS colour steps while this was current
         self.gs_kernel_steps = 0  # of them, run by the sweep kernel
+        self.host_residuals = 0  # f64 residuals computed on the host
         self._solve = 0
         self._stack: list[Span] = []
         self.anchor = (time.time_ns(), time.perf_counter_ns())
@@ -284,10 +286,10 @@ class solving:
     counts the blocking reads and the GS colour steps inside and times the
     host; with tracing on, also the root ``solve`` span. After the block:
     ``host_syncs``, ``sync_wait_s``, ``host_s``, ``dispatch_s`` (the host's
-    time less its time blocked in reads), ``colour_steps`` and
-    ``gs_kernel_steps``."""
+    time less its time blocked in reads), ``colour_steps``,
+    ``gs_kernel_steps`` and ``host_residuals``."""
 
-    host_syncs = colour_steps = gs_kernel_steps = 0
+    host_syncs = colour_steps = gs_kernel_steps = host_residuals = 0
     sync_wait_s = host_s = dispatch_s = 0.0
 
     def __init__(self, rec: Recorder):
@@ -302,6 +304,7 @@ class solving:
         self._syncs, self._wait = rec.syncs, rec.sync_ns
         self._steps = rec.colour_steps
         self._kernel_steps = rec.gs_kernel_steps
+        self._residuals = rec.host_residuals
         self._span = rec.open("solve") if ON else NULL
         self._t0 = time.perf_counter_ns()
         return self
@@ -316,6 +319,7 @@ class solving:
         self.sync_wait_s = (rec.sync_ns - self._wait) / 1e9
         self.colour_steps = rec.colour_steps - self._steps
         self.gs_kernel_steps = rec.gs_kernel_steps - self._kernel_steps
+        self.host_residuals = rec.host_residuals - self._residuals
         self.host_s = (t1 - self._t0) / 1e9
         self.dispatch_s = self.host_s - self.sync_wait_s
 
@@ -334,6 +338,14 @@ def count_gs_kernel_steps(n: int) -> None:
     rec = _CURRENT.get()
     if rec is not None:
         rec.gs_kernel_steps += n
+
+
+def count_host_residuals(n: int) -> None:
+    """Adds ``n`` f64 residuals computed on the host to the current
+    recorder (nothing where none is current)."""
+    rec = _CURRENT.get()
+    if rec is not None:
+        rec.host_residuals += n
 
 
 def blocking(fn, *args, **kw):

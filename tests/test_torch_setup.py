@@ -261,11 +261,13 @@ def test_unported_paths_raise():
 @pytest.mark.parametrize("refine", [None, True, False])
 @pytest.mark.parametrize("path", ["device", "host"])
 def test_use_refinement_matches_jax(path, refine):
-    """``solve(use_refinement=...)`` on both residual paths (the f64 stencil
-    on the device: Chebyshev on ``poisson_3d(40)``; the host: the GS
-    block-ELL finest level of ``poisson_3d(12)``): the JAX package's
-    iterations and passes; without refinement one unverified pass, whose
-    true residual sits at the f32 inner tolerance in both packages."""
+    """``solve(use_refinement=...)`` on both finest twins (the f64 stencil:
+    Chebyshev on ``poisson_3d(40)``; the f64 pack of the GS block-ELL
+    finest level of ``poisson_3d(12)``, the ``host`` case, which the JAX
+    package refines on the host): the JAX package's iterations and passes;
+    with refinement the port computes no residual on the host, without it
+    one unverified pass on the host loop, whose true residual sits at the
+    f32 inner tolerance in both packages."""
     p = tfem.poisson_3d(40 if path == "device" else 12)
     infos = []
     for pkg, kw in ((ngsamg_tpu, {}), (ngsamg_tpu_torch, {"device": "cpu"})):
@@ -275,7 +277,8 @@ def test_use_refinement_matches_jax(path, refine):
         x, info = pc.solve(p.b, tol=1e-8, use_refinement=refine)
         infos.append((pc, np.asarray(x), info))
     (pj, xj, ij), (pt, xt, it) = infos
-    assert (pt._A64_dev is not None) == (path == "device")
+    assert pt._A64_dev is not None
+    assert (it.host_residuals == 0) == (refine is not False)
     assert it.outer_iterations == ij.outer_iterations
     assert it.iterations == ij.iterations
     assert it.converged == ij.converged

@@ -42,9 +42,10 @@ def _cheb():
     )
 
 
-# the three residual paths of ``solve``: the host refinement loop (the GS
-# block-ELL finest level of a small lattice), the device one (the f64
-# stencil of a compressed lattice) and the mixed PCG (elasticity)
+# three paths of ``solve``: the device refinement loop on the f64 pack of
+# a GS block-ELL finest level of a small lattice (``host``: it ran the host
+# loop before it had that twin), the same loop on the f64 stencil of a
+# compressed lattice (``device``) and the mixed PCG (elasticity)
 CASES = {
     "host": (lambda: tfem.poisson_3d(12), dict(options=None), {}),
     "device": (lambda: tfem.poisson_3d(40), dict(options="cheb"), {}),
@@ -214,11 +215,11 @@ def _expected_syncs(case, info, pc, return_device):
     it, outer = info.iterations, info.outer_iterations
     # a PCG call reads bnorm, an iteration's residual and, through its
     # caller, the count; its threshold is rounded on the host, not read
-    if case == "host":
-        # each pass: b in, bnorm, an iteration's residual, x out, the
-        # iteration count
-        return it + 4 * (outer - 1)
-    if case == "device":
+    if case == "unrefined":
+        # the host loop's one pass: b in, bnorm, an iteration's residual,
+        # x out, the iteration count
+        return it + 4 * outer
+    if case in ("host", "device"):
         # b in; a pass's residual norm, then bnorm, the iterations'
         # residuals and the count; the last check and the final
         # residual; x out unless it stays on the device
@@ -226,6 +227,23 @@ def _expected_syncs(case, info, pc, return_device):
     # b in, the scale's inverse in, each pass's bnorm, iterations and
     # count, each restart's check, x out
     return it + 3 * outer + 2 + (pc._scale0 is not None)
+
+
+@pytest.mark.parametrize("refine", [None, False], ids=["device", "host"])
+def test_host_residuals_count_the_host_loop(setups, refine):
+    """``SolveInfo.host_residuals``: none on the device refinement loop;
+    on the host loop (``use_refinement=False``) the residual before its one
+    pass and the one after. The counter adds no blocking read."""
+    p, pc, _ = setups["host"]
+    _x, info = pc.solve(p.b, tol=1e-8, use_refinement=refine)
+    if refine is None:
+        assert info.host_residuals == 0 and info.converged
+        assert info.host_syncs == _expected_syncs("host", info, pc, False)
+    else:
+        assert info.host_residuals == 2 and info.outer_iterations == 1
+        assert info.host_syncs == _expected_syncs("unrefined", info, pc,
+                                                  False)
+    assert pc.trace_.host_residuals >= info.host_residuals
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.float64,
