@@ -88,9 +88,16 @@ Phases, each of which raises (nonzero exit) on failure:
    each wrapper the JAX package's native run reaches on this path must
    have been called natively; the host setup and staging beside their
    record on the numpy branches, and the card's name and power limit.
+   Then the staged cluster correction against its definition
+   (``benchmark/reference/cluster_corr.py``) on the staged finest host
+   matrix (``pc.staged_host_matrices()``): the same clusters as sets of
+   rows, and ``cluster_apply`` within 1e-5 of max |z| of ``apply``.
 6. tile-ELL — the median time per call (>= 20 calls, CUDA events) of the
    plain torch tile-ELL matvec of every tile-ELL level and transfer of that
-   hierarchy (there is no hand-written tile-ELL kernel yet).
+   hierarchy (there is no hand-written tile-ELL kernel yet), each held to
+   the plain f64 product of its staged host matrix (within 1e-5 of max
+   |y|, padding rows zero), and the f64 twin of the finest level (1e-12);
+   the seconds the reference checks take.
 7. unstructured reference — ``unstructured_poisson(20, dim=3)`` (a DIA
    finest level under tile-ELL transfers and cluster correction) on the
    card against the CPU; K2 must launch. The card solve is then traced
@@ -1427,16 +1434,73 @@ def phase_unstructured():
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} never launched on this path")
     _check_native("unstructured", native_calls, UNSTRUCT_NATIVE_WRAPPERS)
+    out["cluster_reference"] = _cluster_reference(pc)
     return p, pc, out
 
 
-def phase_tile_ell(pc):
-    """Plain torch tile-ELL matvec per tile-ELL level and transfer."""
+def _rel_err(y, want) -> float:
+    return float((y - want).abs().max() / want.abs().max())
+
+
+def _cluster_reference(pc) -> dict:
+    """The staged cluster correction against its definition
+    (``benchmark/reference/cluster_corr.py``) on the staged finest host
+    matrix: the same clusters, as sets of rows, and ``cluster_apply``
+    within ``TILE_ELL_F32_TOL`` of ``apply`` (float64 on the card)."""
     import torch
 
+    from benchmark.reference import cluster_corr as ref
+    from ngsamg_tpu_torch.smoothers.cluster_corr import cluster_apply
+
+    t0 = time.perf_counter()
+    cc = pc.op.cluster_corr
+    A0 = pc.staged_host_matrices()[0]["A"]
+    opts = pc.options.cluster_corr
+    want = ref.detect(A0, opts.beta, opts.eig_ratio, opts.max_size)
+    t1 = time.perf_counter()
+    idx = cc.idx.cpu().numpy()
+    real = np.diagonal(cc.inv.double().cpu().numpy(), axis1=1, axis2=2) != 0
+    got = {frozenset(r[m].tolist()) for r, m in zip(idx, real)}
+    same = got == {frozenset(c.tolist()) for c in want}
+    apart = len(got ^ {frozenset(c.tolist()) for c in want})
+    n = A0.shape[0]
+    r = _rand_x(n, pc.A_dev.nrows_pad, torch.float32, 77)
+    z = cluster_apply(cc, r)
+    ref_z = ref.apply(want, A0, r[:n, 0].double())
+    err = _rel_err(z[:n, 0].double(), ref_z)
+    out = {"clusters": len(want), "width": max(len(c) for c in want),
+           "same_sets": same, "apply_err": err, "detect_s": t1 - t0,
+           "seconds": time.perf_counter() - t0}
+    print("[unstructured] cluster reference " + json.dumps(out), flush=True)
+    if not same:
+        raise AssertionError(
+            f"cluster sets differ: {len(got)} staged, {len(want)} by the "
+            f"definition, {apart} in one of them only")
+    if not err <= TILE_ELL_F32_TOL:
+        raise AssertionError(f"cluster_apply off its definition by {err:.3e}")
+    return out
+
+
+# f32 tile-ELL products against the plain f64 product (one f32 rounding a
+# partial sum of at most ~60 terms a row; TF32 or bf16 err by >= 5e-4),
+# and the f64 twin
+TILE_ELL_F32_TOL = 1e-5
+TILE_ELL_F64_TOL = 1e-12
+
+
+def phase_tile_ell(pc):
+    """Plain torch tile-ELL matvec per tile-ELL level and transfer, timed
+    and held to the plain f64 product of its staged host matrix
+    (``benchmark/reference``), and the f64 twin of the finest level."""
+    import torch
+
+    from benchmark.reference import cluster_corr as ref
     from ngsamg_tpu_torch.sparse import formats
     from ngsamg_tpu_torch.utils.timing import event_ms
 
+    t0 = time.perf_counter()
+    host = pc.staged_host_matrices()
+    check_s = time.perf_counter() - t0
     rows = []
     for lvl, lev in enumerate(pc.op.levels):
         for what, T in (("A", lev.A), ("P", lev.P), ("R", lev.R)):
@@ -1449,12 +1513,39 @@ def phase_tile_ell(pc):
                          for b in blocks)
             x = _rand_x(T.ncols_pad, T.ncols_pad, torch.float32, 200 + lvl)
             ms = event_ms(lambda: formats.matvec(T, x))
+            t1 = time.perf_counter()
+            M = host[lvl][what]
+            y = formats.matvec(T, x)
+            err = _rel_err(y[: M.shape[0], 0].double(),
+                           ref.operator(M, "cuda")(x[:, 0]))
+            tail = float(y[M.shape[0]:].abs().max()) \
+                if T.nrows_pad > M.shape[0] else 0.0
+            check_s += time.perf_counter() - t1
             row = {"level": lvl, "op": what, "format": type(T).__name__,
                    "rows": T.nrows, "cols_pad": T.ncols_pad,
                    "buckets": len(blocks), "slots": slots,
-                   "chunk": blocks[0].chunk_c, "bytes": nbytes, "ms": ms}
+                   "chunk": blocks[0].chunk_c, "bytes": nbytes, "ms": ms,
+                   "ref_err": err}
             print("[tile_ell] " + json.dumps(row), flush=True)
+            if not err <= TILE_ELL_F32_TOL or tail != 0.0:
+                raise AssertionError(
+                    f"tile-ELL {what}{lvl} off its host matrix by {err:.3e}"
+                    f" (tol {TILE_ELL_F32_TOL:.0e}), pad tail max {tail}")
             rows.append(row)
+    t1 = time.perf_counter()
+    A64 = pc._ensure_A64_mixed()
+    if not isinstance(A64, formats.TileELLStack):
+        raise AssertionError(f"f64 twin: {type(A64).__name__}")
+    x = _rand_x(A64.ncols_pad, A64.ncols_pad, torch.float64, 299)
+    n = host[0]["A"].shape[0]
+    err64 = _rel_err(formats.matvec(A64, x)[:n, 0],
+                     ref.operator(host[0]["A"], "cuda")(x[:, 0]))
+    check_s += time.perf_counter() - t1
+    print("[tile_ell] " + json.dumps(
+        {"level": 0, "op": "A64", "ref_err": err64,
+         "reference_check_s": check_s}), flush=True)
+    if not err64 <= TILE_ELL_F64_TOL:
+        raise AssertionError(f"f64 twin off its host matrix by {err64:.3e}")
     return rows
 
 

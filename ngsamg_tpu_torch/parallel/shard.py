@@ -511,6 +511,10 @@ class ShardedCluster:
     cc: ClusterCorrection
     pl: Placement
 
+    @property
+    def shape(self) -> tuple[int, int]:
+        return self.cc.shape
+
     def apply(self, r: torch.Tensor) -> torch.Tensor:
         return self.pl.take(self.cc.apply(self.pl.gather(r)))
 

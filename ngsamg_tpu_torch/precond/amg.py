@@ -253,7 +253,9 @@ class SolveInfo:
     every level, sweep, step and pass (0 without a GS smoother);
     ``gs_kernel_steps``: those of them the hand-written sweep kernel ran;
     ``host_residuals``: the f64 residuals computed on the host (scipy), 0
-    where the defect correction runs on the device."""
+    where the defect correction runs on the device;
+    ``tile_ell_matvecs``: its applications of ``TileELL`` and
+    ``TileELLStack`` operators, levels, transfers and f64 twin."""
 
     iterations: int
     relres: float
@@ -266,6 +268,7 @@ class SolveInfo:
     colour_steps: int = 0
     gs_kernel_steps: int = 0
     host_residuals: int = 0
+    tile_ell_matvecs: int = 0
 
 
 class AMGPreconditioner:
@@ -617,6 +620,7 @@ class AMGPreconditioner:
         self._iperm0 = (
             None if self._perm0 is None else np.argsort(self._perm0)
         )
+        self._stage_perms = perms
         _mark("row_order")
 
         # 2) per-level symmetric diagonal scaling for sub-f64 device dtypes
@@ -931,6 +935,33 @@ class AMGPreconditioner:
     # ------------------------------------------------------------------
     # apply / solve
     # ------------------------------------------------------------------
+    def staged_host_matrices(self) -> list[dict]:
+        """The host matrices that each level's device operators were packed
+        from, made again from ``setup_levels_``: ``A``, and ``P`` and ``R``
+        (= P^T) where they are staged explicitly (tile-ELL), as scipy CSR
+        in the staged row orders and, on a scaled hierarchy, scaled as
+        staged (``S A S`` and ``S_f^-1 P S_c``). Scalar levels with explicit
+        matrices only."""
+        self._require_setup()
+        levels = self.setup_levels_
+        if any(lev.row_bs != 1 or lev.A is None for lev in levels):
+            raise ValueError("scalar levels with explicit matrices only")
+        perms, scaled = self._stage_perms, self._scale0 is not None
+        out, svecs = [], []
+        for lev, perm in zip(levels, perms):
+            A = lev.A if perm is None else formats.permute(lev.A, perm, perm)
+            s = None
+            if scaled:
+                A, s = _sym_scale(A)
+            out.append({"A": A.tocsr()})
+            svecs.append(s)
+        for i, lev in enumerate(levels[:-1]):
+            if isinstance(self.op.levels[i].P, formats.TileELL):
+                P = _stage_prolongation(lev.P, perms[i], perms[i + 1],
+                                        svecs[i], svecs[i + 1])
+                out[i].update(P=P, R=P.T.tocsr())
+        return out
+
     @property
     def _device_stage_times(self) -> dict[str, float]:
         """Staging seconds by stage, under the JAX package's stage names:
@@ -1046,6 +1077,7 @@ class AMGPreconditioner:
         info.colour_steps = scope.colour_steps
         info.gs_kernel_steps = scope.gs_kernel_steps
         info.host_residuals = scope.host_residuals
+        info.tile_ell_matvecs = scope.tile_ell_matvecs
         return x, info
 
     def _solve(self, b, tol, maxiter, use_refinement, return_device, mixed):

@@ -42,6 +42,12 @@ class ClusterCorrection:
     idx: torch.Tensor  # (ncl, K) int64
     inv: torch.Tensor  # (ncl, K, K) level dtype
 
+    @property
+    def shape(self) -> tuple[int, int]:
+        """(clusters, padded cluster size K), host integers."""
+        ncl, width = self.idx.shape
+        return int(ncl), int(width)
+
     def apply(self, r: torch.Tensor) -> torch.Tensor:
         return cluster_apply(self, r)
 

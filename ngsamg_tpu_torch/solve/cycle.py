@@ -19,7 +19,9 @@ cluster correction's ``apply`` gathers its own.
 
 With tracing on (utils/timers.py) each level's visit is a ``cycle.level``
 span, whose self time is the level's smoothing, residual and transfers,
-and the coarse solve a ``cycle.coarse`` span.
+and the coarse solve a ``cycle.coarse`` span; each of the two cluster
+applies that wrap a cycle is a ``cluster.apply`` span (attributes
+``clusters`` and ``width``, host shapes).
 """
 
 from __future__ import annotations
@@ -115,9 +117,17 @@ def amg_apply(op: AMGOperator, b: torch.Tensor) -> torch.Tensor:
         return core(op, b)
     A0 = op.levels[0].A
     cc = op.cluster_corr
-    z = cc.apply(b)
+    z = _cluster_apply(cc, b)
     z = z + core(op, b - matvec(A0, z))
-    return z + cc.apply(b - matvec(A0, z))
+    return z + _cluster_apply(cc, b - matvec(A0, z))
+
+
+def _cluster_apply(cc: ClusterCorrection, r: torch.Tensor) -> torch.Tensor:
+    if not timers.ON:
+        return cc.apply(r)
+    ncl, width = cc.shape
+    with timers.span("cluster.apply", clusters=ncl, width=width):
+        return cc.apply(r)
 
 
 @dataclass(frozen=True)

@@ -14,7 +14,9 @@ hierarchies stage (see ``format_from_stencil`` and ``choose_format``):
   gathering 8-wide column chunks per slot. Unstructured levels and the
   explicit transfers. The JAX package computes this matvec in XLA (no
   Pallas kernel), and so does the port, in plain torch: one gather and one
-  batched product.
+  batched product. Each application adds one to the solve's
+  ``SolveInfo.tile_ell_matvecs`` (``timers.count_tile_ell_matvecs``, a
+  host integer), a stack once whatever its buckets.
 * :class:`DiaWindow` — a row block of a full-storage DIA matrix over a
   longer x (a rank's rows of a row-sharded level). Matvec: K2 on the
   window.
@@ -52,6 +54,7 @@ import torch
 
 from .. import native
 from ..ops import dia_cuda, stencil_cuda
+from ..utils import timers
 from . import bell as _bell
 
 
@@ -153,9 +156,13 @@ class TileELL:
     chunk_c: int = 1  # column-chunk width gathered per slot
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        timers.count_tile_ell_matvecs(1)
+        return self.product(x)
+
+    def product(self, x: torch.Tensor) -> torch.Tensor:
         """Gather one column chunk of x per slot, then one (1 x K*C) @
         (K*C x M) product per tile (ngsamg_tpu/sparse/formats.py
-        ``_tile_ell_matvec``)."""
+        ``_tile_ell_matvec``); the matvec, uncounted."""
         T, K = self.cols.shape
         kc = K * self.chunk_c
         xg = x[:, 0].reshape(-1, self.chunk_c)[self.cols]  # (T, K, C)
@@ -177,7 +184,8 @@ class TileELLStack:
     tile_m: int
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.cat([b.matvec(x) for b in self.blocks])
+        timers.count_tile_ell_matvecs(1)
+        return torch.cat([b.product(x) for b in self.blocks])
 
 
 @dataclass(frozen=True)

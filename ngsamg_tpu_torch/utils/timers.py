@@ -25,8 +25,11 @@ Always recorded, while a recorder is current (``recording``, ``solving``):
   time blocked in them, the solve's host time, and the colour steps of the
   multicolour GS sweeps (:func:`count_colour_steps`, a host integer the
   sweep adds as it runs) and of those the hand-written sweep kernel ran
-  (:func:`count_gs_kernel_steps`, the same way), and the f64 residuals
-  computed on the host (:func:`count_host_residuals`, the same way).
+  (:func:`count_gs_kernel_steps`, the same way), the f64 residuals
+  computed on the host (:func:`count_host_residuals`, the same way), and
+  the applications of tile-ELL operators (:func:`count_tile_ell_matvecs`,
+  the same way: one a ``TileELL`` or ``TileELLStack`` matvec, a stack once
+  whatever its buckets, f32 cycle and f64 twin alike).
 
 Only with tracing on (:class:`tracing`; off by default), where each site
 costs one check of the module flag ``ON`` and allocates nothing when it is
@@ -35,7 +38,10 @@ restart) > ``pcg.iter`` > ``cycle.level`` (attribute ``level``; its self
 time is that level's smoothing, residual and transfers) and
 ``cycle.coarse``, ``gs.sweep`` (one multicolour GS sweep, a child of the
 ``cycle.level`` or ``cycle.coarse`` it smooths; attributes ``reverse`` and
-``colours``, the non-empty colours it ran) and ``sync`` around each
+``colours``, the non-empty colours it ran), ``cluster.apply`` (one
+application of the local cluster correction, two a cycle, a child of the
+``pcg.iter`` whose cycle it wraps; attributes ``clusters``, the number of
+clusters, and ``width``, the padded cluster size) and ``sync`` around each
 blocking read.
 
 This module imports no torch: the host setup's modules import it, and the
@@ -142,6 +148,7 @@ class Recorder:
         self.colour_steps = 0  # GS colour steps while this was current
         self.gs_kernel_steps = 0  # of them, run by the sweep kernel
         self.host_residuals = 0  # f64 residuals computed on the host
+        self.tile_ell_matvecs = 0  # tile-ELL operator applications
         self._solve = 0
         self._stack: list[Span] = []
         self.anchor = (time.time_ns(), time.perf_counter_ns())
@@ -287,9 +294,10 @@ class solving:
     host; with tracing on, also the root ``solve`` span. After the block:
     ``host_syncs``, ``sync_wait_s``, ``host_s``, ``dispatch_s`` (the host's
     time less its time blocked in reads), ``colour_steps``,
-    ``gs_kernel_steps`` and ``host_residuals``."""
+    ``gs_kernel_steps``, ``host_residuals`` and ``tile_ell_matvecs``."""
 
     host_syncs = colour_steps = gs_kernel_steps = host_residuals = 0
+    tile_ell_matvecs = 0
     sync_wait_s = host_s = dispatch_s = 0.0
 
     def __init__(self, rec: Recorder):
@@ -305,6 +313,7 @@ class solving:
         self._steps = rec.colour_steps
         self._kernel_steps = rec.gs_kernel_steps
         self._residuals = rec.host_residuals
+        self._tile_ell = rec.tile_ell_matvecs
         self._span = rec.open("solve") if ON else NULL
         self._t0 = time.perf_counter_ns()
         return self
@@ -320,6 +329,7 @@ class solving:
         self.colour_steps = rec.colour_steps - self._steps
         self.gs_kernel_steps = rec.gs_kernel_steps - self._kernel_steps
         self.host_residuals = rec.host_residuals - self._residuals
+        self.tile_ell_matvecs = rec.tile_ell_matvecs - self._tile_ell
         self.host_s = (t1 - self._t0) / 1e9
         self.dispatch_s = self.host_s - self.sync_wait_s
 
@@ -346,6 +356,14 @@ def count_host_residuals(n: int) -> None:
     rec = _CURRENT.get()
     if rec is not None:
         rec.host_residuals += n
+
+
+def count_tile_ell_matvecs(n: int) -> None:
+    """Adds ``n`` applications of tile-ELL operators to the current
+    recorder (nothing where none is current)."""
+    rec = _CURRENT.get()
+    if rec is not None:
+        rec.tile_ell_matvecs += n
 
 
 def blocking(fn, *args, **kw):

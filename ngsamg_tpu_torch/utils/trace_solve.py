@@ -42,8 +42,9 @@ time by program span, and one JSON line with:
   ``cycle.coarse``); ``root_self_idle_share``: the share of the idle time
   that falls in the root ``solve`` span's self time;
 - ``colour_steps``: the profiled solve's ``SolveInfo.colour_steps`` (the
-  GS sweeps' colour steps, 0 under Chebyshev), and ``gs_kernel_steps``,
-  those of them the hand-written sweep kernel ran.
+  GS sweeps' colour steps, 0 under Chebyshev), ``gs_kernel_steps``,
+  those of them the hand-written sweep kernel ran, and
+  ``tile_ell_matvecs``, its applications of tile-ELL operators.
 
 ``--blocks S`` then times warm solves in alternating blocks of ``S``
 seconds, tracing off, on, on, off, and prints each block's mean solve time,
@@ -380,6 +381,7 @@ def main(argv=None) -> int:
         "host_syncs": getattr(info, "host_syncs", None),
         "colour_steps": getattr(info, "colour_steps", None),
         "gs_kernel_steps": getattr(info, "gs_kernel_steps", None),
+        "tile_ell_matvecs": getattr(info, "tile_ell_matvecs", None),
         "setup": setup,
         "warm_solve_ms": [w * 1e3 for w in walls],
         "warm_solve_median_ms": warm * 1e3,

@@ -7,7 +7,9 @@ join its Chrome trace on a host track; tracing off records no solve-side
 span and leaves the answers bit for bit as they were; every blocking read
 of a solve is counted, and so are the multicolour GS sweeps' colour
 steps (``SolveInfo.colour_steps``), each sweep a ``gs.sweep`` span inside
-its ``cycle.level`` with tracing on. CPU only: the card's trace (K1 beside
+its ``cycle.level`` with tracing on, and the tile-ELL operators'
+applications (``SolveInfo.tile_ell_matvecs``), the cluster correction's
+two applies a cycle ``cluster.apply`` spans inside its ``pcg.iter``. CPU only: the card's trace (K1 beside
 the ``cycle.level`` spans) is checked by ``chip_smoke.py`` ``[timers]``.
 """
 
@@ -484,3 +486,103 @@ def test_chebyshev_runs_no_colour_step(setups, case):
         _x, info = pc.solve(p.b, tol=1e-8, **kw)
     assert info.colour_steps == 0
     assert not pc.trace_.named("gs.sweep")
+
+
+@pytest.fixture(scope="module")
+def unstructured():
+    """``unstructured_poisson(16, dim=3, refine=1)`` under Chebyshev: tile-ELL
+    levels 0-1, dense levels 2-3, tile-ELL transfers on levels 0-2, and a
+    cluster correction."""
+    p = tfem.unstructured_poisson(16, dim=3, refine=1)
+    pc = ngsamg_tpu_torch.AMGPreconditioner(
+        p.A, coords=p.coords, options=_cheb(), device="cpu").setup()
+    return p, pc
+
+
+def _tile_ell_calls(monkeypatch):
+    """Counts every call of ``TileELL.matvec`` and ``TileELLStack.matvec``
+    (a stack's buckets are not calls of their own)."""
+    from ngsamg_tpu_torch.sparse import formats
+
+    calls = [0]
+    for cls in (formats.TileELL, formats.TileELLStack):
+        def counted(self, x, _orig=cls.matvec):
+            calls[0] += 1
+            return _orig(self, x)
+
+        monkeypatch.setattr(cls, "matvec", counted)
+    return calls
+
+
+def test_tile_ell_matvecs_count_every_application(unstructured,
+                                                  monkeypatch):
+    """``SolveInfo.tile_ell_matvecs`` is the number of tile-ELL matvec
+    calls, f32 cycle and f64 twin alike, and follows the cycle: a PCG
+    step's finest matvec, the two finest residuals of the cluster wrap, on
+    each tile-ELL level the Chebyshev sweeps' (order - 1) and order
+    matvecs and the residual, R and P on every level with transfers; and
+    each defect-correction pass's f64 residual and the last one. The count
+    is the same with tracing on and adds no blocking read."""
+    from ngsamg_tpu_torch.sparse import formats
+
+    p, pc = unstructured
+    pc.solve(p.b, tol=1e-8)  # packs the f64 twin before the count
+    calls = _tile_ell_calls(monkeypatch)
+    _x, off = pc.solve(p.b, tol=1e-8)
+    assert off.tile_ell_matvecs == calls[0] > 0
+    calls[0] = 0
+    with timers.tracing(True):
+        _x, on = pc.solve(p.b, tol=1e-8)
+    assert on.tile_ell_matvecs == calls[0] == off.tile_ell_matvecs
+    assert on.host_syncs == off.host_syncs
+    levels = pc.op.levels
+    tile = (formats.TileELL, formats.TileELLStack)
+    order = levels[0].smoother.order
+    per_a = (order - 1) + 1 + order
+    l_a = sum(isinstance(lev.A, tile) for lev in levels[:-1])
+    l_t = sum(isinstance(lev.P, tile) and isinstance(lev.R, tile)
+              for lev in levels[:-1])
+    assert (l_a, l_t) == (2, 3)
+    per_it = per_a * l_a + 2 * l_t + 2 + 1
+    assert off.tile_ell_matvecs == (off.iterations * per_it
+                                    + off.outer_iterations + 1)
+    assert pc.trace_.tile_ell_matvecs >= 2 * off.tile_ell_matvecs
+
+
+@pytest.mark.parametrize("case", ["device", "mixed"])
+def test_no_tile_ell_matvec_off_tile_ell(setups, case):
+    """Stencil, DIA and block-ELL hierarchies count none."""
+    p, pc, kw = setups[case]
+    _x, info = pc.solve(p.b, tol=1e-8, **kw)
+    assert info.tile_ell_matvecs == 0
+
+
+def test_cluster_apply_spans_wrap_every_cycle(unstructured):
+    """Two ``cluster.apply`` spans a cycle, each a child of its
+    ``pcg.iter``, with the correction's shape; none with tracing off."""
+    p, pc = unstructured
+    rec = pc.trace_
+    n0 = len(rec.spans)
+    pc.solve(p.b, tol=1e-8)
+    assert len(rec.spans) == n0
+    with timers.tracing(True):
+        _x, info = pc.solve(p.b, tol=1e-8)
+    spans = _solve_spans(pc, n0)
+    by_id = {s.id: s for s in spans}
+    iters = [s for s in spans if s.name == "pcg.iter"]
+    applies = [s for s in spans if s.name == "cluster.apply"]
+    assert len(iters) == info.iterations > 0
+    assert len(applies) == 2 * len(iters)
+    ncl, width = pc.op.cluster_corr.shape
+    for it in iters:
+        kids = [s for s in applies if s.parent == it.id]
+        assert len(kids) == 2
+        # the wrap: C, the cycle's finest visit, C
+        (lvl0,) = [s for s in spans if s.parent == it.id
+                   and s.name == "cycle.level"]
+        assert kids[0].end <= lvl0.start and lvl0.end <= kids[1].start
+    for s in applies:
+        assert s.attrs == {"clusters": ncl, "width": width}
+        assert by_id[s.parent].start <= s.start <= s.end \
+            <= by_id[s.parent].end
+        assert _span_key(s, by_id) == "cluster.apply"
