@@ -93,11 +93,20 @@ Phases, each of which raises (nonzero exit) on failure:
    matrix (``pc.staged_host_matrices()``): the same clusters as sets of
    rows, and ``cluster_apply`` within 1e-5 of max |z| of ``apply``.
 6. tile-ELL — the median time per call (>= 20 calls, CUDA events) of the
-   plain torch tile-ELL matvec of every tile-ELL level and transfer of that
-   hierarchy (there is no hand-written tile-ELL kernel yet), each held to
-   the plain f64 product of its staged host matrix (within 1e-5 of max
-   |y|, padding rows zero), and the f64 twin of the finest level (1e-12);
-   the seconds the reference checks take.
+   tile-ELL matvec (the hand-written kernel) of every tile-ELL level and
+   transfer of that hierarchy, each held to the plain f64 product of its
+   staged host matrix (within 1e-5 of max |y|, padding rows zero), and the
+   f64 twin of the finest level (1e-12); the seconds the reference checks
+   take. ``[tile-ell-kernel]``: on every one of those operators and the
+   f64 twin, the kernel (``csrc/tile_ell_matvec.cu``, on the compact copy
+   staged with the operator) against the plain torch product on the card
+   (max |err| / max |y| <= 1e-6 in f32, <= 1e-14 in f64), two launches to
+   the same bits; the device time a launch by CUDA-graph replay of 50 and
+   after an L2 sweep, beside the plain product's (the time before the
+   kernel) and the bound by the problem's count (each nonzero's value and
+   4-byte column, a 4-byte row pointer a row and one more, x and y once,
+   at 3.35 TB/s), and the copy's stored entries and plan. Phase 12 runs
+   the same check on the GS hierarchy's tile-ELL transfers.
 7. unstructured reference — ``unstructured_poisson(20, dim=3)`` (a DIA
    finest level under tile-ELL transfers and cluster correction) on the
    card against the CPU; K2 must launch. The card solve is then traced
@@ -209,7 +218,8 @@ Phases, each of which raises (nonzero exit) on failure:
    alpha=10)`` (104,738 facet DoF) through ``StokesAMG`` with the primal
    facet -> vertex incidence (short geometric loops) and
    ``max_coarse_size`` 80 on the default device (Hiptmair smoothing on
-   tile-ELL and dense levels; no hand-written kernel on this path): the
+   tile-ELL and dense levels; the tile-ELL kernel is this path's only
+   hand-written one): the
    assembly, host setup, staging, the ``maxiter=8`` warm-up, the first and
    3 warm solves and the device kernels of one warm solve
    (``torch.profiler``); must give the level sizes 104,738 / 46,814 /
@@ -354,6 +364,10 @@ BF16_TOL = 1e-2  # bf16 kernels against their plain bf16 versions
 # row sums up to ~2,000 terms in another order than torch's reduction
 BELL_TOL = {"torch.float32": 1e-5, "torch.float64": 1e-12,
             "torch.bfloat16": BF16_TOL}
+# the tile-ELL kernel against the plain product, max |err| / max |y|: the
+# same products summed in another order (rows of up to ~270 nonzeros)
+TILE_ELL_KERNEL_TOL = {"torch.float32": 1e-6, "torch.float64": 1e-14,
+                       "torch.bfloat16": BF16_TOL}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 # H100 SXM, no tensor cores; the bf16 kernels do their arithmetic in f32
 PEAK_FLOP_S = {"f32": 67e12, "f64": 34e12}
@@ -418,18 +432,20 @@ def _nvidia_smi() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def _counts():
-    from ngsamg_tpu_torch.ops import bell_cuda, dia_cuda, gs_cuda, stencil_cuda
+def _launch_counters():
+    from ngsamg_tpu_torch.ops import (bell_cuda, dia_cuda, gs_cuda,
+                                      stencil_cuda, tile_ell_cuda)
 
-    return {**stencil_cuda.LAUNCHES, **dia_cuda.LAUNCHES,
-            **bell_cuda.LAUNCHES, **gs_cuda.LAUNCHES}
+    return (stencil_cuda.LAUNCHES, dia_cuda.LAUNCHES, bell_cuda.LAUNCHES,
+            gs_cuda.LAUNCHES, tile_ell_cuda.LAUNCHES)
+
+
+def _counts():
+    return {k: v for d in _launch_counters() for k, v in d.items()}
 
 
 def _reset_counts():
-    from ngsamg_tpu_torch.ops import bell_cuda, dia_cuda, gs_cuda, stencil_cuda
-
-    for d in (stencil_cuda.LAUNCHES, dia_cuda.LAUNCHES, bell_cuda.LAUNCHES,
-              gs_cuda.LAUNCHES):
+    for d in _launch_counters():
         for k in d:
             d[k] = 0
 
@@ -694,6 +710,7 @@ def phase_build():
         raise AssertionError(f"K3 ran with a mismatched plan {bad}")
     _bell_build_checks()
     _gs_build_checks()
+    _tile_ell_build_checks()
     print("[build] small-shape kernel checks passed", flush=True)
     return native_build
 
@@ -796,6 +813,115 @@ def _bell_build_checks():
             raise
         raise AssertionError(f"block-ELL ran with a mismatched plan {bad}")
     print("[build] block-ELL kernel checks passed", flush=True)
+
+
+def _data_as(T, dtype):
+    """A tile-ELL operator with its values cast to ``dtype``."""
+    from ngsamg_tpu_torch.sparse import formats
+
+    if isinstance(T, formats.TileELLStack):
+        return dataclasses.replace(T, blocks=tuple(
+            dataclasses.replace(b, data=b.data.to(dtype)) for b in T.blocks))
+    return dataclasses.replace(T, data=T.data.to(dtype))
+
+
+def _tile_ell_key(T) -> str:
+    from ngsamg_tpu_torch.ops import cuda_lib
+
+    return "tile_ell_matvec_" + cuda_lib.suffix(T.launch.vals.dtype)
+
+
+def _tile_ell_build_checks():
+    """The tile-ELL kernel against the plain product on random operators
+    of the packers: a square stack of three buckets (chunk 8; rows of ~12
+    to ~200 nonzeros) and a rectangular chunk-1 transfer with padded rows
+    and columns, both with explicit zeros, in f32, f64 and bf16 (the bf16
+    cast of the f32 operators, held to the f32 plain product of the same
+    bf16 values), on the operator's own plan and on every lane count; two
+    launches give the same bits, and the launch refuses a plan that does
+    not match the kernel's layout."""
+    import scipy.sparse as sp
+    import torch
+
+    from ngsamg_tpu_torch.ops import tile_ell_cuda
+    from ngsamg_tpu_torch.precond.amg import _cast_floats, _full_f32
+    from ngsamg_tpu_torch.sparse import formats
+
+    rng = np.random.default_rng(11)
+
+    def banded(n, m, widths):
+        rows, cols = [], []
+        for r in range(n):
+            w = widths[min(r * len(widths) // n, len(widths) - 1)]
+            c = np.unique(np.clip(
+                r * m // n + rng.integers(-w, w + 1, max(w // 2, 1)),
+                0, m - 1))
+            rows += [r] * len(c)
+            cols += list(c)
+        vals = rng.standard_normal(len(rows))
+        vals[rng.random(len(rows)) < 0.05] = 0.0
+        return sp.csr_matrix((vals, (rows, cols)), shape=(n, m))
+
+    square = banded(12_293, 12_293, [400, 120, 24])
+    rect = banded(3_001, 997, [40, 3])
+    checked = 0
+    for dt in (np.float32, np.float64):
+        ops = [formats.tile_ell_stack_from_scipy(square, dt, device="cuda"),
+               formats.tile_ell_from_scipy(rect, dt, nr_pad=3_008,
+                                           nc_pad=1_000, device="cuda")]
+        if len(ops[0].blocks) < 2:
+            raise AssertionError("tile-ELL build check: one bucket")
+        if dt == np.float32:
+            ops += [_cast_floats(T, torch.bfloat16, {}) for T in ops]
+        for T in ops:
+            L = T.launch
+            x = torch.randn((T.ncols_pad, 1), dtype=torch.float64,
+                            device="cuda").to(L.vals.dtype)
+            plans = [None] + [
+                tile_ell_cuda.tile_ell_plan(L.n_tiles, L.mean, L.longest,
+                                            lanes=k)
+                for k in (1, 2, 4, 8, 16, 32)]
+            with _full_f32():
+                if x.dtype == torch.bfloat16:
+                    ref = _data_as(T, torch.float32).product(x.float())
+                else:
+                    ref = T.product(x)
+            for plan in plans:
+                label = (f"tile-ELL {type(T).__name__} {T.nrows} rows "
+                         f"{L.vals.dtype} {(plan or L.plan).variant}")
+                key = _tile_ell_key(T)
+                before = tile_ell_cuda.LAUNCHES[key]
+
+                def run(A, v, plan=plan):
+                    return tile_ell_cuda.tile_ell_matvec(A, v, plan=plan)
+
+                y = run(T, x).double()
+                err = float((y - ref.double()).abs().max()
+                            / ref.double().abs().max())
+                tol = TILE_ELL_KERNEL_TOL[str(L.vals.dtype)]
+                if not err <= tol or y[T.nrows:].any():
+                    raise AssertionError(f"{label}: {err:.3e} (tol {tol})")
+                _same_bits(run, T, x, label)
+                if tile_ell_cuda.LAUNCHES[key] != before + 3:
+                    raise AssertionError(f"{label}: did not launch")
+                checked += 1
+    T = formats.tile_ell_from_scipy(rect, np.float32, device="cuda")
+    x = torch.randn((T.ncols_pad, 1), device="cuda")
+    plan = T.launch.plan
+    for bad in (dataclasses.replace(plan, blocks=plan.blocks + 1),
+                dataclasses.replace(plan, lanes=3),
+                dataclasses.replace(plan, lanes=64),
+                dataclasses.replace(plan, threads=32),
+                dataclasses.replace(plan, lanes=16, threads=64)):
+        try:
+            tile_ell_cuda.tile_ell_matvec(T, x, plan=bad)
+        except RuntimeError as e:  # cudaErrorInvalidValue from the launch
+            if "launch failed with error 1" in str(e):
+                continue
+            raise
+        raise AssertionError(f"tile-ELL ran with a mismatched plan {bad}")
+    print(f"[build] tile-ELL kernel checks passed ({checked} cases)",
+          flush=True)
 
 
 def _gs_level(nb, bs, seed, dtype):
@@ -1108,6 +1234,12 @@ def _path_kernels(pc) -> set:
     if any(isinstance(t, bell.BlockELL) for t in (pc._A64_dev,
                                                    pc._A64_mixed)):
         names.add("bell_matvec_f64")
+    tile = (formats.TileELL, formats.TileELLStack)
+    if any(isinstance(T, tile) for lev in pc.op.levels
+           for T in (lev.A, lev.P, lev.R)):
+        names.add("tile_ell_matvec_f32")
+    if any(isinstance(t, tile) for t in (pc._A64_dev, pc._A64_mixed)):
+        names.add("tile_ell_matvec_f64")
     return names
 
 
@@ -1546,6 +1678,70 @@ def phase_tile_ell(pc):
          "reference_check_s": check_s}), flush=True)
     if not err64 <= TILE_ELL_F64_TOL:
         raise AssertionError(f"f64 twin off its host matrix by {err64:.3e}")
+    return rows
+
+
+def phase_tile_ell_kernel(pc, path):
+    """The tile-ELL kernel on every tile-ELL level and transfer of ``pc``
+    and on its f64 twin where that is tile-ELL: against the plain product
+    on the card, two launches to the same bits, timed by CUDA-graph replay
+    and after an L2 sweep beside the plain product and the bound by the
+    problem's count."""
+    import torch
+
+    from ngsamg_tpu_torch.ops import tile_ell_cuda
+    from ngsamg_tpu_torch.precond.amg import _full_f32
+    from ngsamg_tpu_torch.sparse import formats
+    from ngsamg_tpu_torch.utils.timing import cold_ms, graph_ms
+
+    tile = (formats.TileELL, formats.TileELLStack)
+    t0 = time.perf_counter()
+    ops = [(f"{what}{lvl}", T) for lvl, lev in enumerate(pc.op.levels)
+           for what, T in (("A", lev.A), ("P", lev.P), ("R", lev.R))
+           if isinstance(T, tile)]
+    A64 = pc._ensure_A64_mixed()
+    if isinstance(A64, tile):
+        ops.append(("A64", A64))
+    if not ops:
+        raise AssertionError(f"[tile-ell-kernel] {path}: no tile-ELL operator")
+    rows = []
+    for label, T in ops:
+        L = T.launch
+        dt = L.vals.dtype
+        g = torch.Generator(device="cuda").manual_seed(500 + len(rows))
+        x = torch.randn((T.ncols_pad, 1), generator=g, dtype=torch.float64,
+                        device="cuda").to(dt)
+        name = f"tile-ELL {path} {label} {dt}"
+        key = _tile_ell_key(T)
+        before = tile_ell_cuda.LAUNCHES[key]
+        with _full_f32():
+            _, rel = _check_kernel(T, x, formats.matvec,
+                                   lambda A, v: A.product(v),
+                                   TILE_ELL_KERNEL_TOL[str(dt)], name)
+            _same_bits(formats.matvec, T, x, name)
+            if tile_ell_cuda.LAUNCHES[key] != before + 3:
+                raise AssertionError(f"{name}: {key} did not launch")
+            us = 1e3 * graph_ms(lambda: formats.matvec(T, x))
+            swept = 1e3 * cold_ms(lambda: formats.matvec(T, x))
+            plain_us = 1e3 * graph_ms(lambda: T.product(x), n=10, reps=3)
+            plain_swept = 1e3 * cold_ms(lambda: T.product(x), reps=5)
+        item = x.element_size()
+        nbytes = (L.nnz * (item + 4) + 4 * (T.nrows + 1)
+                  + item * (T.ncols_pad + T.nrows))
+        bound, by = _bound_ms(nbytes, 2 * L.nnz, dt)
+        row = {"path": path, "op": label, "format": type(T).__name__,
+               "dtype": str(dt).split(".")[-1], "rows": T.nrows,
+               "cols_pad": T.ncols_pad, "nnz": L.nnz,
+               "stored": L.vals.numel(), "mean": L.mean,
+               "longest": L.longest, "plan": L.plan.variant,
+               "rel_err": rel, "us": us, "swept_us": swept,
+               "plain_us": plain_us, "plain_swept_us": plain_swept,
+               "bytes": nbytes, "bound_us": bound * 1e3, "bound_by": by,
+               "share_swept": bound * 1e3 / swept}
+        print("[tile-ell-kernel] " + json.dumps(row), flush=True)
+        rows.append(row)
+    print(f"[tile-ell-kernel] {path}: {time.perf_counter() - t0:.1f} s",
+          flush=True)
     return rows
 
 
@@ -2186,6 +2382,7 @@ def phase_gs(p):
     GS, V-cycle), then with Chebyshev, on the card."""
     _pc, gs = _solve_run(p, _options(), "gs")
     phase_gs_kernel(_pc, p)
+    phase_tile_ell_kernel(_pc, "gs")
     del _pc
     _pc, cheb = _solve_run(p, _options("chebyshev"), "chebyshev")
     on_path = sorted(_path_kernels(_pc))
@@ -4161,6 +4358,7 @@ def main() -> int:
     del api_pc, p
     _up, upc, _uout = phase_unstructured()
     phase_tile_ell(upc)
+    phase_tile_ell_kernel(upc, "unstructured")
     del _up, upc
     unstruct_errs = phase_unstructured_reference()
     phase_mis()

@@ -54,6 +54,7 @@ _ARGS = {
                            _P, _P, _P],
     "ngsamg_gs_sweep": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L,
                         _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "ngsamg_tile_ell_matvec": [_P, _P, _P, _P, _L, _I, _I, _L, _P, _P, _P],
 }
 _SIGNATURES = {
     f"{name}_{sfx}": args

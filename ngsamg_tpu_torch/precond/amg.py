@@ -255,7 +255,9 @@ class SolveInfo:
     ``host_residuals``: the f64 residuals computed on the host (scipy), 0
     where the defect correction runs on the device;
     ``tile_ell_matvecs``: its applications of ``TileELL`` and
-    ``TileELLStack`` operators, levels, transfers and f64 twin."""
+    ``TileELLStack`` operators, levels, transfers and f64 twin;
+    ``tile_ell_kernel_matvecs``: those of them the hand-written tile-ELL
+    kernel ran (all of them on the card, none on the CPU)."""
 
     iterations: int
     relres: float
@@ -269,6 +271,7 @@ class SolveInfo:
     gs_kernel_steps: int = 0
     host_residuals: int = 0
     tile_ell_matvecs: int = 0
+    tile_ell_kernel_matvecs: int = 0
 
 
 class AMGPreconditioner:
@@ -1078,6 +1081,7 @@ class AMGPreconditioner:
         info.gs_kernel_steps = scope.gs_kernel_steps
         info.host_residuals = scope.host_residuals
         info.tile_ell_matvecs = scope.tile_ell_matvecs
+        info.tile_ell_kernel_matvecs = scope.tile_ell_kernel_matvecs
         return x, info
 
     def _solve(self, b, tol, maxiter, use_refinement, return_device, mixed):

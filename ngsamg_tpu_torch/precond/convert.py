@@ -69,7 +69,8 @@ def _format(A, device):
         return _tile_ell(A, device)
     if kind == "TileELLStack":
         return formats.TileELLStack(
-            blocks=tuple(_tile_ell(b, device) for b in A.blocks),
+            blocks=tuple(_tile_ell(b, device, bucket=True)
+                         for b in A.blocks),
             nrows=int(A.nrows),
             nrows_pad=int(A.nrows_pad),
             ncols_pad=int(A.ncols_pad),
@@ -91,7 +92,7 @@ def _format(A, device):
     raise TypeError(f"level format {kind} has no port")
 
 
-def _tile_ell(A, device) -> formats.TileELL:
+def _tile_ell(A, device, bucket=False) -> formats.TileELL:
     return formats.TileELL(
         data=_t(A.data, device),
         cols=_index(A.cols, device),
@@ -100,6 +101,7 @@ def _tile_ell(A, device) -> formats.TileELL:
         ncols_pad=int(A.ncols_pad),
         tile_m=int(A.tile_m),
         chunk_c=int(A.chunk_c),
+        bucket=bucket,
     )
 
 

@@ -13,10 +13,14 @@ hierarchies stage (see ``format_from_stencil`` and ``choose_format``):
   one distinct-column slot list, optionally bucketed by slot count and
   gathering 8-wide column chunks per slot. Unstructured levels and the
   explicit transfers. The JAX package computes this matvec in XLA (no
-  Pallas kernel), and so does the port, in plain torch: one gather and one
-  batched product. Each application adds one to the solve's
+  Pallas kernel). On the card the port runs one hand-written kernel
+  (ops/tile_ell_cuda.py) on a compact copy of the nonzeros, staged once
+  when the operator is built (a stack one copy, one launch); the plain
+  version, ``TileELL.product``, is one gather and one batched product a
+  bucket. Each application adds one to the solve's
   ``SolveInfo.tile_ell_matvecs`` (``timers.count_tile_ell_matvecs``, a
-  host integer), a stack once whatever its buckets.
+  host integer), a stack once whatever its buckets, and each kernel launch
+  one to ``SolveInfo.tile_ell_kernel_matvecs``.
 * :class:`DiaWindow` — a row block of a full-storage DIA matrix over a
   longer x (a rank's rows of a row-sharded level). Matvec: K2 on the
   window.
@@ -38,9 +42,9 @@ transfers, the sharded formats of parallel/), applies itself through its
 Vectors are (nrows_pad, bs) tensors, as in the JAX package. The matvec of
 a CUDA tensor always runs the hand-written kernel where there is one (at
 every size); a CPU tensor takes the kernel's plain PyTorch version. The
-batched products (tile-ELL, dense) follow torch's float32 matmul precision,
-which is full f32 by default; ``AMGPreconditioner.solve``/``apply`` force
-it for their scope (precond/amg.py ``_full_f32``).
+batched products (the plain tile-ELL, dense) follow torch's float32 matmul
+precision, which is full f32 by default; ``AMGPreconditioner.solve``/
+``apply`` force it for their scope (precond/amg.py ``_full_f32``).
 """
 
 from __future__ import annotations
@@ -53,7 +57,7 @@ import scipy.sparse as sp
 import torch
 
 from .. import native
-from ..ops import dia_cuda, stencil_cuda
+from ..ops import dia_cuda, stencil_cuda, tile_ell_cuda
 from ..utils import timers
 from . import bell as _bell
 
@@ -141,10 +145,14 @@ class TileELL:
     """Tile-ELL: M-row tiles sharing one DISTINCT-column slot list.
 
     data[t, k, c, m] = A[t*M + m, cols[t, k]*C + c] (zero where absent;
-    no ``c`` axis when C == 1). The matvec gathers C consecutive x scalars
-    per (tile, slot) — T*K*C values instead of one per nonzero — and runs a
-    dense (K*C, M) product per tile. ``cols`` is int64, the index dtype of
-    torch's gathers on both CPU and CUDA.
+    no ``c`` axis when C == 1). The plain product gathers C consecutive x
+    scalars per (tile, slot) — T*K*C values instead of one per nonzero —
+    and runs a dense (K*C, M) product per tile. ``cols`` is int64, the
+    index dtype of torch's gathers on both CPU and CUDA. On a CUDA device
+    the operator also holds ``launch``, the kernel's compact copy of its
+    nonzeros and plan (ops/tile_ell_cuda.py ``stage``), made here once;
+    ``bucket``: a bucket of a :class:`TileELLStack`, whose one copy spans
+    all its buckets, so a bucket stages none and is not applied alone.
     """
 
     data: torch.Tensor  # (T, K, M), or (T, K, C, M) chunked
@@ -154,10 +162,20 @@ class TileELL:
     ncols_pad: int  # padded input vector length (multiple of chunk_c)
     tile_m: int
     chunk_c: int = 1  # column-chunk width gathered per slot
+    bucket: bool = False
+    launch: object = field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        on_card = self.data.device.type == "cuda" and not self.bucket
+        object.__setattr__(self, "launch",
+                           tile_ell_cuda.stage(self) if on_card else None)
+
+    def __reduce__(self):
+        return _rebuild(self)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         timers.count_tile_ell_matvecs(1)
-        return self.product(x)
+        return _tile_ell_apply(self, x)
 
     def product(self, x: torch.Tensor) -> torch.Tensor:
         """Gather one column chunk of x per slot, then one (1 x K*C) @
@@ -175,17 +193,43 @@ class TileELL:
 class TileELLStack:
     """Bucketed TileELL: contiguous tile ranges with per-bucket slot
     counts (rows are pre-permuted so tiles sort by descending column
-    union, ``plan_reorder``); the matvec concatenates the buckets' outputs."""
+    union, ``plan_reorder``). On a CUDA device ``launch`` is one compact
+    copy over all the buckets, in row order, and the matvec one launch;
+    the plain ``product`` concatenates the buckets' products."""
 
     blocks: tuple  # tuple[TileELL, ...] over contiguous row ranges
     nrows: int
     nrows_pad: int  # == sum(b.nrows_pad)
     ncols_pad: int
     tile_m: int
+    launch: object = field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        on_card = self.blocks[0].data.device.type == "cuda"
+        object.__setattr__(self, "launch",
+                           tile_ell_cuda.stage(self) if on_card else None)
+
+    def __reduce__(self):
+        return _rebuild(self)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         timers.count_tile_ell_matvecs(1)
+        return _tile_ell_apply(self, x)
+
+    def product(self, x: torch.Tensor) -> torch.Tensor:
+        """The buckets' plain products, concatenated; the matvec,
+        uncounted."""
         return torch.cat([b.product(x) for b in self.blocks])
+
+
+def _tile_ell_apply(A, x: torch.Tensor) -> torch.Tensor:
+    """The hand-written kernel for a CUDA tensor (it raises where it
+    cannot run: no fallback), the plain product for a CPU one."""
+    if x.device.type != "cuda":
+        return A.product(x)
+    y = tile_ell_cuda.tile_ell_matvec(A, x)
+    timers.count_tile_ell_kernel_matvecs(1)
+    return y
 
 
 @dataclass(frozen=True)
@@ -481,7 +525,7 @@ def _fill_tiles(slots, t0: int, t1: int, K: int, chunk: int, dtype):
     return data, cols
 
 
-def _tile_ell(data, cols, nrows, ncols_pad, chunk, device):
+def _tile_ell(data, cols, nrows, ncols_pad, chunk, device, bucket=False):
     return TileELL(
         data=_tensor(data, device),
         cols=_tensor(cols, device),
@@ -490,6 +534,7 @@ def _tile_ell(data, cols, nrows, ncols_pad, chunk, device):
         ncols_pad=ncols_pad,
         tile_m=TILE_M,
         chunk_c=chunk,
+        bucket=bucket,
     )
 
 
@@ -607,7 +652,8 @@ def tile_ell_stack_from_scipy(
     for t0, (data, cols) in zip(bounds, fills):
         rows = min(max(nr - t0 * TILE_M, 0), data.shape[0] * TILE_M)
         blocks.append(
-            _tile_ell(data, cols, rows, nc_pad, TILE_CHUNK, device)
+            _tile_ell(data, cols, rows, nc_pad, TILE_CHUNK, device,
+                      bucket=True)
         )
     return TileELLStack(
         blocks=tuple(blocks),

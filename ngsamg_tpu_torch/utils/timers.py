@@ -29,7 +29,9 @@ Always recorded, while a recorder is current (``recording``, ``solving``):
   computed on the host (:func:`count_host_residuals`, the same way), and
   the applications of tile-ELL operators (:func:`count_tile_ell_matvecs`,
   the same way: one a ``TileELL`` or ``TileELLStack`` matvec, a stack once
-  whatever its buckets, f32 cycle and f64 twin alike).
+  whatever its buckets, f32 cycle and f64 twin alike) and of those the
+  hand-written tile-ELL kernel ran (:func:`count_tile_ell_kernel_matvecs`,
+  the same way: one a launch, a stack's one launch once).
 
 Only with tracing on (:class:`tracing`; off by default), where each site
 costs one check of the module flag ``ON`` and allocates nothing when it is
@@ -149,6 +151,7 @@ class Recorder:
         self.gs_kernel_steps = 0  # of them, run by the sweep kernel
         self.host_residuals = 0  # f64 residuals computed on the host
         self.tile_ell_matvecs = 0  # tile-ELL operator applications
+        self.tile_ell_kernel_matvecs = 0  # of them, run by the kernel
         self._solve = 0
         self._stack: list[Span] = []
         self.anchor = (time.time_ns(), time.perf_counter_ns())
@@ -294,10 +297,11 @@ class solving:
     host; with tracing on, also the root ``solve`` span. After the block:
     ``host_syncs``, ``sync_wait_s``, ``host_s``, ``dispatch_s`` (the host's
     time less its time blocked in reads), ``colour_steps``,
-    ``gs_kernel_steps``, ``host_residuals`` and ``tile_ell_matvecs``."""
+    ``gs_kernel_steps``, ``host_residuals``, ``tile_ell_matvecs`` and
+    ``tile_ell_kernel_matvecs``."""
 
     host_syncs = colour_steps = gs_kernel_steps = host_residuals = 0
-    tile_ell_matvecs = 0
+    tile_ell_matvecs = tile_ell_kernel_matvecs = 0
     sync_wait_s = host_s = dispatch_s = 0.0
 
     def __init__(self, rec: Recorder):
@@ -314,6 +318,7 @@ class solving:
         self._kernel_steps = rec.gs_kernel_steps
         self._residuals = rec.host_residuals
         self._tile_ell = rec.tile_ell_matvecs
+        self._tile_ell_kernel = rec.tile_ell_kernel_matvecs
         self._span = rec.open("solve") if ON else NULL
         self._t0 = time.perf_counter_ns()
         return self
@@ -330,6 +335,8 @@ class solving:
         self.gs_kernel_steps = rec.gs_kernel_steps - self._kernel_steps
         self.host_residuals = rec.host_residuals - self._residuals
         self.tile_ell_matvecs = rec.tile_ell_matvecs - self._tile_ell
+        self.tile_ell_kernel_matvecs = (rec.tile_ell_kernel_matvecs
+                                        - self._tile_ell_kernel)
         self.host_s = (t1 - self._t0) / 1e9
         self.dispatch_s = self.host_s - self.sync_wait_s
 
@@ -364,6 +371,14 @@ def count_tile_ell_matvecs(n: int) -> None:
     rec = _CURRENT.get()
     if rec is not None:
         rec.tile_ell_matvecs += n
+
+
+def count_tile_ell_kernel_matvecs(n: int) -> None:
+    """Adds ``n`` tile-ELL applications that the hand-written kernel ran
+    to the current recorder (nothing where none is current)."""
+    rec = _CURRENT.get()
+    if rec is not None:
+        rec.tile_ell_kernel_matvecs += n
 
 
 def blocking(fn, *args, **kw):

@@ -43,8 +43,9 @@ time by program span, and one JSON line with:
   that falls in the root ``solve`` span's self time;
 - ``colour_steps``: the profiled solve's ``SolveInfo.colour_steps`` (the
   GS sweeps' colour steps, 0 under Chebyshev), ``gs_kernel_steps``,
-  those of them the hand-written sweep kernel ran, and
-  ``tile_ell_matvecs``, its applications of tile-ELL operators.
+  those of them the hand-written sweep kernel ran,
+  ``tile_ell_matvecs``, its applications of tile-ELL operators, and
+  ``tile_ell_kernel_matvecs``, those of them the tile-ELL kernel ran.
 
 ``--blocks S`` then times warm solves in alternating blocks of ``S``
 seconds, tracing off, on, on, off, and prints each block's mean solve time,
@@ -382,6 +383,8 @@ def main(argv=None) -> int:
         "colour_steps": getattr(info, "colour_steps", None),
         "gs_kernel_steps": getattr(info, "gs_kernel_steps", None),
         "tile_ell_matvecs": getattr(info, "tile_ell_matvecs", None),
+        "tile_ell_kernel_matvecs": getattr(info, "tile_ell_kernel_matvecs",
+                                           None),
         "setup": setup,
         "warm_solve_ms": [w * 1e3 for w in walls],
         "warm_solve_median_ms": warm * 1e3,

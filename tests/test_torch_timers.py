@@ -8,7 +8,8 @@ span and leaves the answers bit for bit as they were; every blocking read
 of a solve is counted, and so are the multicolour GS sweeps' colour
 steps (``SolveInfo.colour_steps``), each sweep a ``gs.sweep`` span inside
 its ``cycle.level`` with tracing on, and the tile-ELL operators'
-applications (``SolveInfo.tile_ell_matvecs``), the cluster correction's
+applications (``SolveInfo.tile_ell_matvecs``, and those of them the
+tile-ELL kernel ran, ``tile_ell_kernel_matvecs``), the cluster correction's
 two applies a cycle ``cluster.apply`` spans inside its ``pcg.iter``. CPU only: the card's trace (K1 beside
 the ``cycle.level`` spans) is checked by ``chip_smoke.py`` ``[timers]``.
 """
@@ -555,6 +556,31 @@ def test_no_tile_ell_matvec_off_tile_ell(setups, case):
     p, pc, kw = setups[case]
     _x, info = pc.solve(p.b, tol=1e-8, **kw)
     assert info.tile_ell_matvecs == 0
+
+
+def test_tile_ell_kernel_matvecs_in_solve_info_and_recorder(unstructured):
+    """``SolveInfo.tile_ell_kernel_matvecs`` and the recorder's count: a
+    CPU solve runs the plain product, so none of its tile-ELL matvecs is
+    the kernel's; the counter adds to the solve's scope and the recorder
+    that is current, and to nothing where none is."""
+    p, pc = unstructured
+    before = pc.trace_.tile_ell_kernel_matvecs
+    _x, info = pc.solve(p.b, tol=1e-8)
+    assert info.tile_ell_matvecs > 0 and info.tile_ell_kernel_matvecs == 0
+    assert pc.trace_.tile_ell_kernel_matvecs == before
+    assert ngsamg_tpu_torch.precond.amg.SolveInfo(
+        iterations=1, relres=0.0).tile_ell_kernel_matvecs == 0
+    rec = timers.Recorder()
+    with timers.solving(rec) as scope:
+        timers.count_tile_ell_kernel_matvecs(3)
+        timers.count_tile_ell_matvecs(4)
+    assert (scope.tile_ell_kernel_matvecs, scope.tile_ell_matvecs) == (3, 4)
+    assert rec.tile_ell_kernel_matvecs == 3
+    with timers.solving(rec) as scope:
+        pass
+    assert scope.tile_ell_kernel_matvecs == 0
+    timers.count_tile_ell_kernel_matvecs(2)  # no recorder current
+    assert rec.tile_ell_kernel_matvecs == 3
 
 
 def test_cluster_apply_spans_wrap_every_cycle(unstructured):
